@@ -1,0 +1,123 @@
+"""muygpys_torch package rules: imports, configuration, device selection,
+and the kernel build machinery as far as it runs without a card."""
+
+import ast
+import ctypes
+import os
+import pathlib
+
+import pytest
+import torch
+
+from muygpys_torch import config
+from muygpys_torch.gpu import _build
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def _port_files():
+    return sorted((ROOT / "muygpys_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"
+    ]
+
+
+@pytest.mark.parametrize(
+    "path", _port_files(), ids=lambda p: str(p.relative_to(ROOT))
+)
+def test_port_imports_no_jax(path):
+    """The port and its smoke script import neither JAX nor the JAX
+    package, at top level or inside functions."""
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            root = name.split(".")[0]
+            assert root not in ("jax", "jaxlib", "muygpys_tpu"), (
+                f"{path.name} imports {name}"
+            )
+
+
+def test_ftype_and_update():
+    # the test bootstrap runs with MUYGPYS_FTYPE=64
+    assert config.state.ftype == int(os.environ.get("MUYGPYS_FTYPE", "32"))
+    old = config.state.ftype
+    try:
+        config.update("ftype", 32)
+        assert config.ftype() == torch.float32
+        config.update("muygpys_ftype", "64")
+        assert config.ftype() == torch.float64
+        with pytest.raises(ValueError, match="32 or 64"):
+            config.update("ftype", 16)
+        with pytest.raises(ValueError, match="unknown config key"):
+            config.update("dtype", 32)
+    finally:
+        config.update("ftype", old)
+
+
+def test_env_ftype_validation(monkeypatch):
+    monkeypatch.setenv("MUYGPYS_FTYPE", "16")
+    with pytest.raises(ValueError, match="MUYGPYS_FTYPE"):
+        config._env_ftype()
+
+
+def test_full_precision_products():
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_device_selection(monkeypatch):
+    assert config.device("cpu") == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        config.device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        config.device("cuda")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert config.device() == torch.device("cuda")
+
+
+def test_library_name_tracks_source(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    src = tmp_path / "k.cu"
+    src.write_text("// one")
+    first = _build.library_path("k")
+    src.write_text("// two")
+    second = _build.library_path("k")
+    assert first != second and first.parent == _build.BUILD_DIR
+    assert first.name.startswith("libk_") and first.suffix == ".so"
+
+
+def test_build_without_nvcc_raises(tmp_path, monkeypatch):
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build.shutil, "which", lambda _: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "absent"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build(["knn"])
+
+
+def test_sources_are_present():
+    for name in _build.SOURCES:
+        text = (_build.CSRC / f"{name}.cu").read_text()
+        assert "muygpys_cuda_error_string" in text
+        assert "cudaGetLastError" in text
+        assert "muygpys_tpu/pallas/" in text  # names the kernel it replaces
+
+
+def test_launch_counters_reset():
+    _build.launches["knn_candidates"] += 2
+    _build.reset_launches()
+    assert set(_build.launches) == {
+        "fused_predict_coords", "knn_candidates", "knn_candidates_pruned"
+    }
+    assert all(v == 0 for v in _build.launches.values())
+
+
+def test_check_passes_success_code():
+    _build.check(0, "knn", "knn_candidates")  # no library needed for 0
+    assert _build.ptr(None).value is None
+    assert isinstance(_build.ptr(torch.zeros(2)), ctypes.c_void_p)
