@@ -8,26 +8,44 @@ Run from the repository root with no arguments:
 Phases (any failure raises and the script exits non-zero):
 
 1. card: the card's name and power limit (nvidia-smi);
-2. build: compile every CUDA kernel of the serving path (one nvcc per
-   source, started together) and report the seconds;
+2. build: compile every CUDA kernel of the serving and training paths (one
+   nvcc per source, started together), report the seconds and each
+   kernel's registers and spills;
 3. K1 (fused coords solve) against its plain PyTorch version on the card at
    the serving shape (n=30, d=2, r=1, B=8192) for every closed form, RBF on
    F2 and a heteroscedastic case, in f32 and f64;
 4. K3 (packed-key KNN candidates), unpruned and pruned, against its plain
    version at 50,000 x 8192, d=2, plus the cdist + topk yardstick;
-5. end to end: FastServer(engine="fused") at the headline configuration
-   (50k Morton-sorted training points, d=2, nn=30, bucket 8192, Matern 3/2,
-   ls 0.5, noise 1e-3, f32) answers three requests, one not a multiple of
-   the bucket; the same with engine="kernel" over an exact NN_Wrapper; both
-   held against the f64 reference engine on the same exact neighbours
-   (mean and variance each against its own limit); a torch.profiler trace
-   of the fused requests gives device time by kernel and the idle share;
-6. the kernels line: one JSON object with every kernel's launches on the
-   fused path, error against its plain version, times and bound;
-7. the last line: {"ok": true, "device": {...}}.
+5. serving end to end: FastServer(engine="fused") at the headline
+   configuration (50k Morton-sorted training points, d=2, nn=30, bucket
+   8192, Matern 3/2, ls 0.5, noise 1e-3, f32) answers three requests, one
+   not a multiple of the bucket; the same with engine="kernel" over an
+   exact NN_Wrapper; both held against the f64 reference engine on the same
+   exact neighbours (mean and variance each against its own limit); a
+   torch.profiler trace of the fused requests gives device time by kernel
+   and the idle share;
+6. K2 (fused LOO statistics and analytic derivatives) against its plain
+   version at the training shape (n=30, B=2048) on real neighbourhoods of
+   the 50k set: every closed form, RBF on F2, noise free on and off,
+   heteroscedastic, anisotropic (d=2) and r=2, in f32 and f64, each row
+   against its own limit;
+7. training end to end at the training headline (the same 50k points with
+   a smooth target field plus N(0, 0.1^2) noise, a LOO batch of 2048 from
+   sample_batch, Matern 3/2, free length scale and noise, lool, f32):
+   NN_Wrapper -> sample_batch -> make_train_tensors ->
+   Fused_L_BFGS_B_optimize(engine="kernel") -> optimize_scale, held against
+   the same chassis on the CPU in f64 (K2's plain version); a profiler
+   trace of K2 objective evaluations;
+8. serving the trained model: FastServer(engine="fused") against the f64
+   reference engine with the same model;
+9. the kernels line: one JSON object with every kernel's launches on its
+   path, error against its plain version, times and bound;
+10. the last line: {"ok": true, "device": {...}}.
 
-Times are CUDA-event medians.  Bounds use the H100 SXM data-sheet peaks
-(3.35 TB/s HBM, 67 TFLOP/s fp32 outside the tensor cores).
+Kernel times are CUDA-event medians over back-to-back launches; wall times
+are medians of single runs.  Bounds use the H100 SXM data-sheet peaks
+(3.35 TB/s HBM, 67 TFLOP/s fp32 outside the tensor cores; fp64 counted at
+the same rate, so an f64 bound is optimistic).
 """
 
 from __future__ import annotations
@@ -53,26 +71,61 @@ MEAN_TOL_F32 = 5e-3
 # variance compared, so a zero or wrongly scaled variance fails
 VAR_TOL_F32 = 2e-6
 
+# training headline: LOO batch, start values and bounds of the free
+# length scale and noise (tests/test_pallas_train.py's bounds)
+TRAIN_BATCH = 2048
+LS_BOUNDS, NOISE_BOUNDS = (0.01, 5.0), (1e-6, 1e-1)
+# K2 against its plain version: each row group's limit as a fraction of
+# the row's magnitude (the smallest value of the positive rows var and q,
+# the largest |value| of the others).  f64: both orders are exact to
+# ~1e-16 x the conditioning (measured <= 2.9e-11); f32: 7-10x the largest
+# spread measured on the H100 (PERF.md, PR 2)
+K2_REL = {
+    "float64": dict.fromkeys(
+        ("mean", "var", "q", "dls/mean", "dls/var", "dls/q", "dnoise/mean",
+         "dnoise/var"), 1e-9,
+    ),
+    "float32": {
+        "mean": 1e-3, "var": 5e-2, "q": 5e-2, "dls/mean": 5e-3,
+        "dls/var": 5e-3, "dls/q": 5e-3, "dnoise/mean": 5e-2,
+        "dnoise/var": 5e-3,
+    },
+}
+# the f64 objective at the card's optimum against the CPU f64 optimum's
+OBJECTIVE_RTOL = 1e-3
+# the card's f32 optimum against the CPU f64 optimum: 2x the spread measured
+# on the H100 (length scale 1.0e-2 along the flat ridge, noise 2.9e-4;
+# PERF.md, PR 2), under the length scale's 3.3e-2 from its start value;
+# the same chassis in f64 on the card: tests/test_pallas_train.py's
+# tolerances
+F32_PARAM_RTOL = {"length_scale": 2e-2, "noise": 1e-2}
+F64_PARAM_RTOL = {"length_scale": 1e-3, "noise": 1e-2}
+
 
 def log(*args):
     print(*args, flush=True)
 
 
-def time_ms(fn, reps=20, warmup=3):
-    """Median CUDA-event time of ``fn()`` in milliseconds."""
+def time_ms(fn, reps=20, warmup=3, trials=5):
+    """CUDA-event time of one ``fn()`` in milliseconds: the median over
+    ``trials`` of ``reps`` calls queued back to back between two events, so
+    the host's launch overhead hides behind the device's work instead of
+    being counted as device time (a single call between two events counts
+    the wrapper's Python work whenever the device waits for it)."""
     import torch
 
     for _ in range(warmup):
         fn()
     times = []
-    for _ in range(reps):
+    for _ in range(trials):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(reps):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / reps)
     times.sort()
     return times[len(times) // 2]
 
@@ -139,7 +192,8 @@ def phase_k1(torch, knn_inputs):
             if dtype == torch.float32 and nu == NU and not hetero:
                 ms = time_ms(lambda: fused_predict_coords_bl(*args, **kw))
                 plain_ms = time_ms(
-                    lambda: fused_predict_coords_bl_plain(*args, **kw), reps=5
+                    lambda: fused_predict_coords_bl_plain(*args, **kw),
+                    reps=3, trials=3,
                 )
                 nbytes = (n * d + d + n * r + r + 1) * 4 * B + (d + 1) * 4
                 ops = k1_ops_per_query(n, d, r) * B
@@ -166,7 +220,7 @@ def phase_k3(torch, train_sorted, queries, cand_count):
             torch.cdist(queries, train_sorted), cand_count, dim=1,
             largest=False,
         ),
-        reps=5,
+        reps=3, trials=3,
     )
     log(f"K3 yardstick torch.cdist + torch.topk: {lib_ms:.4f} ms")
     for name, prep in (
@@ -201,7 +255,7 @@ def phase_k3(torch, train_sorted, queries, cand_count):
                 prep.train_tile, prep.query_tile, prep.chunk_mask,
                 prep.lb, prep.ub,
             ),
-            reps=5,
+            reps=3, trials=3,
         )
         q_count, feat = prep.q.shape
         t_count = prep.tT.shape[1]
@@ -252,24 +306,23 @@ def serve(torch, server, requests):
     )
 
 
-def device_trace(torch, server, requests):
-    """Where the device time of the requests goes, from a profiler trace.
+def device_trace(torch, run):
+    """Where the device time of ``run()`` goes, from a profiler trace.
 
     Only device activities (kernels, copies) are summed, never the host ops
     that launched them, so no kernel counts twice; busy time is the union of
     their intervals.  The idle share divides it by the median wall time of
-    the same requests without the profiler, which slows the host."""
+    the same work without the profiler, which slows the host."""
     acts = [
         torch.profiler.ProfilerActivity.CPU,
         torch.profiler.ProfilerActivity.CUDA,
     ]
     # the first profiling session pays the tracer's start-up: discard it
     with torch.profiler.profile(activities=acts):
-        server.predict(requests[2])
+        run()
         torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
-        for req in requests:
-            server.predict(req)
+        run()
         torch.cuda.synchronize()
     spans = sorted(
         (e.time_range.start, e.time_range.end, e.name)
@@ -283,9 +336,7 @@ def device_trace(torch, server, requests):
         reach = max(reach, end)
         key = name.replace("(anonymous namespace)::", "").split("(")[0][:80]
         by_name[key] = by_name.get(key, 0.0) + (end - start)
-    wall_ms = time_ms(
-        lambda: [server.predict(r) for r in requests], reps=5, warmup=1
-    )
+    wall_ms = time_ms(run, reps=1, warmup=1)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     return dict(
         device_busy_us=busy_us if spans else None,
@@ -293,6 +344,300 @@ def device_trace(torch, server, requests):
         device_idle_share=1 - busy_us / (wall_ms * 1e3) if spans else None,
         device_activities=len(spans),
         top_device_us=top,
+    )
+
+
+def k2_ops_per_point(n, d_feat, r, noise_free):
+    """Floating-point operations of one K2 point (exp and sqrt counted as
+    one), the least the algorithm needs: K and its derivative fields are
+    symmetric, so n(n+1)/2 + n kernel evaluations."""
+    dd = d_feat or 1
+    scale = 3 * d_feat + 1 if d_feat else 1  # scaled distance
+    evaluation = scale + 9 + (4 * dd if d_feat else 2)  # K, H, the G fields
+    chol = sum((n - j) * 2 * j + (n - j) for j in range(n)) + 2 * n
+    solves = 2 * (1 + r) * n * n  # forward + backward, 1 + r columns
+    stats = 2 * n * (2 * r + 1)  # mean, var, q
+    second = (chol + 2 * r * n * n + 2 * n * r) if noise_free else 0
+    per_group = 2 * n * n + 4 * n * r + 4 * n + r * (2 * n * n + 2 * n)
+    noise_rows = 2 * n * (r + 1)
+    return ((n * (n + 1) // 2 + n) * evaluation + chol + solves + stats
+            + second + dd * per_group + noise_rows)
+
+
+def k2_row_names(r, ls_keys):
+    names = [f"mean{k}" for k in range(r)] + ["var", "q"]
+    for key in ls_keys:
+        names += [f"d{key}/mean{k}" for k in range(r)]
+        names += [f"d{key}/var", f"d{key}/q"]
+    return names + [f"dnoise/mean{k}" for k in range(r)] + ["dnoise/var"]
+
+
+def phase_k2(torch, train_d, y_d, bi, bnn):
+    """K2 against its plain version on real neighbourhoods of the 50k set,
+    each row against its own limit; returns the kernels-line numbers of
+    the training headline case (f32, isotropic Matern 3/2, noise free)."""
+    from muygpys_torch.gpu.fused_train import (
+        fused_train_stats_bl,
+        fused_train_stats_bl_plain,
+    )
+
+    bi = torch.as_tensor(bi, device="cuda")
+    bnn = torch.as_tensor(bnn, device="cuda")
+    nbrs = train_d[bnn]  # (B, n, 2)
+    diff_p = (nbrs[:, :, None, :] - nbrs[:, None, :, :]).permute(1, 2, 3, 0)
+    diff_c = (train_d[bi][:, None, :] - nbrs).permute(1, 2, 0)
+    f2_p, f2_c = (diff_p**2).sum(2), (diff_c**2).sum(1)
+    y1 = y_d[bnn].permute(1, 2, 0)  # (n, 1, B) smooth field
+    y2 = torch.cat([y1, torch.cos(3.0 * y1)], dim=1)  # r = 2
+    n, B = y1.shape[0], y1.shape[2]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    noise_nn = torch.rand((n, B), generator=gen, device="cuda") * 1e-2 + 1e-4
+    # (smoothness, metric_power, noise_free, r, anisotropic, heteroscedastic)
+    cases = [
+        (0.5, 1, False, 1, False, False),
+        (1.5, 1, True, 1, False, False),  # the training headline
+        (1.5, 1, False, 1, False, False),
+        (2.5, 1, True, 1, False, False),
+        (math.inf, 1, False, 1, False, False),
+        ("rbf", 2, True, 1, False, False),
+        (1.5, 1, False, 1, False, True),
+        (1.5, 1, True, 1, True, False),
+        (2.5, 1, True, 2, False, False),
+    ]
+    row = None
+    worst = {}
+    for dtype in (torch.float32, torch.float64):
+        tname = str(dtype)[6:]
+        limits = K2_REL[tname]
+        assert max(limits.values()) <= 0.1, (
+            "a K2 limit must stay under a tenth of its row"
+        )
+        for nu, power, noise_free, r, aniso, hetero in cases:
+            if aniso:
+                pw, cw, d_feat, ls = diff_p, diff_c, 2, [LS, 0.7]
+            else:
+                pw, cw, d_feat, ls = (
+                    f2_p.sqrt() if power == 1 else f2_p,
+                    f2_c.sqrt() if power == 1 else f2_c, 0, [LS],
+                )
+            params = torch.tensor(
+                ls + [2 * NOISE if noise_free else NOISE, NOISE],
+                dtype=dtype, device="cuda",
+            )
+            args = [t.to(dtype).contiguous() for t in
+                    (pw, cw, y2 if r == 2 else y1)] + [params]
+            nn_arg = noise_nn.to(dtype) if hetero else None
+            kw = dict(smoothness=nu, metric_power=power,
+                      noise_free=noise_free, d_feat=d_feat)
+            out = fused_train_stats_bl(*args, noise_nn=nn_arg, **kw)
+            torch.cuda.synchronize()
+            ref = fused_train_stats_bl_plain(*args, noise_nn=nn_arg, **kw)
+            assert torch.isfinite(out).all(), "K2 gave a non-finite row"
+            names = k2_row_names(
+                r, ["ls0", "ls1"] if aniso else ["ls"]
+            )
+            ratios, over = [], []
+            for i, name in enumerate(names):
+                err = float((out[i] - ref[i]).abs().max())
+                positive = name in ("var", "q")
+                mag = float(ref[i].abs().min() if positive
+                            else ref[i].abs().max())
+                kind = "/".join(
+                    part.rstrip("0123456789") for part in name.split("/")
+                )
+                ratios.append(err / mag / limits[kind])
+                key = f"{tname}/{kind}"
+                worst[key] = max(worst.get(key, 0.0), err / mag)
+                if err > limits[kind] * mag:
+                    over.append(f"{name}: {err:.3e} > {limits[kind]:.0e} x "
+                                f"{mag:.3e}")
+            log(f"K2 {tname} nu={nu} power={power} noise_free={noise_free} "
+                f"r={r} aniso={aniso} hetero={hetero}: largest error as a "
+                f"share of its limit {max(ratios):.3f} (row "
+                f"{names[ratios.index(max(ratios))]})")
+            assert not over, f"K2 disagrees with its plain version: {over}"
+            headline = (dtype == torch.float32 and nu == NU and noise_free
+                        and not aniso and r == 1)
+            if headline:
+                ms = time_ms(lambda: fused_train_stats_bl(
+                    *args, noise_nn=nn_arg, **kw))
+                plain_ms = time_ms(lambda: fused_train_stats_bl_plain(
+                    *args, noise_nn=nn_arg, **kw), reps=3, trials=3)
+                C = out.shape[0]
+                # pw is symmetric, as k2_ops_per_point counts it: the n(n+1)/2
+                # rows i >= j suffice, each a contiguous run of B values
+                nbytes = ((n * (n + 1) // 2 + n + n * r + C) * B + 3) * 4
+                ops = k2_ops_per_point(n, 0, r, True) * B
+                byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                op_ms = ops / FP32_FLOPS * 1e3
+                row = dict(
+                    max_abs_err=float((out - ref).abs().max()), ms=ms,
+                    plain_ms=plain_ms, bound_ms=max(byte_ms, op_ms),
+                    bound_by="bytes" if byte_ms > op_ms else "operations",
+                    library_ms=None,
+                )
+                log(f"K2 f32 time: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+                    f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
+                    f"{nbytes} B, {ops} flop)")
+    log("K2 worst error/magnitude by row: " + json.dumps(worst))
+    return row
+
+
+def train_model():
+    """The training headline's model, still to be trained."""
+    from muygpys_torch.convert import muygps_from_arrays
+
+    return muygps_from_arrays(
+        length_scale=LS, length_scale_bounds=LS_BOUNDS, noise=NOISE,
+        noise_bounds=NOISE_BOUNDS, smoothness=NU, scale="analytic",
+    )
+
+
+def phase_train(torch, train, y_train, nbrs, bi, bnn):
+    """Training end to end on the card, held against the same chassis on
+    the CPU in f64; returns the trained model and the phase's numbers."""
+    import contextlib
+    import io
+    import re
+
+    from muygpys_torch.convert import arrays_from_muygps
+    from muygpys_torch.gpu import _build
+    from muygpys_torch.optimize import Fused_L_BFGS_B_optimize
+    from muygpys_torch.optimize.fused_objective import (
+        make_fused_train_objective,
+    )
+
+    model = train_model()
+    train_d = torch.as_tensor(train, device="cuda")
+    y_d = torch.as_tensor(y_train, dtype=torch.float32, device="cuda")
+    # warm-up, outside the counted run: a process's first evaluation loads
+    # the epilogue's PyTorch kernels and starts autograd's device thread,
+    # and its first optimization imports scipy.optimize (~1.5 s)
+    import scipy.optimize  # noqa: F401
+
+    cw, pw, bt, bnt = model.make_train_tensors(bi, bnn, train_d, y_d)
+    make_fused_train_objective(model, bt, bnt, cw, pw)[0]({})
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    cw, pw, bt, bnt = model.make_train_tensors(bi, bnn, train_d, y_d)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    # objective evaluations, counted apart from K2's launch counter: the
+    # probe at x0 and scipy's nfev, from the chassis's verbose report
+    iters, report = [], io.StringIO()
+    with contextlib.redirect_stdout(report):
+        trained = Fused_L_BFGS_B_optimize(
+            model, bt, bnt, cw, pw, engine="kernel", verbose=True,
+            callback=lambda xk: iters.append(1),
+        )
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    trained.optimize_scale(pw, bnt)
+    torch.cuda.synchronize()
+    wall, opt_s = time.perf_counter() - t0, t2 - t1
+    launches = dict(_build.launches)
+    evals = 1 + int(re.search(r"\bnfev:\s*(\d+)", report.getvalue())[1])
+    vals = arrays_from_muygps(trained)
+    log(f"train (card, f32): length_scale {vals['length_scale']!r}, noise "
+        f"{vals['noise']!r}, sigma^2 {vals['scale']!r}; {len(iters)} L-BFGS "
+        f"iterations, {evals} objective evaluations, "
+        f"{launches['fused_train_stats']} K2 launches; "
+        f"Fused_L_BFGS_B_optimize {opt_s:.4f} s = {evals / opt_s:.1f} "
+        f"evaluations/s; {wall:.4f} s with make_train_tensors and "
+        "optimize_scale")
+    assert evals > len(iters) and launches["fused_train_stats"] >= evals, (
+        "K2 was not launched for every objective evaluation"
+    )
+    for key, (lo, hi) in (("length_scale", LS_BOUNDS),
+                          ("noise", NOISE_BOUNDS)):
+        assert lo < vals[key] < hi, f"trained {key} {vals[key]} at a bound"
+        # the bijector keeps values inside; "at a bound" means within 1e-6
+        # of the interval width of an end
+        assert min(vals[key] - lo, hi - vals[key]) > 1e-6 * (hi - lo), (
+            f"trained {key} {vals[key]} ran to a bound"
+        )
+
+    # the same chassis on the CPU in f64 (K2's plain version)
+    train64 = torch.as_tensor(train, dtype=torch.float64)
+    y64 = torch.as_tensor(y_train, dtype=torch.float64)
+    cw64, pw64, bt64, bnt64 = train_model().make_train_tensors(
+        bi, bnn, train64, y64
+    )
+    t0 = time.perf_counter()
+    ref = Fused_L_BFGS_B_optimize(
+        train_model(), bt64, bnt64, cw64, pw64, engine="kernel", device="cpu"
+    )
+    cpu_s = time.perf_counter() - t0
+    ref_vals = arrays_from_muygps(ref)
+    obj64, _ = make_fused_train_objective(
+        train_model(), bt64, bnt64, cw64, pw64, device="cpu"
+    )
+
+    def f64_objective(v):
+        return float(obj64({"length_scale": v["length_scale"],
+                            "noise": v["noise"]})[0])
+
+    v_card, v_cpu = f64_objective(vals), f64_objective(ref_vals)
+    rel = abs(v_card - v_cpu) / abs(v_cpu)
+    log(f"train (CPU, f64, plain K2, {cpu_s:.1f} s): length_scale "
+        f"{ref_vals['length_scale']!r}, noise {ref_vals['noise']!r}; f64 "
+        f"objective at the card's optimum {v_card!r}, at the CPU's "
+        f"{v_cpu!r}: relative difference {rel:.3e} (limit "
+        f"{OBJECTIVE_RTOL:.0e})")
+    assert rel <= OBJECTIVE_RTOL, "the card's optimum is not the f64 one"
+    # how flat the f64 objective is along the length scale: the card's
+    # length scale with the CPU optimum's noise
+    v_ridge = f64_objective(dict(ref_vals, length_scale=vals["length_scale"]))
+    ridge = abs(v_ridge - v_cpu) / abs(v_cpu)
+    log(f"train: the card's f32 length scale alone moves the f64 objective "
+        f"{ridge:.3e} relative (the objective is flat along the length "
+        "scale near its optimum, and f32 rounding moves L-BFGS-B's stopping "
+        "point along that ridge)")
+    # the same chassis in f64 on the card: K2's f64 build against its plain
+    # version, optimum against optimum
+    f64_launches = _build.launches["fused_train_stats"]
+    card64 = arrays_from_muygps(Fused_L_BFGS_B_optimize(
+        train_model(), *(t.cuda() for t in (bt64, bnt64, cw64, pw64)),
+        engine="kernel",
+    ))
+    assert _build.launches["fused_train_stats"] > f64_launches
+    param_rel = {}
+    for label, got, limits in (("f32", vals, F32_PARAM_RTOL),
+                               ("f64", card64, F64_PARAM_RTOL)):
+        for key, limit in limits.items():
+            err = abs(got[key] / ref_vals[key] - 1)
+            param_rel[f"{label}/{key}"] = err
+            log(f"train: card {label} {key} {got[key]!r} against the CPU f64 "
+                f"optimum: relative {err:.3e} (limit {limit:.0e})")
+            assert err <= limit, (
+                f"the card's {label} {key} is not at the CPU f64 optimum"
+            )
+    # the f32 gate sees a length scale that never left its start value
+    assert abs(LS / ref_vals["length_scale"] - 1) > (
+        F32_PARAM_RTOL["length_scale"]
+    )
+
+    # where the time of a K2 objective evaluation goes
+    obj32, names = make_fused_train_objective(trained, bt, bnt, cw, pw)
+    point = {n: vals[n] for n in names}
+    trace = device_trace(torch, lambda: [obj32(point) for _ in range(5)])
+    log(f"train: device trace of 5 objective evaluations: "
+        f"{json.dumps(trace)}; unprofiled, "
+        f"{5e6 / trace['wall_us']:.1f} evaluations/s")
+    return trained, dict(
+        length_scale=vals["length_scale"], noise=vals["noise"],
+        scale=vals["scale"], iterations=len(iters), evaluations=evals,
+        optimize_s=opt_s, evaluations_per_s=evals / opt_s, wall_s=wall,
+        steady_evaluations_per_s=5e6 / trace["wall_us"],
+        cpu_f64=dict(length_scale=ref_vals["length_scale"],
+                     noise=ref_vals["noise"], seconds=cpu_s),
+        objective_f64=dict(card=v_card, cpu=v_cpu, relative=rel,
+                           length_scale_alone=ridge),
+        card_f64=dict(length_scale=card64["length_scale"],
+                      noise=card64["noise"]),
+        parameters_relative=param_rel,
+        launches=launches, trace=trace,
     )
 
 
@@ -338,11 +683,16 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
 
-    # headline data: uniform 2-D field, seed 1
+    # headline data: uniform 2-D field, seed 1; white-noise serving
+    # targets, and for training a smooth field with N(0, 0.1^2) noise
     rng = np.random.default_rng(1)
     train = rng.uniform(size=(TRAIN, D)).astype(np.float32)
     targets = rng.standard_normal((TRAIN, 1)).astype(np.float32)
     queries = rng.uniform(size=(QUERIES + 8192 + 5000, D)).astype(np.float32)
+    y_train = (
+        np.sin(2 * np.pi * train[:, 0]) * np.cos(2 * np.pi * train[:, 1])
+        + 0.1 * rng.standard_normal(TRAIN)
+    )[:, None]
     nbrs = NN_Wrapper(train, NN)
     exact_idx, _ = nbrs.get_nns(queries[:QUERIES])
 
@@ -364,7 +714,7 @@ def main() -> int:
         cand_count,
     ))
 
-    # 5. end to end
+    # 5. serving end to end
     model = muygps_from_arrays(
         length_scale=LS, noise=NOISE, scale=1.0, smoothness=NU
     )
@@ -372,14 +722,6 @@ def main() -> int:
         queries[:QUERIES], queries[QUERIES:QUERIES + 8192],
         queries[QUERIES + 8192:],
     ]
-    config.update("ftype", 64)
-    reference = FastServer(
-        model, nbrs, train, targets, bucket=QUERIES, engine="reference"
-    )
-    config.update("ftype", 32)
-    ref_outs = [reference.predict(r) for r in requests]
-    m_ref = np.concatenate([o[0] for o in ref_outs])
-    v_ref = np.concatenate([o[1] for o in ref_outs])
     all_q = np.concatenate(requests)
 
     # neighbour sets the fused path conditions on (K3 pruned + exact
@@ -397,38 +739,64 @@ def main() -> int:
         f"queries ({(fused_sets == exact_sets).mean():.6f} of slots)")
     assert same.mean() >= 0.98
 
-    launches_by_path = {}
-    e2e = {}
-    for engine in ("fused", "kernel"):
+    def reference_outputs(served_model, served_targets):
+        config.update("ftype", 64)
+        reference = FastServer(
+            served_model, nbrs, train, served_targets, bucket=QUERIES,
+            engine="reference",
+        )
+        config.update("ftype", 32)
+        outs = [reference.predict(r) for r in requests]
+        return (np.concatenate([o[0] for o in outs]),
+                np.concatenate([o[1] for o in outs]))
+
+    def serve_checked(label, served_model, served_targets, engine, ref,
+                      tol_v):
+        """Serve the requests (counts zeroed just before, read just after)
+        and hold mean and variance to the f64 reference, each against its
+        own limit."""
+        m_ref, v_ref = ref
         server = FastServer(
-            model, nbrs, train, targets, bucket=QUERIES, engine=engine
+            served_model, nbrs, train, served_targets, bucket=QUERIES,
+            engine=engine,
         )
         server.predict(requests[2])  # warm-up
         torch.cuda.synchronize()
         _build.reset_launches()
         mean, var, rate = serve(torch, server, requests)
-        launches_by_path[engine] = dict(_build.launches)
+        launches = dict(_build.launches)
         assert mean.shape == (len(all_q), 1) and var.shape == (len(all_q),)
         assert np.isfinite(mean).all() and np.isfinite(var).all()
         mask = same if engine == "fused" else np.ones(len(all_q), bool)
         err_m = float(np.abs(mean - m_ref)[mask].max())
         err_v = float(np.abs(var - v_ref)[mask].max())
-        e2e[engine] = dict(
-            preds_per_sec=rate, mean_max_abs_err=err_m,
-            var_max_abs_err=err_v, launches=launches_by_path[engine],
-        )
         v_min = float(np.abs(v_ref)[mask].min())
-        log(f"e2e {engine}: {rate:.1f} predictions/s over "
+        log(f"{label} {engine}: {rate:.1f} predictions/s over "
             f"{len(all_q)} queries in 3 requests; vs f64 reference on the "
             f"same exact neighbours: mean {err_m:.3e} (tol {MEAN_TOL_F32}), "
-            f"var {err_v:.3e} (tol {VAR_TOL_F32}; reference var min "
+            f"var {err_v:.3e} (tol {tol_v:.3e}; reference var min "
             f"{v_min:.3e} median {float(np.median(v_ref)):.3e}); "
-            f"launches {launches_by_path[engine]}")
-        assert VAR_TOL_F32 <= 0.1 * v_min, "variance gate too loose"
-        assert err_m <= MEAN_TOL_F32, f"e2e {engine} mean off: {err_m}"
-        assert err_v <= VAR_TOL_F32, f"e2e {engine} var off: {err_v}"
+            f"launches {launches}")
+        assert tol_v <= 0.1 * v_min, "variance gate too loose"
+        assert err_m <= MEAN_TOL_F32, f"{label} {engine} mean off: {err_m}"
+        assert err_v <= tol_v, f"{label} {engine} var off: {err_v}"
+        return server, dict(
+            preds_per_sec=rate, mean_max_abs_err=err_m,
+            var_max_abs_err=err_v, launches=launches,
+        )
+
+    ref = reference_outputs(model, targets)
+    launches_by_path = {}
+    e2e = {}
+    for engine in ("fused", "kernel"):
+        server, e2e[engine] = serve_checked(
+            "e2e", model, targets, engine, ref, VAR_TOL_F32
+        )
+        launches_by_path[engine] = e2e[engine]["launches"]
         if engine == "fused":
-            trace = device_trace(torch, server, requests)
+            trace = device_trace(
+                torch, lambda: [server.predict(r) for r in requests]
+            )
             e2e[engine]["trace"] = trace
             log(f"e2e fused device trace: {json.dumps(trace)}")
     fused_launches = launches_by_path["fused"]
@@ -438,24 +806,60 @@ def main() -> int:
     assert launches_by_path["kernel"]["fused_predict_coords"] > 0
     log("e2e: " + json.dumps(e2e))
 
-    # 6. kernels line
+    # 6. K2 on real neighbourhoods: a LOO batch of the training headline
+    from muygpys_torch.optimize import sample_batch
+
+    bi, bnn = sample_batch(
+        nbrs, TRAIN_BATCH, TRAIN, rng=np.random.default_rng(2)
+    )
+    rows["fused_train_stats"] = phase_k2(
+        torch, train_d, torch.as_tensor(y_train, dtype=torch.float32,
+                                        device="cuda"), bi, bnn,
+    )
+
+    # 7. training end to end
+    trained, train_numbers = phase_train(
+        torch, train, y_train, nbrs, bi, bnn
+    )
+    launches_by_path["train"] = train_numbers.pop("launches")
+    assert launches_by_path["train"]["fused_train_stats"] > 0
+    log("train: " + json.dumps(train_numbers))
+
+    # 8. serving the trained model (variances scale with sigma^2, and so
+    # does their f32 rounding)
+    _, served = serve_checked(
+        "trained", trained, y_train, "fused",
+        reference_outputs(trained, y_train),
+        VAR_TOL_F32 * train_numbers["scale"],
+    )
+    assert served["launches"]["fused_predict_coords"] > 0
+    assert served["launches"]["knn_candidates_pruned"] > 0
+
+    # 9. kernels line: launches on each kernel's path (serving: fused;
+    # training: train), counted from zero just before the path ran
     meta = {
         "fused_predict_coords": (
             "muygpys_torch/gpu/csrc/fused_predict.cu",
-            "muygpys_tpu/pallas/fused_predict.py:373",
+            "muygpys_tpu/pallas/fused_predict.py:373", "fused",
         ),
         "knn_candidates": (
             "muygpys_torch/gpu/csrc/knn.cu", "muygpys_tpu/pallas/knn.py:217",
+            "fused",
         ),
         "knn_candidates_pruned": (
             "muygpys_torch/gpu/csrc/knn.cu", "muygpys_tpu/pallas/knn.py:451",
+            "fused",
+        ),
+        "fused_train_stats": (
+            "muygpys_torch/gpu/csrc/fused_train.cu",
+            "muygpys_tpu/pallas/fused_train.py:449", "train",
         ),
     }
     kernels = []
-    for name, (source, replaces) in meta.items():
+    for name, (source, replaces, path) in meta.items():
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=fused_launches[name],
+            launches=launches_by_path[path][name],
             paths={p: c[name] for p, c in launches_by_path.items()},
             **rows[name],
         ))

@@ -1,19 +1,23 @@
-"""Carry a trained model across from plain arrays.
+"""Carry a model across from plain arrays, and its values back out.
 
-A model trained elsewhere (for example by :mod:`muygpys_tpu`, read through
-its own getters ``deformation.length_scale()``, ``kernel.smoothness()``,
-``noise()``, ``scale()``) is rebuilt here from numpy arrays and strings, so
-no object of the other package crosses over.
+A model built or trained elsewhere (for example by :mod:`muygpys_tpu`, read
+through its own getters ``deformation.length_scale()``, ``get_bounds()``,
+``kernel.smoothness()``, ``noise()``, ``scale()``) is rebuilt here from
+numpy numbers and strings, so no object of the other package crosses over:
+a trained model with fixed values, or a model still to be trained with its
+free parameters' bounds and an analytic scale.  :func:`arrays_from_muygps`
+returns a model's values as numpy numbers.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 
 from muygpys_torch.gp.deformation import Anisotropy, F2, Isotropy, l2
 from muygpys_torch.gp.hyperparameter import (
+    AnalyticScale,
     FixedScale,
     Parameter,
     VectorParameter,
@@ -25,6 +29,10 @@ from muygpys_torch.gp.noise import HeteroscedasticNoise, HomoscedasticNoise
 _METRICS = {"l2": l2, "F2": F2}
 
 
+def _bounds(b):
+    return "fixed" if isinstance(b, str) else tuple(float(v) for v in b)
+
+
 def muygps_from_arrays(
     length_scale,
     noise=None,
@@ -33,32 +41,46 @@ def muygps_from_arrays(
     kernel: str = "matern",
     metric: str = "l2",
     measurement_noise: Optional[np.ndarray] = None,
+    length_scale_bounds="fixed",
+    noise_bounds="fixed",
 ) -> MuyGPS:
-    """Build a :class:`MuyGPS` from trained values.
+    """Build a :class:`MuyGPS` from numbers.
 
     Args:
         length_scale: scalar (isotropic) or one value per feature
             (anisotropic).
         noise: homoscedastic nugget; ignored when ``measurement_noise`` is
             given.
-        scale: trained variance scale sigma^2.
+        scale: a trained variance scale sigma^2 (a ``FixedScale`` carrying
+            it), or ``"analytic"`` for an ``AnalyticScale`` to be optimized.
         smoothness: Matern nu (closed forms only); unused for RBF.
         kernel: ``"matern"`` or ``"rbf"``.
         metric: ``"l2"`` or ``"F2"``.
         measurement_noise: heteroscedastic per-neighbor noise tensor; makes
             the model heteroscedastic.
+        length_scale_bounds: ``"fixed"`` or ``(lower, upper)``; anisotropic
+            models take one such entry per feature or one shared by all.
+        noise_bounds: ``"fixed"`` or ``(lower, upper)``.
     """
     if metric not in _METRICS:
         raise ValueError(f"unknown metric {metric!r} (l2, F2)")
     ls = np.asarray(length_scale, dtype=float)
     if ls.ndim == 0:
         deformation = Isotropy(
-            _METRICS[metric], length_scale=Parameter(float(ls))
+            _METRICS[metric],
+            length_scale=Parameter(float(ls), _bounds(length_scale_bounds)),
         )
     else:
+        per = length_scale_bounds
+        if isinstance(per, str) or all(
+            isinstance(v, (int, float)) for v in per
+        ):
+            per = [per] * len(ls)  # one entry shared by every feature
         deformation = Anisotropy(
             _METRICS[metric],
-            length_scale=VectorParameter(*(Parameter(float(v)) for v in ls)),
+            length_scale=VectorParameter(*(
+                Parameter(float(v), _bounds(b)) for v, b in zip(ls, per)
+            )),
         )
     if kernel == "matern":
         kern = Matern(
@@ -72,7 +94,34 @@ def muygps_from_arrays(
     if measurement_noise is not None:
         noise_fn = HeteroscedasticNoise(np.asarray(measurement_noise))
     else:
-        noise_fn = HomoscedasticNoise(float(np.asarray(noise)))
-    scale_fn = FixedScale()
-    scale_fn._set(float(np.asarray(scale).reshape(-1)[0]))
+        noise_fn = HomoscedasticNoise(
+            float(np.asarray(noise)), _bounds(noise_bounds)
+        )
+    if isinstance(scale, str):
+        if scale != "analytic":
+            raise ValueError(f"unknown scale {scale!r} (a number, 'analytic')")
+        scale_fn = AnalyticScale()
+    else:
+        scale_fn = FixedScale()
+        scale_fn._set(float(np.asarray(scale).reshape(-1)[0]))
     return MuyGPS(kernel=kern, noise=noise_fn, scale=scale_fn)
+
+
+def arrays_from_muygps(muygps: MuyGPS) -> Dict[str, object]:
+    """The model's values as numpy numbers: ``length_scale`` (a float, or
+    an array under anisotropy), ``noise`` (a float, or the heteroscedastic
+    array), ``scale`` and, for Matern, ``smoothness``."""
+    kernel = muygps.kernel
+    ls = np.asarray(kernel.deformation.length_scale(), dtype=float)
+    noise = muygps.noise()
+    out = {
+        "length_scale": float(ls) if ls.ndim == 0 else ls,
+        "noise": (
+            noise.cpu().numpy() if isinstance(muygps.noise, HeteroscedasticNoise)
+            else float(noise)
+        ),
+        "scale": float(np.asarray(muygps.scale()).reshape(-1)[0]),
+    }
+    if isinstance(kernel, Matern):
+        out["smoothness"] = float(kernel.smoothness())
+    return out

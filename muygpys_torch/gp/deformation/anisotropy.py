@@ -2,6 +2,8 @@
 
 Counterpart of :class:`muygpys_tpu.gp.deformation.Anisotropy`: the tensors
 are feature *differences*, scaled per feature before the metric collapse.
+The length scales are the named parameters ``length_scale0``,
+``length_scale1``, ...
 """
 
 from __future__ import annotations
@@ -9,7 +11,10 @@ from __future__ import annotations
 import torch
 
 from muygpys_torch.gp.deformation.metric import MetricFn
-from muygpys_torch.gp.hyperparameter import VectorParameter
+from muygpys_torch.gp.hyperparameter import (
+    NamedVectorParameter,
+    VectorParameter,
+)
 
 
 class Anisotropy:
@@ -22,17 +27,18 @@ class Anisotropy:
                 f"{type(length_scale)}"
             )
         self.metric = metric
-        self.length_scale = length_scale
+        self.length_scale = NamedVectorParameter("length_scale", length_scale)
 
-    def __call__(self, diffs, length_scale=None):
+    def __call__(self, diffs, **length_scales):
         if diffs.shape[-1] != len(self.length_scale):
             raise ValueError(
                 f"difference tensor of shape {tuple(diffs.shape)} must have "
                 f"final dimension size of {len(self.length_scale)}"
             )
-        if length_scale is None:
-            length_scale = self.length_scale()
-        ls = torch.as_tensor(length_scale, dtype=diffs.dtype, device=diffs.device)
+        ls = torch.stack([
+            torch.as_tensor(v, dtype=diffs.dtype, device=diffs.device)
+            for v in self.length_scale.values(**length_scales)
+        ])
         return self.metric(diffs / ls)
 
     def pairwise_tensor(self, data, nn_indices):

@@ -2,12 +2,14 @@
 
 Counterpart of :class:`muygpys_tpu.gp.deformation.Isotropy`: the tensors are
 *distances*, assembled from indices through the metric's Gram-identity path.
+The length scale is the named parameter ``length_scale``; hierarchical
+(nonstationary) length scales are not ported yet.
 """
 
 from __future__ import annotations
 
 from muygpys_torch.gp.deformation.metric import MetricFn
-from muygpys_torch.gp.hyperparameter import Parameter
+from muygpys_torch.gp.hyperparameter import NamedParameter, Parameter
 
 
 class Isotropy:
@@ -20,9 +22,9 @@ class Isotropy:
                 f"{type(length_scale)}"
             )
         self.metric = metric
-        self.length_scale = length_scale
+        self.length_scale = NamedParameter("length_scale", length_scale)
 
-    def __call__(self, dists, length_scale=None):
+    def __call__(self, dists, length_scale=None, **kwargs):
         if length_scale is None:
             length_scale = self.length_scale()
         return self.metric.apply_length_scale(dists, length_scale)

@@ -1,4 +1,9 @@
-from muygpys_torch.gp.hyperparameter.scalar import Parameter, VectorParameter
+from muygpys_torch.gp.hyperparameter.scalar import (
+    NamedParameter,
+    NamedVectorParameter,
+    Parameter,
+    VectorParameter,
+)
 from muygpys_torch.gp.hyperparameter.scale import (
     AnalyticScale,
     FixedScale,
@@ -8,6 +13,8 @@ from muygpys_torch.gp.hyperparameter.scale import (
 __all__ = [
     "AnalyticScale",
     "FixedScale",
+    "NamedParameter",
+    "NamedVectorParameter",
     "Parameter",
     "ScaleFn",
     "VectorParameter",

@@ -1,14 +1,19 @@
-"""Scalar hyperparameters.
+"""Scalar and vector hyperparameters and their named optimization surface.
 
-Counterpart of :mod:`muygpys_tpu.gp.hyperparameter.scalar`.  The serving
-slice carries trained values; the kwarg-threading surface the optimizers use
-(``NamedParameter.apply_fn`` and friends) waits for the training slice.
+Counterpart of :mod:`muygpys_tpu.gp.hyperparameter.scalar` and
+:mod:`muygpys_tpu.gp.hyperparameter.vector`.  A named parameter is the unit
+of the optimization surface: optimizers pass proposed values as keyword
+arguments under its name (``length_scale``, ``length_scale0``, ...,
+``noise``), and the kwarg-threading wrappers (``apply_fn``,
+``apply_embedding_fn``) put the stored value in where a name is absent.  A
+proposed value may be a tensor that requires grad, so ``torch.autograd``
+differentiates an objective assembled from these wrappers.
 """
 
 from __future__ import annotations
 
 from numbers import Number
-from typing import Tuple, Union
+from typing import Callable, Dict, List, Tuple, Union
 
 import numpy as np
 
@@ -82,7 +87,12 @@ class Parameter:
                 )
         self._val = val
 
-    def __call__(self) -> float:
+    def _set(self, rhs: "Parameter") -> None:
+        self._val = rhs._val
+        self._bounds = rhs._bounds
+        self._fixed = rhs._fixed
+
+    def __call__(self, **kwargs) -> float:
         return self._val
 
     def __str__(self):
@@ -96,10 +106,60 @@ class Parameter:
         return self._fixed
 
 
+class NamedParameter(Parameter):
+    """A ``Parameter`` with a name: the key under which optimizers pass a
+    proposed value."""
+
+    def __init__(self, name: str, param: Parameter):
+        self._set(param)
+        self._name = name
+
+    def name(self) -> str:
+        return self._name
+
+    def __call__(self, **kwargs):
+        return kwargs.get(self._name, self._val)
+
+    def apply_fn(self, fn: Callable) -> Callable:
+        def applied_fn(*args, **kwargs):
+            kwargs.setdefault(self._name, self._val)
+            return fn(*args, **kwargs)
+
+        return applied_fn
+
+    def filter_kwargs(self, **kwargs) -> Tuple[Dict, Dict]:
+        params = {k: v for k, v in kwargs.items() if k == self._name}
+        rest = {k: v for k, v in kwargs.items() if k != self._name}
+        params.setdefault(self._name, self._val)
+        return params, rest
+
+    def apply_embedding_fn(
+        self, fn: Callable, deformation_fn: Callable
+    ) -> Callable:
+        def embedded_fn(dists, *args, **kwargs):
+            params, kwargs = self.filter_kwargs(**kwargs)
+            return fn(deformation_fn(dists, **params), *args, **kwargs)
+
+        return embedded_fn
+
+    def append_lists(
+        self,
+        names: List[str],
+        params: List[float],
+        bounds: List[Tuple[float, float]],
+    ) -> None:
+        if not self.fixed():
+            names.append(self._name)
+            params.append(self._val)
+            bounds.append(self.get_bounds())
+
+    def populate(self, hyperparameters: Dict) -> None:
+        hyperparameters[self._name] = self
+
+
 class VectorParameter:
     """A vector of individually configured scalar ``Parameter``s (e.g.
-    anisotropic per-feature length scales); counterpart of
-    :class:`muygpys_tpu.gp.hyperparameter.VectorParameter`."""
+    anisotropic per-feature length scales)."""
 
     def __init__(self, *args: Parameter):
         self._params = list(args)
@@ -110,8 +170,58 @@ class VectorParameter:
     def __getitem__(self, i: int) -> Parameter:
         return self._params[i]
 
-    def __call__(self) -> np.ndarray:
+    def __call__(self, **kwargs) -> np.ndarray:
         return np.array([p() for p in self._params])
 
     def fixed(self) -> bool:
         return all(p.fixed() for p in self._params)
+
+
+class NamedVectorParameter(VectorParameter):
+    """Vector parameter whose elements are named ``<name>0..<name>{d-1}``,
+    so each is a separate knob on the optimization surface."""
+
+    def __init__(self, name: str, param: VectorParameter):
+        self._params = [
+            NamedParameter(name + str(i), p)
+            for i, p in enumerate(param._params)
+        ]
+        self._name = name
+
+    def name(self) -> str:
+        return self._name
+
+    def values(self, **kwargs) -> list:
+        """Element values in order, proposed kwargs taking precedence (a
+        list, so tensors that require grad stay in their graph)."""
+        return [p(**kwargs) for p in self._params]
+
+    def filter_kwargs(self, **kwargs) -> Tuple[Dict, Dict]:
+        mine = {p.name() for p in self._params}
+        params = {k: v for k, v in kwargs.items() if k in mine}
+        rest = {k: v for k, v in kwargs.items() if k not in mine}
+        for p in self._params:
+            params.setdefault(p.name(), p())
+        return params, rest
+
+    def apply_embedding_fn(
+        self, fn: Callable, deformation_fn: Callable
+    ) -> Callable:
+        def embedded_fn(dists, *args, **kwargs):
+            params, kwargs = self.filter_kwargs(**kwargs)
+            return fn(deformation_fn(dists, **params), *args, **kwargs)
+
+        return embedded_fn
+
+    def append_lists(
+        self,
+        names: List[str],
+        params: List[float],
+        bounds: List[Tuple[float, float]],
+    ) -> None:
+        for p in self._params:
+            p.append_lists(names, params, bounds)
+
+    def populate(self, hyperparameters: Dict) -> None:
+        for p in self._params:
+            hyperparameters[p.name()] = p

@@ -1,26 +1,48 @@
 """Kernel functor base class.
 
 Counterpart of :class:`muygpys_tpu.gp.kernels.KernelFn`: a kernel owns a
-deformation and evaluates ``k(deformation(tensor))``.
+deformation and a dict of its named hyperparameters, and composes
+``(diffs, **free_params) -> K`` by threading the named values through the
+deformation and the kernel body, so an objective assembled from it is
+differentiable by ``torch.autograd`` in every free parameter.
 """
 
 from __future__ import annotations
 
+from typing import Callable, Dict, List, Tuple
+
 
 class KernelFn:
-    """Base kernel functor: a deformation plus a scalar kernel function."""
+    """Base kernel functor: hyperparameter dict + call mechanism."""
 
     def __init__(self, deformation):
+        self._hyperparameters: Dict = dict()
         self.deformation = deformation
 
-    def _kernel_fn(self, dists):
-        raise NotImplementedError
+    def _make_base(self):
+        self.deformation.length_scale.populate(self._hyperparameters)
 
-    def __call__(self, diffs):
+    def _make(self):
+        raise NotImplementedError("_make is not implemented for base KernelFn")
+
+    def __call__(self, diffs, **kwargs):
         """Evaluate the kernel on a (pairwise or crosswise) distance or
-        difference tensor, as dictated by the deformation."""
-        return self._kernel_fn(self.deformation(diffs))
+        difference tensor, as dictated by the deformation; free parameters
+        may be passed by name."""
+        return self._fn(diffs, **kwargs)
 
-    def Kout(self) -> float:
+    def get_opt_fn(self) -> Callable:
+        return self._fn
+
+    def Kout(self, **kwargs) -> float:
         """Prior variance of an observable: 1."""
         return 1.0
+
+    def get_opt_params(
+        self,
+    ) -> Tuple[List[str], List[float], List[Tuple[float, float]]]:
+        names: List[str] = []
+        params: List[float] = []
+        bounds: List[Tuple[float, float]] = []
+        self.deformation.length_scale.append_lists(names, params, bounds)
+        return names, params, bounds

@@ -21,3 +21,10 @@ class RBF(KernelFn):
             deformation = Isotropy(F2, length_scale=Parameter(1.0))
         super().__init__(deformation=deformation)
         self._kernel_fn = _k.rbf_fn
+        self._make()
+
+    def _make(self):
+        self._make_base()
+        self._fn = self.deformation.length_scale.apply_embedding_fn(
+            lambda dists, **kwargs: self._kernel_fn(dists), self.deformation
+        )

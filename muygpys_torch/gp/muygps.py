@@ -1,20 +1,24 @@
 """The MuyGPS model: local kriging GP via nearest-neighbor conditioning.
 
-Counterpart of :class:`muygpys_tpu.gp.muygps.MuyGPS` for serving: tensor
-factory, posterior mean, variance and the fused mean + variance.  The
-optimization surface (``get_opt_params``, ``optimize_scale``, the fast-mean
-coefficients) waits for the training slice.
+Counterpart of :class:`muygpys_tpu.gp.muygps.MuyGPS`: tensor factories,
+posterior mean, variance and the fused mean + variance, and the optimization
+surface (``fixed``, ``get_opt_params``, ``get_opt_mean_fn`` /
+``get_opt_var_fn``, ``optimize_scale``).  The fast-mean coefficients wait
+for a later slice.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Callable, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from muygpys_torch.gp.hyperparameter import FixedScale, ScaleFn
 from muygpys_torch.gp.kernels import KernelFn
+from muygpys_torch.gp.mean import PosteriorMean
 from muygpys_torch.gp.noise import HomoscedasticNoise
+from muygpys_torch.gp.variance import PosteriorVariance
 from muygpys_torch.ops import solve as _solve
 
 
@@ -35,16 +39,42 @@ class MuyGPS:
         self.kernel = kernel
         self.noise = noise if noise is not None else HomoscedasticNoise(0.0)
         self.scale = scale if scale is not None else FixedScale()
+        self._make()
 
-    def posterior_mean(self, Kin, Kcross, batch_nn_targets) -> torch.Tensor:
-        return _solve.posterior_mean(
-            self.noise.perturb(Kin), Kcross, batch_nn_targets
+    def _make(self) -> None:
+        """Re-bake the composed closures after a parameter update."""
+        self.kernel._make()
+        self._mean_fn = PosteriorMean(self.noise)
+        self._var_fn = PosteriorVariance(
+            self.kernel.Kout(), self.noise, self.scale
         )
 
-    def posterior_variance(self, Kin, Kcross) -> torch.Tensor:
-        return self.scale() * _solve.diagonal_variance(
-            self.noise.perturb(Kin), Kcross, self.kernel.Kout()
+    def fixed(self) -> bool:
+        """True iff no parameter requires optimization."""
+        for p in self.kernel._hyperparameters.values():
+            if not p.fixed():
+                return False
+        return self.noise.fixed()
+
+    def get_opt_params(
+        self,
+    ) -> Tuple[List[str], np.ndarray, np.ndarray]:
+        """Free hyperparameter names, values and bounds."""
+        names, params, bounds = self.kernel.get_opt_params()
+        self.noise.append_lists(names, params, bounds)
+        return (
+            names,
+            np.asarray(params, float),
+            np.asarray(bounds, float).reshape(-1, 2),
         )
+
+    # --- prediction ---
+
+    def posterior_mean(self, Kin, Kcross, batch_nn_targets, **kwargs):
+        return self._mean_fn(Kin, Kcross, batch_nn_targets, **kwargs)
+
+    def posterior_variance(self, Kin, Kcross, **kwargs):
+        return self._var_fn(Kin, Kcross, **kwargs)
 
     def posterior_mean_and_variance(
         self, Kin, Kcross, batch_nn_targets
@@ -57,6 +87,29 @@ class MuyGPS:
             batch_nn_targets,
         )
         return mean, self.scale() * var
+
+    # --- optimization surface ---
+
+    def get_opt_mean_fn(self) -> Callable:
+        return self._mean_fn.get_opt_fn()
+
+    def get_opt_var_fn(self) -> Callable:
+        return self._var_fn.get_opt_fn()
+
+    def optimize_scale(self, pairwise_diffs, nn_targets) -> "MuyGPS":
+        """Set sigma^2 by the scale functor's optimization method (a
+        scalar sigma^2 is stored as a Python float)."""
+        Kin = self.kernel(pairwise_diffs)
+        opt_fn = self.scale.get_opt_fn(self)
+        val = opt_fn(Kin, nn_targets)
+        if torch.is_tensor(val) and val.numel() == 1:
+            val = float(val)
+        self.scale._set(val)
+        self._make()
+        return self
+
+    # --- tensor factories (the deformation decides distances or
+    # differences) ---
 
     def make_predict_tensors(
         self,
@@ -78,3 +131,32 @@ class MuyGPS:
             train_features, batch_nn_indices
         )
         return crosswise, pairwise, train_targets[batch_nn_indices]
+
+    def make_train_tensors(
+        self,
+        batch_indices,
+        batch_nn_indices,
+        train_features,
+        train_targets,
+    ):
+        """(crosswise, pairwise, batch_targets, batch_nn_targets) for LOO
+        training.  Index arrays may be numpy (as ``sample_batch`` returns
+        them); they move to the features' device."""
+        train_features = torch.as_tensor(train_features)
+        dev = train_features.device
+        batch_indices = torch.as_tensor(batch_indices, device=dev)
+        batch_nn_indices = torch.as_tensor(batch_nn_indices, device=dev)
+        train_targets = torch.as_tensor(train_targets, device=dev)
+        deformation = self.kernel.deformation
+        crosswise = deformation.crosswise_tensor(
+            train_features, train_features, batch_indices, batch_nn_indices
+        )
+        pairwise = deformation.pairwise_tensor(
+            train_features, batch_nn_indices
+        )
+        return (
+            crosswise,
+            pairwise,
+            train_targets[batch_indices],
+            train_targets[batch_nn_indices],
+        )

@@ -1,10 +1,13 @@
 """Heteroscedastic (per-observation diagonal) noise.
 
 Counterpart of :class:`muygpys_tpu.gp.noise.HeteroscedasticNoise`: a
-``(batch, nn)`` tensor of per-neighbor noise variances.
+``(batch, nn)`` tensor of per-neighbor noise variances, never a free
+parameter.
 """
 
 from __future__ import annotations
+
+from typing import Callable
 
 import numpy as np
 import torch
@@ -37,8 +40,17 @@ class HeteroscedasticNoise:
     def fixed(self) -> bool:
         return True
 
-    def perturb(self, Kin: torch.Tensor) -> torch.Tensor:
+    def append_lists(self, names, params, bounds) -> None:
+        """Tensor parameters are never on the optimization surface."""
+
+    def perturb(self, Kin: torch.Tensor, **kwargs) -> torch.Tensor:
         """``Kin[b] + diag(noise[b])``."""
         eye = torch.eye(Kin.shape[-1], dtype=Kin.dtype, device=Kin.device)
         noise = self._val.to(dtype=Kin.dtype, device=Kin.device)
         return Kin + noise[..., :, None] * eye
+
+    def perturb_fn(self, fn: Callable) -> Callable:
+        def perturbed_fn(Kin, *args, **kwargs):
+            return fn(self.perturb(Kin), *args, **kwargs)
+
+        return perturbed_fn

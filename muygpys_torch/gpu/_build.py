@@ -29,7 +29,7 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "muygpys_torch"
-SOURCES = ("fused_predict", "knn")
+SOURCES = ("fused_predict", "knn", "fused_train")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -43,6 +43,7 @@ launches: Dict[str, int] = {
     "fused_predict_coords": 0,
     "knn_candidates": 0,
     "knn_candidates_pruned": 0,
+    "fused_train_stats": 0,
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -1,0 +1,350 @@
+"""K2: fused LOO statistics with analytic derivatives, CUDA kernel wrapper,
+its plain PyTorch version, the epilogue and the autograd form.
+
+Counterpart of :mod:`muygpys_tpu.pallas.fused_train`.  From the batch-last
+training tensors the kernel (``csrc/fused_train.cu``) computes, per batch
+point, the LOO value rows (mean, var, q) and their analytic derivatives with
+respect to the length scales and the noise, through the quadratic-form
+identities (with ``a = Kin^{-1} kc`` and ``b = Kin^{-1} y``):
+
+    mean  = kc^T b          dmean = dkc^T b - a^T dK b
+    var   = 1 - kc^T a      dvar  = -2 dkc^T a + a^T dK a
+    q     = sum_r y^T b     dq    = -sum_r b^T dK b
+
+with sigma^2 under the model's stored noise (a second factorization when
+the noise is free; d sigma^2 / d noise = 0), exactly as the TPU kernel.
+A host epilogue turns the rows into the scalar objective and its gradient
+(:func:`_epilogue`), and :class:`FusedLOO` makes one kernel launch plus the
+epilogue a ``torch.autograd.Function`` whose backward is ``grad_out`` times
+the stored analytic gradient — the counterpart of the ``jax.custom_vjp``
+of ``optimize/device_chassis.py``.  The objective of a model and a training
+batch is assembled in :mod:`muygpys_torch.optimize.fused_objective`; this
+module knows no model class.
+
+The layout at the public functions is the JAX package's (batch last).
+General smoothness (``"gen"``, free nu) waits for the general-smoothness
+slice and raises; ``train_tile_cap`` is a TPU VMEM rule with no
+counterpart here.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from muygpys_torch import config
+from muygpys_torch.gpu import _build
+from muygpys_torch.ops.lanes_solver import (
+    cholesky_bl,
+    tri_solve_bwd_bl,
+    tri_solve_fwd_bl,
+)
+
+_SQRT3 = 1.7320508075688772
+_SQRT5 = 2.23606797749979
+_SMOOTHNESS_CODES = {0.5: 0, 1.5: 1, 2.5: 2, math.inf: 3, "rbf": 4}
+
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+
+def _smoothness_code(smoothness, smoothness_free: bool = False) -> int:
+    if smoothness_free or smoothness not in _SMOOTHNESS_CODES:
+        raise ValueError(
+            f"fused_train_stats_bl supports a fixed smoothness in "
+            f"0.5/1.5/2.5/inf/'rbf'; got {smoothness!r}"
+            f"{' (free)' if smoothness_free else ''}: general and free "
+            "smoothness wait for the general-smoothness slice"
+        )
+    return _SMOOTHNESS_CODES[smoothness]
+
+
+def _kernel_and_deriv(u, smoothness):
+    """Returns (K(u), H(u) = u dK/du) elementwise (closed forms)."""
+    if smoothness == 0.5:
+        e = torch.exp(-u)
+        return e, -u * e
+    if smoothness == 1.5:
+        e = torch.exp(-u * _SQRT3)
+        return (1.0 + _SQRT3 * u) * e, -3.0 * u * u * e
+    if smoothness == 2.5:
+        e = torch.exp(-u * _SQRT5)
+        t = _SQRT5 * u
+        return (1.0 + t + t * t / 3.0) * e, -(5.0 / 3.0) * u * u * (1.0 + t) * e
+    if smoothness == math.inf:
+        e = torch.exp(-(u * u) / 2.0)
+        return e, -u * u * e
+    e = torch.exp(-u / 2.0)  # "rbf": u is the F2 distance scaled by 1/ls^2
+    return e, -0.5 * u * e
+
+
+def _matvec_bl(G, x):
+    """w = G x per lane, x (n, B) -> (n, B); G symmetric (n, n, B)."""
+    return torch.sum(G * x[:, None, :], dim=0)
+
+
+def fused_train_stats_bl_plain(
+    pw, cw, y, params, noise_nn=None, smoothness=1.5, metric_power=1,
+    noise_free=False, d_feat=0,
+):
+    """Plain PyTorch version of K2, in the TPU kernel's order (the same
+    floored factorization of :func:`muygpys_torch.ops.lanes_solver.cholesky_bl`,
+    substitutions and contractions).  Arguments as
+    :func:`fused_train_stats_bl`; returns ``(C, B)``."""
+    _smoothness_code(smoothness)
+    n = pw.shape[0]
+    r = y.shape[1]
+    d_eff = d_feat if d_feat else 1
+    if d_feat:
+        accp = accc = 0.0
+        wps, wcs = [], []
+        for f in range(d_feat):
+            invf = 1.0 / params[f]
+            dpf = pw[:, :, f, :] * invf
+            dcf = cw[:, f, :] * invf
+            wps.append(dpf * dpf)
+            wcs.append(dcf * dcf)
+            accp = accp + wps[-1]
+            accc = accc + wcs[-1]
+        u_p = torch.sqrt(accp) if metric_power == 1 else accp
+        u_c = torch.sqrt(accc) if metric_power == 1 else accc
+    else:
+        ls = params[0]
+        inv = 1.0 / ls if metric_power == 1 else 1.0 / (ls * ls)
+        u_p = pw * inv
+        u_c = cw * inv
+    K, H = _kernel_and_deriv(u_p, smoothness)
+    kc, Hc = _kernel_and_deriv(u_c, smoothness)
+    if d_feat:
+        tiny = torch.finfo(y.dtype).tiny
+        fp = torch.clamp_min(accp, tiny)
+        fc = torch.clamp_min(accc, tiny)
+        Gs = [(-metric_power / params[f]) * H * (wps[f] / fp)
+              for f in range(d_feat)]
+        gcs = [(-metric_power / params[f]) * Hc * (wcs[f] / fc)
+               for f in range(d_feat)]
+    else:
+        gcoef = -metric_power / params[0]
+        Gs, gcs = [gcoef * H], [gcoef * Hc]
+
+    eye = torch.eye(n, dtype=y.dtype, device=y.device)[:, :, None]
+    if noise_nn is not None:
+        nugget = eye * noise_nn[:, None, :]
+    else:
+        nugget = params[d_eff] * eye
+    L = cholesky_bl(K + nugget)
+    Z = tri_solve_fwd_bl(L, torch.cat([kc[:, None, :], y], dim=1))
+    X = tri_solve_bwd_bl(L, Z)
+    a, b = X[:, 0, :], X[:, 1:, :]
+    zc, zy = Z[:, 0, :], Z[:, 1:, :]
+    mean = torch.sum(zc[:, None, :] * zy, dim=0)  # (r, B)
+    var = 1.0 - torch.sum(zc * zc, dim=0)
+    if noise_free:
+        # sigma^2 under the model's STORED noise (reference quirk)
+        L0 = cholesky_bl(K + params[d_eff + 1] * eye)
+        Zy0 = tri_solve_fwd_bl(L0, y)
+        b0 = tri_solve_bwd_bl(L0, Zy0)
+        q = torch.sum(Zy0 * Zy0, dim=(0, 1))
+    else:
+        b0 = b
+        q = torch.sum(zy * zy, dim=(0, 1))
+    rows = [mean, var[None, :], q[None, :]]
+    for G, gc in zip(Gs, gcs):
+        wa = _matvec_bl(G, a)
+        dmL = (torch.sum(gc[:, None, :] * b, dim=0)
+               - torch.sum(wa[:, None, :] * b, dim=0))
+        dvL = -2.0 * torch.sum(gc * a, dim=0) + torch.sum(wa * a, dim=0)
+        dqL = torch.zeros_like(q)
+        for k in range(r):
+            w0 = _matvec_bl(G, b0[:, k, :])
+            dqL = dqL - torch.sum(w0 * b0[:, k, :], dim=0)
+        rows += [dmL, dvL[None, :], dqL[None, :]]
+    dmN = -torch.sum(a[:, None, :] * b, dim=0)
+    dvN = torch.sum(a * a, dim=0)
+    rows += [dmN, dvN[None, :]]
+    return torch.cat(rows, dim=0)
+
+
+def fused_train_stats_bl(
+    pw, cw, y, params, noise_nn=None, smoothness=1.5, metric_power=1,
+    noise_free=False, smoothness_free=False, d_feat=0, device=None,
+):
+    """Per-point LOO statistics and analytic derivative rows,
+    ``((r+2) + G(r+2) + (r+1), B)`` with ``G`` length-scale groups (1
+    isotropic, ``d_feat`` anisotropic).
+
+    Isotropic (``d_feat=0``): distances ``pw (n, n, B)``, ``cw (n, B)``,
+    ``params = [length_scale, noise, stored_noise]``.  Anisotropic
+    (``d_feat=d``): per-feature differences ``pw (n, n, d, B)``,
+    ``cw (n, d, B)``, ``params = [ls_0..ls_{d-1}, noise, stored_noise]``.
+    ``y (n, r, B)``; optional ``noise_nn (n, B)`` heteroscedastic nugget
+    (never free, so not with ``noise_free``).  ``metric_power`` 1 = l2,
+    2 = F2.  Hyperparameters are runtime values: one build serves every
+    optimizer step.
+
+    Runs on ``device`` (default ``"cuda"``): K2 there, the plain version
+    for ``device="cpu"``.
+    """
+    dev = config.device(device)
+    code = _smoothness_code(smoothness, smoothness_free)
+    if metric_power not in (1, 2):
+        raise ValueError(f"metric_power must be 1 or 2, got {metric_power}")
+    if noise_nn is not None and noise_free:
+        raise ValueError(
+            "heteroscedastic nugget tensors are never free parameters"
+        )
+    pw = torch.as_tensor(pw, device=dev)
+    dtype = pw.dtype
+    cw, y, params = (
+        torch.as_tensor(t, dtype=dtype, device=dev) for t in (cw, y, params)
+    )
+    if noise_nn is not None:
+        noise_nn = torch.as_tensor(noise_nn, dtype=dtype, device=dev)
+    n, B = pw.shape[0], pw.shape[-1]
+    r = y.shape[1] if y.ndim == 3 else 0
+    d_eff = d_feat if d_feat else 1
+    want_pw = (n, n, d_feat, B) if d_feat else (n, n, B)
+    want_cw = (n, d_feat, B) if d_feat else (n, B)
+    if (
+        tuple(pw.shape) != want_pw or tuple(cw.shape) != want_cw
+        or tuple(y.shape) != (n, r, B) or r < 1
+        or tuple(params.shape) != (d_eff + 2,)
+        or (noise_nn is not None and tuple(noise_nn.shape) != (n, B))
+    ):
+        raise ValueError(
+            f"fused_train_stats_bl shapes (d_feat={d_feat}): pw "
+            f"{tuple(pw.shape)}, cw {tuple(cw.shape)}, y {tuple(y.shape)}, "
+            f"params {tuple(params.shape)}"
+        )
+    if dev.type == "cpu":
+        return fused_train_stats_bl_plain(
+            pw, cw, y, params, noise_nn, smoothness, metric_power,
+            noise_free, d_feat,
+        )
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"fused_train_stats_bl takes f32 or f64, not {dtype}")
+    ins = [t.contiguous() for t in (pw, cw, y, params)]
+    noise_nn = None if noise_nn is None else noise_nn.contiguous()
+    out = torch.empty(
+        ((r + 2) + d_eff * (r + 2) + (r + 1), B), dtype=dtype, device=dev
+    )
+    symbol = (
+        "fused_train_stats_f32" if dtype == torch.float32
+        else "fused_train_stats_f64"
+    )
+    fn = _build.function("fused_train", symbol, _ARGTYPES)
+    rc = fn(
+        *(_build.ptr(t) for t in ins), _build.ptr(noise_nn), _build.ptr(out),
+        n, d_feat, r, B, code, metric_power, int(noise_free),
+        _build.stream(dev),
+    )
+    _build.check(rc, "fused_train", "fused_train_stats")
+    _build.launches["fused_train_stats"] += 1
+    return out
+
+
+def _epilogue(
+    stats, t_bl, loss, free_names, n, boundary_scale=None,
+    ls_keys=("length_scale",),
+):
+    """Scalar objective (-loss) and gradient dict from the per-point rows.
+
+    All four losses take the SAME rows: the robust ones (pseudo-Huber
+    ``"huber"``, leave-one-out pseudo-Huber ``"looph"``) differ from mse and
+    lool by an elementwise Huber weight on the residual terms.  ``ls_keys``
+    names the length-scale derivative groups in emission order."""
+    if boundary_scale is None:
+        boundary_scale = 3.0 if loss == "looph" else 1.5
+    r, B = t_bl.shape
+    G = len(ls_keys)
+    mean, var, q = stats[0:r], stats[r], stats[r + 1]
+    base = r + 2
+    dmLs, dvLs, dqLs = [], [], []
+    for j in range(G):
+        o = base + j * (r + 2)
+        dmLs.append(stats[o:o + r])
+        dvLs.append(stats[o + r])
+        dqLs.append(stats[o + r + 1])
+    o = base + G * (r + 2)
+    dmN, dvN = stats[o:o + r], stats[o + r]
+
+    e = mean - t_bl  # (r, B)
+    grads = {}
+    if loss == "mse":
+        value = -torch.sum(e * e) / t_bl.numel()
+        for key, dmL in zip(ls_keys, dmLs):
+            if key in free_names:
+                grads[key] = -2.0 * torch.sum(e * dmL) / t_bl.numel()
+        if "noise" in free_names:
+            grads["noise"] = -2.0 * torch.sum(e * dmN) / t_bl.numel()
+        return value, grads
+
+    if loss == "huber":
+        # unnormalized pseudo-Huber on the posterior mean
+        bs2 = boundary_scale * boundary_scale
+        rad = torch.sqrt(1.0 + (e * e) / bs2)
+        value = -bs2 * torch.sum(rad - 1.0)
+        for key, dmL in zip(ls_keys, dmLs):
+            if key in free_names:
+                grads[key] = -torch.sum(e * dmL / rad)
+        if "noise" in free_names:
+            grads["noise"] = -torch.sum(e * dmN / rad)
+        return value, grads
+
+    s = torch.sum(q) / (B * n)  # analytic sigma^2 (global)
+    # the variance floor: where it is active the derivative of sv is zero
+    floor = 10.0 * torch.finfo(var.dtype).eps
+    raw_sv = s * var
+    clamped = raw_sv < floor
+    sv = torch.clamp_min(raw_sv, floor)
+
+    if loss == "looph":
+        bs2 = boundary_scale * boundary_scale
+        rad = torch.sqrt(1.0 + (e * e) / (bs2 * sv[None, :]))
+        value = -(2.0 * bs2 * torch.sum(rad - 1.0) + r * torch.sum(torch.log(sv)))
+
+        def dloss(dm, dv, ds):
+            dsv = torch.where(clamped, 0.0, ds * var + s * dv)
+            return (
+                torch.sum(2.0 * e * dm / (rad * sv[None, :]))
+                - torch.sum((e * e) / rad * (dsv / (sv * sv))[None, :])
+                + r * torch.sum(dsv / sv)
+            )
+
+    else:  # lool
+        value = -(torch.sum(e * e / sv[None, :]) + r * torch.sum(torch.log(sv)))
+
+        def dloss(dm, dv, ds):
+            dsv = torch.where(clamped, 0.0, ds * var + s * dv)
+            return (
+                torch.sum(2.0 * e * dm / sv[None, :])
+                - torch.sum((e * e) * (dsv / (sv * sv))[None, :])
+                + r * torch.sum(dsv / sv)
+            )
+
+    for key, dmL, dvL, dqL in zip(ls_keys, dmLs, dvLs, dqLs):
+        if key in free_names:
+            grads[key] = -dloss(dmL, dvL, torch.sum(dqL) / (B * n))
+    if "noise" in free_names:
+        # d sigma^2 / d noise == 0 under the stored-noise quirk
+        grads["noise"] = -dloss(dmN, dvN, torch.zeros((), dtype=var.dtype,
+                                                      device=var.device))
+    return value, grads
+
+
+class FusedLOO(torch.autograd.Function):
+    """``value = objective(theta)`` by one K2 launch and the epilogue; the
+    backward multiplies ``grad_out`` by the analytic gradient the forward
+    stored (no reverse mode through the factorization)."""
+
+    @staticmethod
+    def forward(ctx, theta, evaluate):
+        value, grad = evaluate(theta.detach())
+        ctx.save_for_backward(grad)
+        return value
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (grad,) = ctx.saved_tensors
+        return grad_out * grad, None

@@ -1,0 +1,55 @@
+"""LOO training: batch sampling, objectives, losses and the chassis.
+
+Counterpart of :mod:`muygpys_tpu.optimize` for the training slice.  Not
+ported yet: ``Bayes_optimize``, the device chassis
+(``make_device_trainer``, ``Device_LBFGS_optimize``,
+``Fused_Device_LBFGS_optimize``, ``device_lbfgs``) and the shear objective.
+"""
+
+from muygpys_torch.optimize.batch import (
+    full_filtered_batch,
+    get_balanced_batch,
+    sample_balanced_batch,
+    sample_batch,
+)
+from muygpys_torch.optimize.chassis import (
+    Adam_optimize,
+    L_BFGS_B_optimize,
+    OptimizeFn,
+)
+from muygpys_torch.optimize.fast_objective import (
+    fast_objective_supports,
+    make_fast_loo_objective,
+)
+from muygpys_torch.optimize.fused_chassis import Fused_L_BFGS_B_optimize
+from muygpys_torch.optimize.loss import (
+    LossFn,
+    cross_entropy_fn,
+    lool_fn,
+    lool_fn_unscaled,
+    looph_fn,
+    mse_fn,
+    pseudo_huber_fn,
+)
+from muygpys_torch.optimize.objective import make_loo_crossval_fn
+
+__all__ = [
+    "Adam_optimize",
+    "Fused_L_BFGS_B_optimize",
+    "L_BFGS_B_optimize",
+    "LossFn",
+    "OptimizeFn",
+    "cross_entropy_fn",
+    "fast_objective_supports",
+    "full_filtered_batch",
+    "get_balanced_batch",
+    "lool_fn",
+    "lool_fn_unscaled",
+    "looph_fn",
+    "make_fast_loo_objective",
+    "make_loo_crossval_fn",
+    "mse_fn",
+    "pseudo_huber_fn",
+    "sample_balanced_batch",
+    "sample_batch",
+]

@@ -1,0 +1,235 @@
+"""Lane-layout LOO objective, differentiated by ``torch.autograd``.
+
+Counterpart of :func:`muygpys_tpu.optimize.fast_objective.make_fast_loo_objective`
+with ``layout="lanes"``: the production model classes are assembled in the
+batch-last ``(n, n, B)`` layout of :mod:`muygpys_torch.ops.lanes_solver`,
+with ONE floored Cholesky shared by the posterior mean, the variance and
+sigma^2.  It is the ``engine="lanes"`` of
+:func:`muygpys_torch.optimize.Fused_L_BFGS_B_optimize`, and a second
+derivation of K2's analytic gradient (:mod:`muygpys_torch.gpu.fused_train`)
+that does not depend on JAX.
+
+Covered: Matern with a fixed closed-form nu, or RBF; Isotropy or Anisotropy;
+homoscedastic (optionally free) or heteroscedastic noise; loss lool, mse,
+looph or huber (unnormalized pseudo-Huber on the mean).  The reference's
+stored-noise sigma^2 quirk is carried over exactly: sigma^2 perturbs Kin
+with the model's STORED noise, so a free noise costs a second
+factorization and d sigma^2 / d noise = 0.  ``layout="batched"`` waits for
+the device-chassis slice; free or general nu for the general-smoothness
+slice.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Tuple
+
+import torch
+
+from muygpys_torch import config
+from muygpys_torch.gp.deformation import Anisotropy, Isotropy
+from muygpys_torch.gp.kernels import Matern, RBF
+from muygpys_torch.gp.noise import HeteroscedasticNoise, HomoscedasticNoise
+from muygpys_torch.ops.lanes_solver import cholesky_bl, tri_solve_fwd_bl
+from muygpys_torch.ops.loss import looph_fn, lool_fn, mse_fn, pseudo_huber_fn
+from muygpys_torch.ops.tensors import safe_sqrt
+
+#: loss-name aliases: the functor registry calls the mean-only robust loss
+#: ``pseudo_huber_fn`` while the fast objectives use the short name
+_LOSS_ALIASES = {"pseudo_huber": "huber"}
+LOSSES = ("lool", "mse", "looph", "huber")
+
+
+def check_model(muygps, loss: str) -> str:
+    """Raise a clear error for a model class or loss the fast objectives do
+    not take, before anything runs; returns the canonical loss name.  (Free
+    or general smoothness and hierarchical length scales cannot reach here:
+    ``Matern`` and ``Isotropy`` refuse them when the model is built.)"""
+    loss = _LOSS_ALIASES.get(loss, loss)
+    kernel = muygps.kernel
+    if not isinstance(kernel, (Matern, RBF)):
+        raise NotImplementedError(
+            f"{type(kernel).__name__} is not ported: the fast objectives "
+            "train Matern and RBF; the shear models wait for the shear slice"
+        )
+    if not isinstance(kernel.deformation, (Isotropy, Anisotropy)):
+        raise ValueError(
+            "fast objective requires an Isotropy or Anisotropy deformation, "
+            f"not {type(kernel.deformation)}"
+        )
+    if not isinstance(
+        muygps.noise, (HomoscedasticNoise, HeteroscedasticNoise)
+    ):
+        raise ValueError(
+            "fast objective requires homo- or heteroscedastic noise, not "
+            f"{type(muygps.noise)}"
+        )
+    if loss not in LOSSES:
+        raise ValueError(
+            f"fast objective supports lool/mse/looph/huber, not {loss!r}"
+        )
+    return loss
+
+
+def batch_last(muygps, batch_targets, batch_nn_targets, crosswise_dists,
+               pairwise_dists, dev):
+    """The training tensors moved to ``dev`` in batch-last layout:
+    ``pw (n, n[, d], B)``, ``cw (n[, d], B)``, ``y (n, r, B)``,
+    ``t (r, B)``, and the anisotropic feature count ``d`` (0 isotropic)."""
+    pw = torch.as_tensor(pairwise_dists, device=dev)
+    dtype = pw.dtype
+    cw = torch.as_tensor(crosswise_dists, dtype=dtype, device=dev)
+    y = torch.as_tensor(batch_nn_targets, dtype=dtype, device=dev)
+    t = torch.as_tensor(batch_targets, dtype=dtype, device=dev)
+    if y.ndim == 2:
+        y = y[:, :, None]
+    if t.ndim == 1:
+        t = t[:, None]
+    deformation = muygps.kernel.deformation
+    if isinstance(deformation, Anisotropy):
+        d_feat = len(deformation.length_scale)
+        if pw.ndim != 4 or pw.shape[-1] != d_feat:
+            raise ValueError(
+                "anisotropic objectives expect per-feature difference "
+                f"tensors (B, n, n, {d_feat}); got {tuple(pw.shape)}"
+            )
+        pw_bl, cw_bl = pw.permute(1, 2, 3, 0), cw.permute(1, 2, 0)
+    else:
+        d_feat = 0
+        if pw.ndim != 3:
+            raise ValueError(
+                f"isotropic objectives expect distances (B, n, n); got "
+                f"{tuple(pw.shape)}"
+            )
+        pw_bl, cw_bl = pw.permute(1, 2, 0), cw.permute(1, 0)
+    return pw_bl, cw_bl, y.permute(1, 2, 0), t.permute(1, 0), d_feat
+
+
+def fast_objective_supports(muygps, loss: str = "lool") -> bool:
+    """True iff :func:`make_fast_loo_objective` covers this model class."""
+    loss = _LOSS_ALIASES.get(loss, loss)
+    kernel = muygps.kernel
+    return (
+        isinstance(kernel, (Matern, RBF))
+        and isinstance(kernel.deformation, (Isotropy, Anisotropy))
+        and isinstance(
+            muygps.noise, (HomoscedasticNoise, HeteroscedasticNoise)
+        )
+        and loss in LOSSES
+    )
+
+
+def make_fast_loo_objective(
+    muygps,
+    batch_targets,
+    batch_nn_targets,
+    crosswise_dists,
+    pairwise_dists,
+    loss: str = "lool",
+    layout: str = "lanes",
+    boundary_scale: float = None,
+    device=None,
+) -> Tuple[Callable, list]:
+    """Build ``obj_fn(params_dict) -> -loss`` in lane layout.
+
+    Args:
+        muygps: Matern (closed form) or RBF, Isotropy or Anisotropy,
+            homoscedastic or heteroscedastic noise.
+        batch_targets: ``(B, r)`` or ``(B,)``.
+        batch_nn_targets: ``(B, n, r)`` or ``(B, n)``.
+        crosswise_dists / pairwise_dists: what ``make_train_tensors`` gives
+            for the model's deformation — distances ``(B, n)`` /
+            ``(B, n, n)`` for Isotropy, per-feature differences
+            ``(B, n, d)`` / ``(B, n, n, d)`` for Anisotropy.
+        device: where the objective runs (default ``"cuda"``).
+
+    Returns:
+        ``(obj_fn, free_param_names)``; ``obj_fn`` takes a dict of free
+        parameters (floats or tensors that require grad) and returns the
+        negated loss, to be maximized.
+    """
+    if layout != "lanes":
+        raise ValueError(
+            f"layout {layout!r}: only 'lanes' is ported; 'batched' waits for "
+            "the device-chassis slice"
+        )
+    loss = check_model(muygps, loss)
+    if boundary_scale is None:
+        # the reference's own per-loss defaults (optimize/loss.py)
+        boundary_scale = 3.0 if loss == "looph" else 1.5
+    dev = config.device(device)
+    kernel = muygps.kernel
+    kfn = kernel._kernel_fn
+    names, _, _ = muygps.get_opt_params()
+    pw_bl, cw_bl, y_bl, t_bl, d_feat = batch_last(
+        muygps, batch_targets, batch_nn_targets, crosswise_dists,
+        pairwise_dists, dev,
+    )
+    n, B = pw_bl.shape[0], pw_bl.shape[-1]
+    metric_name = kernel.deformation.metric.name
+    ls_param = kernel.deformation.length_scale
+
+    if d_feat:
+        ls_names = [p.name() for p in ls_param]
+        ls0 = [p() for p in ls_param]
+
+        def scaled_dists(params):
+            ls = torch.stack([
+                torch.as_tensor(
+                    params.get(nm, v), dtype=pw_bl.dtype, device=dev
+                )
+                for nm, v in zip(ls_names, ls0)
+            ])
+            u_p = torch.sum((pw_bl / ls[None, None, :, None]) ** 2, dim=2)
+            u_c = torch.sum((cw_bl / ls[None, :, None]) ** 2, dim=1)
+            if metric_name == "l2":
+                return safe_sqrt(u_p), safe_sqrt(u_c)
+            return u_p, u_c
+
+    else:
+        apply_ls = kernel.deformation.metric.apply_length_scale
+
+        def scaled_dists(params):
+            ls = params.get("length_scale", ls_param())
+            return apply_ls(pw_bl, ls), apply_ls(cw_bl, ls)
+
+    eye_bl = torch.eye(n, dtype=pw_bl.dtype, device=dev)[:, :, None]
+    if isinstance(muygps.noise, HeteroscedasticNoise):
+        eps_bl = torch.as_tensor(
+            muygps.noise(), dtype=pw_bl.dtype, device=dev
+        ).T  # (n, B)
+        noise0 = None
+        noise_is_free = False
+    else:
+        noise0 = float(muygps.noise())
+        noise_is_free = "noise" in names
+
+    def obj_fn(params):
+        u_p, u_c = scaled_dists(params)
+        Kraw = kfn(u_p)
+        Kcross = kfn(u_c)  # (n, B)
+        if noise0 is None:
+            Kin = Kraw + eye_bl * eps_bl[:, None, :]
+        else:
+            Kin = Kraw + params.get("noise", noise0) * eye_bl
+        L = cholesky_bl(Kin)
+        rhs = torch.cat([Kcross[:, None, :], y_bl], dim=1)
+        Z = tri_solve_fwd_bl(L, rhs)  # (n, 1+r, B) = L^{-1}[Kc, Y]
+        zc, zy = Z[:, 0, :], Z[:, 1:, :]
+        mean = torch.einsum("nb,nrb->rb", zc, zy)  # Kc^T Kin^{-1} Y
+        var = 1.0 - torch.einsum("nb,nb->b", zc, zc)
+        if loss == "mse":
+            return -mse_fn(mean, t_bl)
+        if loss == "huber":
+            return -pseudo_huber_fn(mean, t_bl, boundary_scale=boundary_scale)
+        if noise_is_free:
+            zy0 = tri_solve_fwd_bl(cholesky_bl(Kraw + noise0 * eye_bl), y_bl)
+        else:
+            zy0 = zy
+        scale = torch.sum(zy0 * zy0) / (B * n)  # analytic sigma^2
+        # the losses take (B, r) predictions and (B,) variances
+        if loss == "looph":
+            return -looph_fn(mean.T, t_bl.T, var, scale,
+                             boundary_scale=boundary_scale)
+        return -lool_fn(mean.T, t_bl.T, var, scale)
+
+    return obj_fn, names

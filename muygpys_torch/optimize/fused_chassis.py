@@ -1,0 +1,118 @@
+"""Fused-objective L-BFGS-B chassis: the production training path.
+
+Counterpart of :func:`muygpys_tpu.optimize.Fused_L_BFGS_B_optimize`: the
+same result contract as :data:`muygpys_torch.optimize.L_BFGS_B_optimize`
+for the production model classes (Matern with a closed-form smoothness or
+RBF, Isotropy or Anisotropy, homo- or heteroscedastic noise, loss in lool,
+mse, looph, huber), with the objective evaluated by
+
+- ``engine="kernel"`` (the JAX ``"pallas"``): K2, one launch per evaluation
+  returning the value AND the analytic gradient
+  (:func:`muygpys_torch.optimize.fused_objective.make_fused_train_objective`);
+- ``engine="lanes"``: the lane-layout objective under ``torch.autograd``
+  (:func:`muygpys_torch.optimize.fast_objective.make_fast_loo_objective`).
+
+Unlike the JAX chassis there is no fallback: on a CUDA device a kernel that
+does not build or launch, or a probe at the initial point that is not
+finite, raises.  An unsupported model class raises before any launch:
+shear models ``NotImplementedError``; free or general smoothness and
+hierarchical length scales never get that far (``Matern`` and ``Isotropy``
+refuse them with ``ValueError`` when the model is built).
+
+    model = Fused_L_BFGS_B_optimize(model, bt, bnt, cw, pw, loss="lool")
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from muygpys_torch import config
+from muygpys_torch.optimize import bijectors
+from muygpys_torch.optimize.chassis import (
+    PENALTY,
+    _get_opt_lists,
+    _new_muygps,
+)
+from muygpys_torch.optimize.fast_objective import make_fast_loo_objective
+from muygpys_torch.optimize.fused_objective import make_fused_train_objective
+
+
+def Fused_L_BFGS_B_optimize(
+    muygps,
+    batch_targets,
+    batch_nn_targets,
+    crosswise_dists,
+    pairwise_dists,
+    loss: str = "lool",
+    engine: str = "kernel",
+    verbose: bool = False,
+    device=None,
+    **kwargs,
+):
+    """L-BFGS-B over the fused LOO objective on ``device`` (default
+    ``"cuda"``; ``"cpu"`` runs K2's plain version); returns the optimized
+    model.  Extra keyword arguments go to ``scipy.optimize.minimize``."""
+    from scipy import optimize as opt
+
+    if engine not in ("kernel", "lanes"):
+        raise ValueError(f"unknown engine {engine!r} (kernel, lanes)")
+    dev = config.device(device)
+    x0_names, x0, bounds = _get_opt_lists(muygps, verbose=verbose)
+    args = (muygps, batch_targets, batch_nn_targets, crosswise_dists,
+            pairwise_dists)
+    if engine == "kernel":
+        vag, _ = make_fused_train_objective(*args, loss=loss, device=dev)
+    else:
+        obj_fn, _ = make_fast_loo_objective(*args, loss=loss, device=dev)
+        dtype = torch.as_tensor(pairwise_dists).dtype
+
+        def vag(params):
+            theta = {
+                n: torch.tensor(float(v), dtype=dtype, device=dev,
+                                requires_grad=True)
+                for n, v in params.items()
+            }
+            value = obj_fn(theta)
+            value.backward()
+            return value.detach(), {n: t.grad for n, t in theta.items()}
+
+    # probe at x0: with a non-finite initial objective the NaN-safe `fun`
+    # below would return the penalty and L-BFGS-B would "converge" at x0,
+    # silently returning the unoptimized model
+    v0, g0 = vag({n: x0[i] for i, n in enumerate(x0_names)})
+    if not (
+        np.isfinite(float(v0))
+        and all(np.isfinite(float(g0[n])) for n in x0_names)
+    ):
+        raise ValueError(
+            f"fused objective is non-finite at the initial point "
+            f"(value={float(v0)!r}); check the model's initial "
+            "hyperparameters, or use the generic L_BFGS_B_optimize chassis "
+            "(it falls back to derivative-free search)"
+        )
+
+    # optimize in unconstrained z-space; the bijector chain rule is applied
+    # to the engines' theta-space gradients on the host
+    lo, hi = bounds[:, 0], bounds[:, 1]
+    z0 = bijectors.inverse_np(x0, lo, hi)
+
+    def fun(z):
+        theta = bijectors.forward_np(z, lo, hi)
+        v, g = vag({n: theta[i] for i, n in enumerate(x0_names)})
+        # value and gradient reach the host in one transfer
+        vg = torch.stack([v] + [g[n] for n in x0_names]).double().cpu()
+        fv, gt = float(vg[0]), vg[1:].numpy()
+        gz = gt * bijectors.dforward_dz_np(z, lo, hi)
+        if not (np.isfinite(fv) and np.all(np.isfinite(gz))):
+            # NaN-safe line search: see chassis._scipy_optimize
+            return PENALTY, np.zeros_like(gz)
+        return -fv, -gz
+
+    optres = opt.minimize(fun, z0, method="L-BFGS-B", jac=True, **kwargs)
+    if verbose:
+        print(f"optimizer results: \n{optres}")
+    theta = bijectors.forward_np(optres.x, lo, hi)
+    return _new_muygps(
+        muygps, x0_names, bounds, {n: theta[i] for i, n in enumerate(x0_names)}
+    )

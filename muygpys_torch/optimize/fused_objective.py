@@ -1,0 +1,135 @@
+"""The K2 objective of a model and a training batch.
+
+Counterpart of :func:`muygpys_tpu.pallas.fused_train.make_fused_train_objective`:
+the model's parameters become K2's runtime parameter vector, and one
+evaluation is one K2 launch (:func:`muygpys_torch.gpu.fused_train.fused_train_stats_bl`)
+plus the host epilogue, returning the value and the analytic gradient.  The
+model classes and losses are those of
+:func:`muygpys_torch.optimize.fast_objective.make_fast_loo_objective`.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Dict, Sequence
+
+import torch
+
+from muygpys_torch import config
+from muygpys_torch.gp.deformation import Anisotropy
+from muygpys_torch.gp.kernels import RBF
+from muygpys_torch.gp.noise import HeteroscedasticNoise
+from muygpys_torch.gpu.fused_train import (
+    FusedLOO,
+    _epilogue,
+    fused_train_stats_bl,
+)
+from muygpys_torch.optimize.fast_objective import batch_last, check_model
+
+
+class FusedTrainObjective:
+    """The fused LOO objective of one training batch.
+
+    ``self(params_dict) -> (value, grads_dict)`` is the JAX package's
+    ``value_and_grad_fn`` contract; :meth:`value` is the differentiable form
+    over a 1-D tensor ordered as :attr:`names`, through
+    :class:`muygpys_torch.gpu.fused_train.FusedLOO`.  ``defaults`` holds
+    K2's parameter vector (length scales, noise, stored noise) as 0-d
+    tensors keyed by name; a free parameter's value replaces its default.
+    """
+
+    def __init__(self, names: Sequence[str], defaults: Dict, stats_fn,
+                 epilogue):
+        self.names = list(names)
+        self._defaults = defaults
+        self._stats_fn = stats_fn
+        self._epilogue = epilogue
+
+    def _evaluate(self, theta):
+        vals = dict(self._defaults)
+        like = next(iter(vals.values()))
+        vals.update(zip(self.names, theta.to(like.dtype)))
+        value, grads = self._epilogue(
+            self._stats_fn(torch.stack(list(vals.values())))
+        )
+        if not self.names:
+            return value, theta.new_zeros((0,))
+        return value, torch.stack([grads[nm] for nm in self.names]).to(
+            theta.dtype
+        )
+
+    def value(self, theta: torch.Tensor) -> torch.Tensor:
+        """The objective at ``theta`` (ordered as :attr:`names`),
+        differentiable through ``FusedLOO``."""
+        return FusedLOO.apply(theta, self._evaluate)
+
+    def __call__(self, params: Dict):
+        like = next(iter(self._defaults.values()))
+        theta = torch.tensor(
+            [float(params.get(nm, self._defaults[nm])) for nm in self.names],
+            dtype=like.dtype, device=like.device,
+        )
+        value, grad = self._evaluate(theta)
+        return value, dict(zip(self.names, grad))
+
+
+def make_fused_train_objective(
+    muygps, batch_targets, batch_nn_targets, crosswise_dists, pairwise_dists,
+    loss: str = "lool", boundary_scale: float = None, device=None,
+):
+    """K2 value-and-gradient LOO objective for the fused chassis.
+
+    The model classes of
+    :func:`muygpys_torch.optimize.fast_objective.make_fast_loo_objective`:
+    Matern with a fixed closed-form smoothness, or RBF; Isotropy (distance
+    tensors ``(B, n)`` / ``(B, n, n)``) or Anisotropy (per-feature
+    differences ``(B, n, d)`` / ``(B, n, n, d)``, one derivative group per
+    feature); homoscedastic or heteroscedastic noise; loss in {lool, mse,
+    looph, huber}.  ``boundary_scale`` defaults per loss: 3.0 for looph,
+    1.5 for huber.  Runs on ``device`` (default ``"cuda"``; ``"cpu"`` runs
+    K2's plain version).
+
+    Returns ``(objective, free_param_names)``: ``objective(params_dict) ->
+    (value, grads_dict)`` in the maximization convention, and
+    ``objective.value(theta)`` the ``torch.autograd`` form.
+    """
+    loss = check_model(muygps, loss)
+    if boundary_scale is None:
+        boundary_scale = 3.0 if loss == "looph" else 1.5
+    dev = config.device(device)
+    kernel = muygps.kernel
+    names, _, _ = muygps.get_opt_params()
+    pw_bl, cw_bl, y_bl, t_bl, d_feat = batch_last(
+        muygps, batch_targets, batch_nn_targets, crosswise_dists,
+        pairwise_dists, dev,
+    )
+    ls = kernel.deformation.length_scale
+    ls_params = list(ls) if isinstance(kernel.deformation, Anisotropy) else [ls]
+    ls_keys = tuple(p.name() for p in ls_params)
+    if isinstance(muygps.noise, HeteroscedasticNoise):
+        noise_free, noise0 = False, 0.0
+        noise_nn = torch.as_tensor(
+            muygps.noise(), dtype=pw_bl.dtype, device=dev
+        ).T.contiguous()
+    else:
+        noise_free = "noise" in names
+        noise0 = float(muygps.noise())
+        noise_nn = None
+    defaults = {
+        key: torch.tensor(float(val), dtype=pw_bl.dtype, device=dev)
+        for key, val in [(p.name(), p()) for p in ls_params]
+        + [("noise", noise0), ("stored noise", noise0)]
+    }
+    stats_fn = functools.partial(
+        fused_train_stats_bl, pw_bl.contiguous(), cw_bl.contiguous(),
+        y_bl.contiguous(), noise_nn=noise_nn,
+        smoothness="rbf" if isinstance(kernel, RBF)
+        else float(kernel.smoothness()),
+        metric_power=1 if kernel.deformation.metric.name == "l2" else 2,
+        noise_free=noise_free, d_feat=d_feat, device=dev,
+    )
+    epilogue = functools.partial(
+        _epilogue, t_bl=t_bl, loss=loss, free_names=names, n=pw_bl.shape[0],
+        boundary_scale=boundary_scale, ls_keys=ls_keys,
+    )
+    return FusedTrainObjective(names, defaults, stats_fn, epilogue), names

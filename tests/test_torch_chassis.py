@@ -1,0 +1,131 @@
+"""The training chassis, port against JAX on the same batch (f64, CPU):
+Fused_L_BFGS_B_optimize (K2's plain version vs the TPU kernel in interpret
+mode, and the lanes engines), the generic L_BFGS_B_optimize and
+Adam_optimize, at tests/test_pallas_train.py's optimum tolerances (length
+scale rtol 1e-3, noise rtol 1e-2)."""
+
+import numpy as np
+import pytest
+import torch
+
+from test_torch_convert import carried_for_training, jax_model_to_train
+from test_torch_fast_objective import problem
+
+from muygpys_tpu import optimize as jopt
+from muygpys_torch.convert import arrays_from_muygps
+from muygpys_torch.gpu import _build
+from muygpys_torch.optimize import (
+    Adam_optimize,
+    Fused_L_BFGS_B_optimize,
+    L_BFGS_B_optimize,
+    lool_fn,
+    mse_fn,
+)
+
+
+def _jax_values(jm):
+    return (
+        float(jm.kernel.deformation.length_scale()), float(jm.noise())
+    )
+
+
+def _port_values(tm):
+    vals = arrays_from_muygps(tm)
+    return vals["length_scale"], vals["noise"]
+
+
+def _assert_same_optimum(tm, jm):
+    ls, noise = _port_values(tm)
+    ls_ref, noise_ref = _jax_values(jm)
+    np.testing.assert_allclose(ls, ls_ref, rtol=1e-3)
+    np.testing.assert_allclose(noise, noise_ref, rtol=1e-2)
+
+
+@pytest.fixture(scope="module")
+def batch():
+    return problem(11)
+
+
+@pytest.fixture(scope="module")
+def jax_fused(batch):
+    jm = jax_model_to_train()
+    return jm, jopt.Fused_L_BFGS_B_optimize(
+        jm, *batch, engine="pallas", interpret=True
+    )
+
+
+def test_fused_chassis_matches_jax(batch, jax_fused):
+    jm, jref = jax_fused
+    _build.reset_launches()
+    kernel = Fused_L_BFGS_B_optimize(
+        carried_for_training(jm), *batch, engine="kernel", device="cpu"
+    )
+    assert _build.launches["fused_train_stats"] == 0
+    _assert_same_optimum(kernel, jref)
+    lanes = Fused_L_BFGS_B_optimize(
+        carried_for_training(jm), *batch, engine="lanes", device="cpu"
+    )
+    _assert_same_optimum(lanes, jref)
+    # the original model is left as it was
+    assert float(jm.kernel.deformation.length_scale()) == 0.4
+
+
+def test_generic_chassis_matches_jax(batch, jax_fused):
+    jm, jfused = jax_fused
+    jref = jopt.L_BFGS_B_optimize(jm, *batch, loss_fn=jopt.lool_fn)
+    tm = L_BFGS_B_optimize(
+        carried_for_training(jm), *batch, loss_fn=lool_fn
+    )
+    _assert_same_optimum(tm, jref)
+    # and the generic optimum is the fused one (tests/test_pallas_train.py)
+    _assert_same_optimum(tm, jfused)
+
+
+def test_generic_chassis_mse_matches_jax(batch):
+    jm = jax_model_to_train(nu=0.5, noise_bounds="fixed")
+    jref = jopt.L_BFGS_B_optimize(jm, *batch, loss_fn=jopt.mse_fn)
+    tm = L_BFGS_B_optimize(carried_for_training(jm), *batch, loss_fn=mse_fn)
+    np.testing.assert_allclose(
+        _port_values(tm)[0], _jax_values(jref)[0], rtol=1e-3
+    )
+
+
+def test_adam_follows_jax(batch):
+    """torch.optim.Adam with the JAX defaults (learning rate 0.05) takes
+    the optax trajectory: 40 steps end at the same point."""
+    jm = jax_model_to_train()
+    jref = jopt.Adam_optimize(jm, *batch, loss_fn=jopt.lool_fn, n_iter=40)
+    tm = Adam_optimize(
+        carried_for_training(jm), *batch, loss_fn=lool_fn, n_iter=40
+    )
+    np.testing.assert_allclose(
+        _port_values(tm), _jax_values(jref), rtol=1e-6
+    )
+
+
+def test_chassis_survive_a_failing_cholesky(batch):
+    """A proposal whose factorization fails scores the penalty instead of
+    ending the run (torch raises where JAX returns NaN)."""
+    tm = carried_for_training(jax_model_to_train(
+        ls_bounds=(0.01, 1e5), noise_bounds=(0.0, 1e-1)
+    ))
+    obj = L_BFGS_B_optimize.make_obj_fn(tm, *batch, loss_fn=lool_fn)
+    with pytest.raises(torch.linalg.LinAlgError):
+        obj(length_scale=1e5, noise=0.0)
+    out = L_BFGS_B_optimize(tm, *batch, loss_fn=lool_fn)
+    ls, noise = _port_values(out)
+    assert 0.01 <= ls <= 1e5 and 0.0 <= noise <= 0.1
+
+
+@pytest.mark.parametrize("engine", ["kernel", "lanes"])
+def test_fused_chassis_refuses_a_nonfinite_start(batch, engine):
+    """With a non-finite objective at x0 the NaN-safe line search would
+    "converge" at once; the chassis raises instead (JAX's probe)."""
+    t, y, cw, pw = batch
+    t = t.copy()
+    t[3] = np.nan
+    with pytest.raises(ValueError, match="non-finite at the initial point"):
+        Fused_L_BFGS_B_optimize(
+            carried_for_training(jax_model_to_train()), t, y, cw, pw,
+            engine=engine, device="cpu",
+        )

@@ -8,7 +8,7 @@ import pytest
 
 from _torch_models import carried, jax_model
 
-from muygpys_torch.convert import muygps_from_arrays
+from muygpys_torch.convert import arrays_from_muygps, muygps_from_arrays
 from muygpys_torch.gp.deformation import Anisotropy, Isotropy
 from muygpys_torch.gp.kernels import Matern, RBF
 from muygpys_torch.gp.noise import HeteroscedasticNoise, HomoscedasticNoise
@@ -48,3 +48,101 @@ def test_convert_errors():
         muygps_from_arrays(0.5, noise=1e-3, kernel="cauchy")
     with pytest.raises(ValueError, match="general smoothness"):
         muygps_from_arrays(0.5, noise=1e-3, smoothness=0.7)
+
+
+def jax_model_to_train(kernel="matern", nu=1.5, ls=0.4, ls_bounds=(0.01, 5.0),
+                       noise=1e-3, noise_bounds=(1e-6, 1e-1), metric="l2",
+                       hetero=None):
+    """A JAX MuyGPS still to be trained, with an AnalyticScale.  ``ls``
+    scalar -> Isotropy, sequence -> Anisotropy (``ls_bounds`` shared);
+    ``noise_bounds="fixed"`` fixes the noise; ``hetero`` an array ->
+    HeteroscedasticNoise."""
+    from muygpys_tpu.gp import MuyGPS
+    from muygpys_tpu.gp.deformation import F2, Anisotropy, Isotropy, l2
+    from muygpys_tpu.gp.hyperparameter import (
+        AnalyticScale,
+        Parameter,
+        VectorParameter,
+    )
+    from muygpys_tpu.gp.kernels import RBF, Matern
+    from muygpys_tpu.gp.noise import HeteroscedasticNoise, HomoscedasticNoise
+
+    m = {"l2": l2, "F2": F2}[metric]
+    if np.ndim(ls) == 0:
+        deformation = Isotropy(m, length_scale=Parameter(ls, ls_bounds))
+    else:
+        deformation = Anisotropy(m, VectorParameter(
+            *(Parameter(v, ls_bounds) for v in ls)
+        ))
+    kern = (RBF(deformation=deformation) if kernel == "rbf"
+            else Matern(smoothness=Parameter(nu), deformation=deformation))
+    noise_fn = (HomoscedasticNoise(noise, noise_bounds) if hetero is None
+                else HeteroscedasticNoise(np.asarray(hetero)))
+    return MuyGPS(kernel=kern, noise=noise_fn, scale=AnalyticScale())
+
+
+def carried_for_training(jm):
+    """The port's MuyGPS to be trained, built from the JAX model's getters
+    (values and bounds as numpy numbers)."""
+    from muygpys_tpu.gp.hyperparameter import AnalyticScale as JaxAnalytic
+    from muygpys_tpu.gp.kernels import RBF as JaxRBF
+    from muygpys_tpu.gp.noise import HeteroscedasticNoise as JaxHetero
+
+    d = jm.kernel.deformation
+    ls = np.asarray(d.length_scale())
+    if ls.ndim == 0:
+        ls_bounds = d.length_scale.get_bounds()
+    else:
+        ls_bounds = [d.length_scale[i].get_bounds() for i in range(ls.size)]
+    is_rbf = isinstance(jm.kernel, JaxRBF)
+    hetero = isinstance(jm.noise, JaxHetero)
+    return muygps_from_arrays(
+        length_scale=ls,
+        length_scale_bounds=ls_bounds,
+        noise=None if hetero else np.asarray(jm.noise()),
+        noise_bounds="fixed" if hetero or jm.noise.fixed()
+        else jm.noise.get_bounds(),
+        scale="analytic" if isinstance(jm.scale, JaxAnalytic)
+        else np.asarray(jm.scale()),
+        smoothness=None if is_rbf else np.asarray(jm.kernel.smoothness()),
+        kernel="rbf" if is_rbf else "matern",
+        metric=d.metric.name,
+        measurement_noise=np.asarray(jm.noise()) if hetero else None,
+    )
+
+
+@pytest.mark.parametrize(
+    "spec",
+    [dict(), dict(ls=(0.3, 0.7), noise_bounds="fixed"),
+     dict(kernel="rbf", metric="F2", ls_bounds=(0.1, 2.0)),
+     dict(nu=2.5, hetero=np.full((3, 4), 0.01))],
+)
+def test_model_to_train_carried_across(spec):
+    from muygpys_torch.gp.hyperparameter import AnalyticScale
+
+    jm = jax_model_to_train(**spec)
+    tm = carried_for_training(jm)
+    j_names, j_vals, j_bounds = jm.get_opt_params()
+    t_names, t_vals, t_bounds = tm.get_opt_params()
+    assert t_names == list(j_names)
+    np.testing.assert_array_equal(t_vals, np.asarray(j_vals))
+    np.testing.assert_array_equal(t_bounds, np.asarray(j_bounds).reshape(-1, 2))
+    assert isinstance(tm.scale, AnalyticScale) and tm.fixed() == jm.fixed()
+
+    # values come back out as numpy numbers
+    vals = arrays_from_muygps(tm)
+    np.testing.assert_array_equal(
+        vals["length_scale"], np.asarray(jm.kernel.deformation.length_scale())
+    )
+    np.testing.assert_array_equal(vals["noise"], np.asarray(jm.noise()))
+    assert vals["scale"] == 1.0
+    assert ("smoothness" in vals) == (spec.get("kernel") != "rbf")
+
+
+def test_model_with_free_smoothness_is_refused():
+    from muygpys_torch.gp.hyperparameter import Parameter
+
+    with pytest.raises(ValueError, match="general-smoothness slice"):
+        Matern(smoothness=Parameter(1.5, (0.5, 2.5)))
+    with pytest.raises(ValueError, match="unknown scale"):
+        muygps_from_arrays(0.5, noise=1e-3, smoothness=1.5, scale="median")

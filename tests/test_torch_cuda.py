@@ -91,3 +91,121 @@ def test_kernel_wrappers_check_inputs():
         prep._replace(qsq=prep.qsq.double()).candidates()
     with pytest.raises(ValueError, match="geometry"):
         prep._replace(query_tile=100).candidates()
+
+
+# (smoothness, metric_power, noise_free, r, d_feat, heteroscedastic)
+K2_CASES = [
+    (0.5, 1, False, 1, 0, False),
+    (1.5, 1, True, 1, 0, False),
+    ("rbf", 2, True, 2, 0, False),
+    (2.5, 1, False, 1, 2, False),
+    (math.inf, 1, True, 2, 2, False),
+    (1.5, 1, False, 1, 0, True),
+]
+
+
+def k2_row_errors(out, ref, r):
+    """(max abs error, magnitude) per row: the magnitude is the smallest
+    value for the positive rows (var, q), the largest |value| otherwise."""
+    positive = {r, r + 1}
+    res = []
+    for i in range(ref.shape[0]):
+        err = float((out[i] - ref[i]).abs().max())
+        mag = (float(ref[i].abs().min()) if i in positive
+               else float(ref[i].abs().max()))
+        res.append((err, mag))
+    return res
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize(
+    "case,n",
+    [(c, 30) for c in K2_CASES] + [(K2_CASES[1], 40), (K2_CASES[4], 40)],
+    ids=[f"{c}-n{n}" for c, n in
+         [(c, 30) for c in K2_CASES] + [(K2_CASES[1], 40), (K2_CASES[4], 40)]],
+)
+def test_k2_kernel_matches_plain(case, n, dtype):
+    """n = 40 gives a warp more rows than lanes and, in f64, a block of
+    fewer than 8 points."""
+    _need_card()
+    from muygpys_torch.gpu.fused_train import (
+        fused_train_stats_bl,
+        fused_train_stats_bl_plain,
+    )
+
+    smoothness, power, noise_free, r, d_feat, hetero = case
+    g = torch.Generator(device="cuda").manual_seed(1)
+    B = 1000  # not a multiple of the block's 8 points
+    opts = dict(dtype=torch.float64, device="cuda", generator=g)
+    pts = torch.rand((n, 2, B), **opts) * 0.05
+    q = torch.rand((2, B), **opts) * 0.05
+    diff_p = pts[:, None] - pts[None, :]  # (n, n, 2, B)
+    diff_c = pts - q[None]  # (n, 2, B)
+    if d_feat:
+        pw, cw = diff_p, diff_c
+        params = [0.3, 0.4]
+    else:
+        pw, cw = (diff_p**2).sum(2), (diff_c**2).sum(1)
+        if power == 1:
+            pw, cw = pw.sqrt(), cw.sqrt()
+        params = [0.3]
+    params = torch.tensor(params + [2e-2, 1e-2], device="cuda")
+    y = torch.randn((n, r, B), **opts)
+    noise_nn = torch.rand((n, B), **opts) * 1e-2 + 1e-2 if hetero else None
+    args = [t.to(dtype).contiguous() if t is not None else None
+            for t in (pw, cw, y, params, noise_nn)]
+    kw = dict(smoothness=smoothness, metric_power=power,
+              noise_free=noise_free, d_feat=d_feat)
+    from muygpys_torch.gpu import _build
+
+    before = _build.launches["fused_train_stats"]
+    out = fused_train_stats_bl(*args, **kw)
+    torch.cuda.synchronize()
+    assert _build.launches["fused_train_stats"] == before + 1
+    ref = fused_train_stats_bl_plain(*args, **kw)
+    assert torch.isfinite(out).all()
+    # f64: both orders exact to ~1e-16 x the conditioning (<~1e4 here);
+    # f32: a hundredth of each row's magnitude
+    rel = 1e-9 if dtype == torch.float64 else 1e-2
+    for i, (err, mag) in enumerate(k2_row_errors(out, ref, r)):
+        assert err <= rel * mag, f"row {i}: error {err} against {mag}"
+
+
+def test_fused_chassis_on_the_card_matches_cpu():
+    """Fused_L_BFGS_B_optimize through K2 on the card (f64) lands at the
+    optimum of the same chassis on the CPU (K2's plain version), with one
+    launch per objective evaluation."""
+    _need_card()
+    from muygpys_torch.convert import arrays_from_muygps, muygps_from_arrays
+    from muygpys_torch.gpu import _build
+    from muygpys_torch.optimize import Fused_L_BFGS_B_optimize
+
+    rng = np.random.default_rng(3)
+    B, n = 256, 20
+    pts = rng.uniform(size=(B, n, 2))
+    q = rng.uniform(size=(B, 2))
+    pw = np.sqrt(((pts[:, :, None] - pts[:, None]) ** 2).sum(-1))
+    cw = np.sqrt(((q[:, None] - pts) ** 2).sum(-1))
+    y = np.sin(3 * pts[..., 0]) + 0.1 * rng.standard_normal((B, n))
+    t = np.sin(3 * q[:, 0]) + 0.1 * rng.standard_normal(B)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = muygps_from_arrays(
+            0.5, noise=1e-3, smoothness=1.5, scale="analytic",
+            length_scale_bounds=(0.01, 5.0), noise_bounds=(1e-6, 1.0),
+        )
+        iters = []
+        _build.reset_launches()
+        trained = Fused_L_BFGS_B_optimize(
+            model, t, y, cw, pw, device=dev,
+            callback=lambda xk: iters.append(1),
+        )
+        if dev == "cuda":
+            assert _build.launches["fused_train_stats"] >= len(iters) + 1
+        out[dev] = arrays_from_muygps(trained)
+    np.testing.assert_allclose(
+        out["cuda"]["length_scale"], out["cpu"]["length_scale"], rtol=1e-6
+    )
+    np.testing.assert_allclose(
+        out["cuda"]["noise"], out["cpu"]["noise"], rtol=1e-6
+    )

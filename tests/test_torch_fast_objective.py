@@ -1,0 +1,216 @@
+"""The LOO objectives of the training slice, in f64 on the CPU:
+
+- the port's K2 objective (make_fused_train_objective: K2's plain version,
+  the epilogue and the autograd.Function) against the JAX package's K2
+  objective (fused_train_stats_bl in interpret mode and its epilogue) for
+  lool, mse, looph and huber, value and gradient;
+- K2's analytic gradient against torch.autograd through the port's lanes
+  objective (make_fast_loo_objective), a second derivation that does not
+  depend on JAX;
+- the model classes both objectives refuse."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from test_torch_convert import carried_for_training, jax_model_to_train
+
+from muygpys_tpu.pallas import fused_train as jft
+from muygpys_torch.gp.deformation import Isotropy, l2
+from muygpys_torch.gp.hyperparameter import Parameter
+from muygpys_torch.gp.kernels import KernelFn, Matern
+from muygpys_torch.gp.muygps import MuyGPS
+from muygpys_torch.gpu import _build
+from muygpys_torch.optimize import (
+    Fused_L_BFGS_B_optimize,
+    make_fast_loo_objective,
+)
+from muygpys_torch.optimize.fused_objective import make_fused_train_objective
+
+B, N = 64, 10
+LOSSES = ["lool", "mse", "looph", "huber"]
+
+
+def problem(seed, d_feat=0, r=1, metric="l2"):
+    """Training tensors from numpy in the make_train_tensors layout:
+    distances (B, n, n) / (B, n) isotropic (squared under F2), per-feature
+    differences (B, n, n, d) / (B, n, d) anisotropic."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(size=(B, N, 2))
+    q = rng.uniform(size=(B, 2))
+    pw = pts[:, :, None, :] - pts[:, None, :, :]
+    cw = q[:, None, :] - pts
+    if not d_feat:
+        pw, cw = (pw**2).sum(-1), (cw**2).sum(-1)
+        if metric == "l2":
+            pw, cw = np.sqrt(pw), np.sqrt(cw)
+    y = rng.standard_normal((B, N, r))
+    t = rng.standard_normal((B, r))
+    if r == 1:
+        y, t = y[:, :, 0], t[:, 0]
+    return t, y, cw, pw
+
+
+@pytest.fixture(scope="module")
+def iso():
+    """Matern 3/2, free length scale and noise: the training headline's
+    model class at the JAX test's size, with JAX's K2 rows at the proposed
+    parameters computed once (the loss lives only in the epilogue)."""
+    jm = jax_model_to_train()
+    t, y, cw, pw = problem(0)
+    params = {"length_scale": 0.33, "noise": 2e-3}
+    stats = jft.fused_train_stats_bl(
+        jnp.asarray(pw.transpose(1, 2, 0)), jnp.asarray(cw.T),
+        jnp.asarray(y.T[:, None, :]),
+        jnp.asarray([0.33, 2e-3, 1e-3]),  # [ls, noise, stored noise]
+        smoothness=1.5, noise_free=True, batch_tile=B, interpret=True,
+    )
+    return jm, (t, y, cw, pw), params, stats
+
+
+@pytest.mark.parametrize("loss", LOSSES)
+def test_objective_matches_jax(iso, loss):
+    jm, data, params, stats = iso
+    t = data[0]
+    v_ref, g_ref = jft._epilogue(
+        stats, jnp.asarray(t[None, :]), loss, ("length_scale", "noise"), N
+    )
+    obj, names = make_fused_train_objective(
+        carried_for_training(jm), *data, loss=loss, device="cpu"
+    )
+    assert names == ["length_scale", "noise"]
+    _build.reset_launches()
+    v, g = obj(params)
+    assert _build.launches["fused_train_stats"] == 0  # plain version on CPU
+    np.testing.assert_allclose(float(v), float(v_ref), rtol=1e-8)
+    for name in params:
+        np.testing.assert_allclose(
+            float(g[name]), float(g_ref[name]), rtol=1e-6, err_msg=name
+        )
+    # the same gradient through the autograd.Function's backward
+    theta = torch.tensor([0.33, 2e-3], dtype=torch.float64, requires_grad=True)
+    (2.0 * obj.value(theta)).backward()
+    np.testing.assert_allclose(
+        theta.grad.numpy(),
+        [2.0 * float(g_ref["length_scale"]), 2.0 * float(g_ref["noise"])],
+        rtol=1e-6,
+    )
+
+
+def test_whole_objective_matches_jax(iso):
+    """JAX's make_fused_train_objective end to end (its own parameter
+    assembly and stored-noise slot) against the port's."""
+    jm, data, params, _ = iso
+    jvag, jnames = jft.make_fused_train_objective(
+        jm, *(jnp.asarray(a) for a in data), loss="lool", interpret=True
+    )
+    v_ref, g_ref = jvag(params)
+    obj, names = make_fused_train_objective(
+        carried_for_training(jm), *data, device="cpu"
+    )
+    v, g = obj(params)
+    assert names == list(jnames)
+    np.testing.assert_allclose(float(v), float(v_ref), rtol=1e-8)
+    for name in params:
+        np.testing.assert_allclose(
+            float(g[name]), float(g_ref[name]), rtol=1e-6, err_msg=name
+        )
+
+
+# (model spec, problem spec, proposed parameters, loss)
+AUTOGRAD_CASES = [
+    (dict(), dict(), {"length_scale": 0.33, "noise": 2e-3}, "lool"),
+    (dict(nu=0.5), dict(r=2), {"length_scale": 0.21, "noise": 5e-3}, "mse"),
+    (dict(nu=2.5, noise_bounds="fixed"), dict(), {"length_scale": 0.5},
+     "looph"),
+    (dict(nu=np.inf), dict(r=2), {"length_scale": 0.27, "noise": 1e-2},
+     "huber"),
+    (dict(kernel="rbf", metric="F2"), dict(metric="F2"),
+     {"length_scale": 0.4, "noise": 3e-3}, "looph"),
+    (dict(ls=(0.5, 0.7)), dict(d_feat=2),
+     {"length_scale0": 0.43, "length_scale1": 0.81, "noise": 2e-3}, "lool"),
+    (dict(kernel="rbf", metric="F2", ls=(0.5, 0.7), noise_bounds="fixed"),
+     dict(d_feat=2, r=2), {"length_scale0": 0.6, "length_scale1": 0.3},
+     "mse"),
+    (dict(hetero=np.random.default_rng(9).uniform(1e-3, 1e-2, (B, N))),
+     dict(), {"length_scale": 0.33}, "lool"),
+]
+
+
+@pytest.mark.parametrize(
+    "model,prob,params,loss", AUTOGRAD_CASES,
+    ids=[f"{i}-{c[3]}" for i, c in enumerate(AUTOGRAD_CASES)],
+)
+def test_k2_gradient_matches_autograd(model, prob, params, loss):
+    tm = carried_for_training(jax_model_to_train(**model))
+    data = problem(AUTOGRAD_CASES.index((model, prob, params, loss)), **prob)
+    obj, names = make_fused_train_objective(tm, *data, loss=loss, device="cpu")
+    assert sorted(names) == sorted(params)
+    v, g = obj(params)
+    lanes, lnames = make_fast_loo_objective(
+        tm, *data, loss=loss, device="cpu"
+    )
+    assert lnames == names
+    theta = {
+        k: torch.tensor(v0, dtype=torch.float64, requires_grad=True)
+        for k, v0 in params.items()
+    }
+    v_ref = lanes(theta)
+    v_ref.backward()
+    v_ref = v_ref.detach()
+    np.testing.assert_allclose(float(v), float(v_ref), rtol=1e-8)
+    for k in params:
+        np.testing.assert_allclose(
+            float(g[k]), float(theta[k].grad), rtol=1e-6, err_msg=k
+        )
+
+
+class _ShearLike(KernelFn):
+    """Stands in for a kernel class the port does not train (the shear
+    models)."""
+
+    def __init__(self):
+        super().__init__(Isotropy(l2, length_scale=Parameter(0.4, (0.1, 1))))
+        self._make()
+
+    def _make(self):
+        self._make_base()
+        self._fn = lambda d, **kw: d
+
+
+def test_unsupported_models_raise_before_any_launch(iso):
+    jm, data, _, _ = iso
+    tm = carried_for_training(jm)
+    with pytest.raises(ValueError, match="device-chassis slice"):
+        make_fast_loo_objective(tm, *data, layout="batched", device="cpu")
+    with pytest.raises(ValueError, match="lool/mse/looph/huber"):
+        make_fast_loo_objective(tm, *data, loss="cross_entropy", device="cpu")
+    shear = MuyGPS(kernel=_ShearLike(), noise=tm.noise)
+    _build.reset_launches()
+    for build in (make_fast_loo_objective, make_fused_train_objective):
+        with pytest.raises(NotImplementedError, match="shear slice"):
+            build(shear, *data, device="cpu")
+    with pytest.raises(NotImplementedError, match="shear slice"):
+        Fused_L_BFGS_B_optimize(shear, *data, device="cpu")
+    # free or general smoothness never reaches a chassis: the model refuses
+    # it when it is built (general-smoothness slice)
+    for nu in (Parameter(1.5, (0.5, 2.5)), Parameter(1.37)):
+        with pytest.raises(ValueError, match="general-smoothness slice"):
+            Matern(smoothness=nu)
+    # anisotropic models take per-feature differences, not distances
+    aniso = carried_for_training(jax_model_to_train(ls=(0.5, 0.7)))
+    with pytest.raises(ValueError, match="difference"):
+        make_fused_train_objective(aniso, *data, device="cpu")
+    assert _build.launches["fused_train_stats"] == 0
+
+
+def test_objectives_default_to_cuda(iso, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    jm, data, _, _ = iso
+    tm = carried_for_training(jm)
+    for build in (make_fast_loo_objective, make_fused_train_objective):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build(tm, *data)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Fused_L_BFGS_B_optimize(tm, *data)

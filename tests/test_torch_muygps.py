@@ -80,3 +80,51 @@ def test_noise_models(data):
         tgt.make_heteroscedastic_tensor(meas, torch.as_tensor(nn)),
         meas[torch.as_tensor(nn)],
     )
+
+
+def test_train_tensors_and_opt_surface_match_jax(data):
+    """make_train_tensors, the free-parameter lists and the kwarg-threaded
+    objective pieces (a proposed length scale and noise reach the kernel
+    and the solves) against the JAX model."""
+    from test_torch_convert import carried_for_training, jax_model_to_train
+
+    x, y, _, _ = data
+    bi = np.arange(0, 80, 5)
+    nn = np.stack([np.delete(np.arange(80), i)[i % 7::9][:8] for i in bi])
+    for spec in (dict(), dict(ls=(0.3, 0.8), noise_bounds="fixed")):
+        jm = jax_model_to_train(**spec)
+        tm = carried_for_training(jm)
+        assert tm.fixed() is False and tm.fixed() == jm.fixed()
+        names, vals, bounds = tm.get_opt_params()
+        jn, jv, jb = jm.get_opt_params()
+        assert names == jn
+        np.testing.assert_array_equal(vals, np.asarray(jv))
+        np.testing.assert_array_equal(bounds, np.asarray(jb))
+        T, J = torch.as_tensor, jnp.asarray
+        tt = tm.make_train_tensors(bi, nn, T(x), T(y))
+        jt = jm.make_train_tensors(J(bi), J(nn), J(x), J(y))
+        for a, b in zip(tt, jt):
+            np.testing.assert_allclose(
+                a.numpy(), np.asarray(b), rtol=1e-12, atol=1e-7
+            )
+        proposal = {nm: 0.9 * v for nm, v in zip(names, vals)}
+        cw_t, pw_t, _, nt_t = tt
+        cw_j, pw_j, _, nt_j = jt
+        Kin_t = tm.kernel.get_opt_fn()(pw_t, **proposal)
+        Kc_t = tm.kernel.get_opt_fn()(cw_t, **proposal)
+        Kin_j = jm.kernel.get_opt_fn()(pw_j, **proposal)
+        Kc_j = jm.kernel.get_opt_fn()(cw_j, **proposal)
+        np.testing.assert_allclose(
+            Kin_t.numpy(), np.asarray(Kin_j), rtol=1e-12, atol=1e-7
+        )
+        close = dict(rtol=1e-5, atol=1e-8)
+        np.testing.assert_allclose(
+            tm.get_opt_mean_fn()(Kin_t, Kc_t, nt_t, **proposal).numpy(),
+            np.asarray(jm.get_opt_mean_fn()(Kin_j, Kc_j, nt_j, **proposal)),
+            **close,
+        )
+        np.testing.assert_allclose(
+            tm.get_opt_var_fn()(Kin_t, Kc_t, **proposal).numpy(),
+            np.asarray(jm.get_opt_var_fn()(Kin_j, Kc_j, **proposal)),
+            **close,
+        )

@@ -112,7 +112,8 @@ def test_launch_counters_reset():
     _build.launches["knn_candidates"] += 2
     _build.reset_launches()
     assert set(_build.launches) == {
-        "fused_predict_coords", "knn_candidates", "knn_candidates_pruned"
+        "fused_predict_coords", "knn_candidates", "knn_candidates_pruned",
+        "fused_train_stats",
     }
     assert all(v == 0 for v in _build.launches.values())
 
