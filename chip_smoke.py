@@ -38,9 +38,30 @@ Phases (any failure raises and the script exits non-zero):
    trace of K2 objective evaluations;
 8. serving the trained model: FastServer(engine="fused") against the f64
    reference engine with the same model;
-9. the kernels line: one JSON object with every kernel's launches on its
+9. general smoothness, K4 (the traced-nu surrogate, csrc/matern_nu.cuh)
+   inside K1, K1b and K2: K1 under "gen" against its plain version at the
+   serving shape for nu in {0.31, 1.2, 2.0 (the clamp zone), 4.8}, f32 and
+   f64; K4 alone against scipy.special.kv through the f64 and f32 kernels on
+   a t grid; K1b (the solve from distances) against its plain version,
+   closed form, RBF and gen; K2 under "gen", a fixed and a free nu,
+   isotropic and anisotropic, at the headline's length scale (every entry
+   on K4's series branch) and at one near the neighbour spacing (entries on
+   both branches), each row group (the d/dnu rows included) against its own
+   limit;
+10. the distance-tensor workflow: make_predict_tensors -> fused_predict_bl
+   (K1b) on the first request; in f32 held against the f64 plain version on
+   the same distance tensors, in f64 against the f64 reference engine;
+11. serving nu = 1.2 at the serving headline through the fused engine,
+   against the f64 reference engine (the exact Bessel path);
+12. training a free smoothness at the training headline: length scale, noise
+   and nu together (nu 1.2 in (0.31, 5)), lool, f32, through K2; K2's f64
+   value and gradients at one point against the exact-Bessel lanes
+   objective on the card; the objective reached against the lanes engine's,
+   both judged by the exact f64 objective; where the time of one evaluation
+   goes (coefficient constructor, K2, epilogue); the trained model served;
+13. the kernels line: one JSON object with every kernel's launches on its
    path, error against its plain version, times and bound;
-10. the last line: {"ok": true, "device": {...}}.
+14. the last line: {"ok": true, "device": {...}}.
 
 Kernel times are CUDA-event medians over back-to-back launches; wall times
 are medians of single runs.  Bounds use the H100 SXM data-sheet peaks
@@ -62,6 +83,14 @@ FP32_FLOPS = 67e12
 
 TRAIN, QUERIES, D, NN = 50_000, 8192, 2, 30
 LS, NOISE, NU = 0.5, 1e-3, 1.5
+# general smoothness: the served order and the free-smoothness start value
+# (away from the closed forms), its bounds, and the orders K4 is checked at
+NU_GEN, NU_BOUNDS = 1.2, (0.31, 5.0)
+GEN_NUS = (0.31, 1.2, 2.0, 4.8)
+# a length scale near the neighbour spacing of the 50k set, for the K2 cases
+# whose scaled distances straddle K4's series/tail split
+LS_TAIL = 0.01
+T0_GEN, NTAIL_GEN = 2.0, 40
 # f32 posterior mean floor at noise 1e-3 (kernel-evaluation rounding, the
 # bound bench.py records): within 5e-3 of the f64 reference
 MEAN_TOL_F32 = 5e-3
@@ -70,6 +99,16 @@ MEAN_TOL_F32 = 5e-3
 # gate sits 8x above that spread and must stay under a tenth of the smallest
 # variance compared, so a zero or wrongly scaled variance fails
 VAR_TOL_F32 = 2e-6
+
+# the distance-tensor workflow in f64 against the f64 reference engine (the
+# same distance assembly, so K1b's f64 limits against its plain version)
+DISTS_F64_TOL = (1e-7, 1e-9)
+# the same workflow in f32 against the f64 reference engine: the floor of the
+# Gram-identity distance assembly in f32 (|a|^2 + |b|^2 - 2 a.b loses
+# ~eps_f32 absolute on squared distances of ~2e-5 between neighbours of the
+# 50k set), 1.6x and 2.2x the mean and variance spread measured on the H100
+# (1.224e-2, 1.796e-6; PERF.md, Findings)
+DISTS_F32_GRAM_FLOOR = (2e-2, 4e-6)
 
 # training headline: LOO batch, start values and bounds of the free
 # length scale and noise (tests/test_pallas_train.py's bounds)
@@ -91,6 +130,45 @@ K2_REL = {
         "dnoise/var": 5e-3,
     },
 }
+# K2 under "gen" against its plain version, as above.  f64: the small
+# branch's P + expm1 w^n Q cancellation costs another ~e^2 over a closed
+# form (measured <= 3.3e-10).  f32: both sides read the same (truncated)
+# coefficients, but that cancellation (~6e-6 relative on phi against ~1e-7
+# for a closed form) makes the two rounding orders differ more; each row's
+# limit is 5-10x the largest spread measured on the H100 at the headline's
+# length scale (mean 5.8e-5, var 3.6e-3, q 1.1e-3, d/dls 4.0e-4, dnoise/mean
+# 3.2e-3, dnoise/var 1.3e-4, d/dnu 3.9e-4; PERF.md, Findings)
+K2_GEN_REL = {
+    "float64": dict.fromkeys(
+        ("mean", "var", "q", "dls/mean", "dls/var", "dls/q", "dnoise/mean",
+         "dnoise/var", "dnu/mean", "dnu/var", "dnu/q"), 1e-8,
+    ),
+    "float32": {
+        "mean": 5e-4, "var": 2e-2, "q": 1e-2, "dls/mean": 3e-3,
+        "dls/var": 3e-3, "dls/q": 3e-3, "dnoise/mean": 2e-2,
+        "dnoise/var": 1e-3, "dnu/mean": 3e-3, "dnu/var": 3e-3,
+        "dnu/q": 3e-3,
+    },
+}
+# the same in f32 at LS_TAIL: neighbours decorrelate (phi down to ~1e-3), the
+# LOO variance nears its prior and every row loses digits; 4-7x the largest
+# spread measured there (mean 4.3e-4, var 1.2e-2, q 7.8e-3, d/dls 1.5e-3,
+# dnoise/mean under 3.2e-3, dnoise/var 2.5e-4, d/dnu 1.5e-3; PERF.md,
+# Findings)
+K2_GEN_REL_TAIL_F32 = {
+    "mean": 2e-3, "var": 5e-2, "q": 5e-2, "dls/mean": 1e-2, "dls/var": 1e-2,
+    "dls/q": 1e-2, "dnoise/mean": 2e-2, "dnoise/var": 2e-3, "dnu/mean": 1e-2,
+    "dnu/var": 1e-2, "dnu/q": 1e-2,
+}
+# K4 against scipy's kv on a t grid, mixed error |got - want| / max(|want|,
+# floor): tests/test_matern_nu.py's bounds (f64 1e-8 away from integers,
+# 1e-6 at them where the 1e-7 clamp is the floor; f32 with the host constructor
+# 4e-6)
+K4_F64_TOL, K4_F64_TOL_INTEGER, K4_F32_TOL = 1e-8, 1e-6, 4e-6
+# free-smoothness training: K2 in f64 against the exact-Bessel lanes
+# objective at one point, and the objective reached against the lanes
+# engine's, judged by the exact f64 objective (tests/test_pallas_train.py)
+GEN_VALUE_RTOL, GEN_GRAD_RTOL, GEN_OBJECTIVE_RTOL = 1e-7, 1e-5, 5e-3
 # the f64 objective at the card's optimum against the CPU f64 optimum's
 OBJECTIVE_RTOL = 1e-3
 # the card's f32 optimum against the CPU f64 optimum: 2x the spread measured
@@ -130,13 +208,38 @@ def time_ms(fn, reps=20, warmup=3, trials=5):
     return times[len(times) // 2]
 
 
-def k1_ops_per_query(n, d, r):
-    """Floating-point operations of one K1 query (exp counted as one).
+def k4_ops(counts, nt, need_dt=False, need_dnu=False):
+    """Floating-point operations of K4 over elements counted by branch
+    (``counts`` = elements with t <= 0, 0 < t <= T0, t > T0), exp and log
+    counted as one: each element takes one branch.  Small branch: w, log,
+    expm1, w^n, two 14-term Horner chains and the combination; its d/dt two
+    13-term chains and 14 more; its d/dnu two 14-term chains and 6 more.
+    Tail: the argument, an ``nt``-term Clenshaw recurrence (3 a term), exp;
+    each derivative one more recurrence.  Plus t = coef[0] u."""
+    _, small, tail = counts
+    small_ops = 63 + (62 if need_dt else 0) + (58 if need_dnu else 0)
+    tail_ops = (3 * nt + 5 + ((3 * nt + 3) if need_dt else 0)
+                + ((3 * nt + 1) if need_dnu else 0))
+    return small * (small_ops + 1) + tail * (tail_ops + 1)
 
-    The symmetric K needs n(n+1)/2 kernel evaluations, kc another n."""
+
+def k4_branch_counts(t):
+    """How many of the elements ``t`` take each branch of K4."""
+    zero = int((t <= 0).sum())
+    small = int(((t > 0) & (t <= T0_GEN)).sum())
+    return zero, small, t.numel() - zero - small
+
+
+def k1_ops_per_query(n, d, r, eval_ops=6.0, coords=True):
+    """Floating-point operations of one K1 (or, without the coordinate
+    assembly, K1b) query, exp counted as one.
+
+    The symmetric K needs n(n+1)/2 kernel evaluations, kc another n, each
+    ``eval_ops`` operations (6 for a closed form; under "gen" the mean of
+    :func:`k4_ops` over this run's entries)."""
     m = n + 1 + r
     kernel_entries = n * (n + 1) // 2 + n
-    assembly = kernel_entries * (3 * d + 1 + 6)
+    assembly = kernel_entries * ((3 * d + 1 if coords else 1) + eval_ops)
     elimination = sum(
         (m - j) + (n - 1 - j) + 2 * (n - 1 - j) * (m - 1 - j) + 1
         for j in range(n)
@@ -347,13 +450,17 @@ def device_trace(torch, run):
     )
 
 
-def k2_ops_per_point(n, d_feat, r, noise_free):
+def k2_ops_per_point(n, d_feat, r, noise_free, eval_ops=9.0, nu_free=False):
     """Floating-point operations of one K2 point (exp and sqrt counted as
     one), the least the algorithm needs: K and its derivative fields are
-    symmetric, so n(n+1)/2 + n kernel evaluations."""
+    symmetric, so n(n+1)/2 + n kernel evaluations of ``eval_ops`` operations
+    each (9 for a closed form's K and H; under "gen" the mean of
+    :func:`k4_ops` over this run's entries, plus H and S).  A free nu adds
+    one more group of contractions."""
     dd = d_feat or 1
     scale = 3 * d_feat + 1 if d_feat else 1  # scaled distance
-    evaluation = scale + 9 + (4 * dd if d_feat else 2)  # K, H, the G fields
+    # K, H, the G fields
+    evaluation = scale + eval_ops + (4 * dd if d_feat else 2)
     chol = sum((n - j) * 2 * j + (n - j) for j in range(n)) + 2 * n
     solves = 2 * (1 + r) * n * n  # forward + backward, 1 + r columns
     stats = 2 * n * (2 * r + 1)  # mean, var, q
@@ -361,15 +468,38 @@ def k2_ops_per_point(n, d_feat, r, noise_free):
     per_group = 2 * n * n + 4 * n * r + 4 * n + r * (2 * n * n + 2 * n)
     noise_rows = 2 * n * (r + 1)
     return ((n * (n + 1) // 2 + n) * evaluation + chol + solves + stats
-            + second + dd * per_group + noise_rows)
+            + second + (dd + nu_free) * per_group + noise_rows)
 
 
-def k2_row_names(r, ls_keys):
+def k2_row_names(r, ls_keys, nu_free=False):
     names = [f"mean{k}" for k in range(r)] + ["var", "q"]
     for key in ls_keys:
         names += [f"d{key}/mean{k}" for k in range(r)]
         names += [f"d{key}/var", f"d{key}/q"]
-    return names + [f"dnoise/mean{k}" for k in range(r)] + ["dnoise/var"]
+    names += [f"dnoise/mean{k}" for k in range(r)] + ["dnoise/var"]
+    if nu_free:
+        names += [f"dnu/mean{k}" for k in range(r)] + ["dnu/var", "dnu/q"]
+    return names
+
+
+def k2_check_rows(out, ref, names, limits, worst, tname):
+    """Each K2 row against its own limit, a fraction of the row's magnitude
+    (the smallest value of the positive rows var and q, the largest |value|
+    of the others).  Returns (largest error as a share of its limit, the
+    row it is in, the rows over their limit)."""
+    ratios, over = [], []
+    for i, name in enumerate(names):
+        err = float((out[i] - ref[i]).abs().max())
+        positive = name in ("var", "q")
+        mag = float(ref[i].abs().min() if positive else ref[i].abs().max())
+        kind = "/".join(part.rstrip("0123456789") for part in name.split("/"))
+        ratios.append(err / mag / limits[kind])
+        key = f"{tname}/{kind}"
+        worst[key] = max(worst.get(key, 0.0), err / mag)
+        if err > limits[kind] * mag:
+            over.append(f"{name}: {err:.3e} > {limits[kind]:.0e} x {mag:.3e}")
+    top = max(ratios)
+    return top, names[ratios.index(top)], over
 
 
 def phase_k2(torch, train_d, y_d, bi, bnn):
@@ -436,25 +566,12 @@ def phase_k2(torch, train_d, y_d, bi, bnn):
             names = k2_row_names(
                 r, ["ls0", "ls1"] if aniso else ["ls"]
             )
-            ratios, over = [], []
-            for i, name in enumerate(names):
-                err = float((out[i] - ref[i]).abs().max())
-                positive = name in ("var", "q")
-                mag = float(ref[i].abs().min() if positive
-                            else ref[i].abs().max())
-                kind = "/".join(
-                    part.rstrip("0123456789") for part in name.split("/")
-                )
-                ratios.append(err / mag / limits[kind])
-                key = f"{tname}/{kind}"
-                worst[key] = max(worst.get(key, 0.0), err / mag)
-                if err > limits[kind] * mag:
-                    over.append(f"{name}: {err:.3e} > {limits[kind]:.0e} x "
-                                f"{mag:.3e}")
+            top, top_row, over = k2_check_rows(
+                out, ref, names, limits, worst, tname
+            )
             log(f"K2 {tname} nu={nu} power={power} noise_free={noise_free} "
                 f"r={r} aniso={aniso} hetero={hetero}: largest error as a "
-                f"share of its limit {max(ratios):.3f} (row "
-                f"{names[ratios.index(max(ratios))]})")
+                f"share of its limit {top:.3f} (row {top_row})")
             assert not over, f"K2 disagrees with its plain version: {over}"
             headline = (dtype == torch.float32 and nu == NU and noise_free
                         and not aniso and r == 1)
@@ -480,6 +597,344 @@ def phase_k2(torch, train_d, y_d, bi, bnn):
                     f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
                     f"{nbytes} B, {ops} flop)")
     log("K2 worst error/magnitude by row: " + json.dumps(worst))
+    return row
+
+
+def bound_row(nbytes, ops, **numbers):
+    """A kernels-line row from the bytes the function must move and the
+    operations it does."""
+    byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    op_ms = ops / FP32_FLOPS * 1e3
+    return dict(
+        bound_ms=max(byte_ms, op_ms),
+        bound_by="bytes" if byte_ms > op_ms else "operations",
+        library_ms=None, **numbers,
+    )
+
+
+def host_coeffs(torch, nu, dtype):
+    """K4 coefficients as a server builds them: on the host in f64, cast."""
+    import numpy as np
+
+    from muygpys_torch.gpu.matern_nu import matern_nu_coeffs_host
+
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    return torch.as_tensor(matern_nu_coeffs_host(nu, np_dtype), device="cuda")
+
+
+def phase_k1_gen(torch, knn_inputs, closed_ms):
+    """K1 under "gen" (K4 inlined) against its plain version at the serving
+    shape; returns the kernels-line row of the served order in f32."""
+    from muygpys_torch.gpu.fused_predict import (
+        fused_predict_coords_bl,
+        fused_predict_coords_bl_plain,
+        serve_tail_terms,
+    )
+
+    nf32, q32, y32 = knn_inputs
+    n, d, B = nf32.shape
+    r = y32.shape[1]
+    # (mean, variance) limits.  f64: as K1's closed forms with another ~10x
+    # for the small branch's cancellation; f32: the serving floors
+    tol = {torch.float64: (1e-7, 1e-9),
+           torch.float32: (MEAN_TOL_F32, VAR_TOL_F32)}
+    row = None
+    for dtype in (torch.float32, torch.float64):
+        nf, q, y = (t.to(dtype).contiguous() for t in (nf32, q32, y32))
+        params = torch.tensor([LS] * d + [NOISE], dtype=dtype, device="cuda")
+        for nu in GEN_NUS:
+            co = host_coeffs(torch, nu, dtype)
+            args = (nf, q, y, params, None, co)
+            mk, vk = fused_predict_coords_bl(*args, smoothness="gen")
+            torch.cuda.synchronize()
+            mp, vp = fused_predict_coords_bl_plain(*args, smoothness="gen")
+            assert torch.isfinite(mk).all() and torch.isfinite(vk).all()
+            err_m = float((mk - mp).abs().max())
+            err_v = float((vk - vp).abs().max())
+            tol_m, tol_v = tol[dtype]
+            v_min = float(vp.abs().min())
+            log(f"K1 gen {str(dtype)[6:]} nu={nu}: mean max_abs_err="
+                f"{err_m:.3e} (tol {tol_m:.0e}), var max_abs_err={err_v:.3e} "
+                f"(tol {tol_v:.0e}; var min {v_min:.3e})")
+            assert tol_v <= 0.1 * v_min, "variance gate too loose"
+            assert err_m <= tol_m, f"K1 gen mean disagrees: {err_m}"
+            assert err_v <= tol_v, f"K1 gen var disagrees: {err_v}"
+            if dtype == torch.float32 and nu == NU_GEN:
+                ms = time_ms(lambda: fused_predict_coords_bl(
+                    *args, smoothness="gen"))
+                plain_ms = time_ms(lambda: fused_predict_coords_bl_plain(
+                    *args, smoothness="gen"), reps=3, trials=3)
+                # K4's work by branch over the entries the function needs:
+                # the upper triangle of K with its diagonal, and kc
+                x = nf / LS
+                iu = torch.triu_indices(n, n, device="cuda")
+                up = (x[iu[0]] - x[iu[1]]).pow(2).sum(1).sqrt()
+                uc = (x - (q / LS)[None]).pow(2).sum(1).sqrt()
+                counts = k4_branch_counts(co[0] * torch.cat([up, uc]))
+                entries = (n * (n + 1) // 2 + n) * B
+                eval_ops = k4_ops(counts, serve_tail_terms(dtype)) / entries
+                nbytes = ((n * d + d + n * r + r + 1) * B + d + 1 + 73) * 4
+                ops = k1_ops_per_query(n, d, r, eval_ops) * B
+                # K4 has no launch of its own: the difference to the closed
+                # form over the n^2 + n elements a query evaluates
+                k4_ns = (ms - closed_ms) * 1e6 / ((n * n + n) * B)
+                row = bound_row(
+                    nbytes, ops, max_abs_err=max(err_m, err_v), ms=ms,
+                    plain_ms=plain_ms, k4_ns_per_element=k4_ns,
+                    k4_branches=dict(zip(("zero", "small", "tail"), counts)),
+                )
+                log(f"K1 gen f32 time: kernel {ms:.4f} ms (closed form "
+                    f"{closed_ms:.4f} ms: K4 costs {k4_ns:.4f} ns per "
+                    f"element), plain {plain_ms:.4f} ms, bound "
+                    f"{row['bound_ms']:.4f} ms ({row['bound_by']}; {nbytes} "
+                    f"B, {ops:.0f} flop; entries by branch {counts})")
+    return row
+
+
+def phase_k4_scipy(torch):
+    """K4 alone against scipy.special.kv on a t grid, through the kernel:
+    K1b with one neighbor, unit length scale and no noise returns
+    mean = phi(t) . 1 for y = 1.  f64 with the tensor constructor (what f64
+    training evaluates), f32 with the host constructor (what a server
+    evaluates), as tests/test_matern_nu.py certifies them."""
+    import numpy as np
+    import scipy.special
+
+    from muygpys_torch.gpu.fused_predict import fused_predict_bl
+    from muygpys_torch.gpu.matern_nu import matern_nu_coeffs
+
+    ts = np.concatenate(
+        [[0.0], np.logspace(-3, np.log10(41.9), 120), [45.0, 80.0]]
+    )
+    worst = {}
+    for nu in GEN_NUS + (0.05, 0.5, 1.0, 3.7, 10.0):
+        with np.errstate(all="ignore"):
+            want = (2.0 ** (1 - nu) / scipy.special.gamma(nu) * ts**nu
+                    * scipy.special.kv(nu, ts))
+        want = np.where(ts <= 0, 1.0, want)
+        for dtype, floor in ((torch.float64, 1e-6), (torch.float32, 1e-4)):
+            if dtype == torch.float64:
+                co = matern_nu_coeffs(torch.tensor(nu, dtype=dtype)).cuda()
+            else:
+                co = host_coeffs(torch, nu, dtype)
+            cw = torch.as_tensor(ts / math.sqrt(2 * nu), dtype=dtype,
+                                 device="cuda")[None, :]
+            B = cw.shape[1]
+            zeros = torch.zeros((1, 1, B), dtype=dtype, device="cuda")
+            phi, _ = fused_predict_bl(
+                zeros, cw, torch.ones_like(zeros),
+                torch.tensor([1.0, 0.0], dtype=dtype, device="cuda"), co,
+                smoothness="gen",
+            )
+            got = phi[0].double().cpu().numpy()
+            assert np.isfinite(got).all() and got[0] == 1.0
+            mixed = np.abs(got - want) / np.maximum(np.abs(want), floor)
+            if dtype == torch.float32:
+                err, limit = float(mixed.max()), K4_F32_TOL
+            else:
+                # beyond TMAX = 42 the tail extrapolates with e^{-t} decay
+                # and phi < 4e-11: held absolutely there
+                dom = ts <= 42.0
+                assert np.abs(got - want)[~dom].max() < 1e-10
+                err = float(mixed[dom].max())
+                limit = K4_F64_TOL_INTEGER if nu == round(nu) else K4_F64_TOL
+            key = str(dtype)[6:]
+            worst[key] = max(worst.get(key, 0.0), err / limit)
+            log(f"K4 {key} nu={nu}: mixed error against scipy kv "
+                f"{err:.3e} (limit {limit:.0e}) on {B} points, t in [0, 80]")
+            assert err <= limit, f"K4 is off scipy's kv at nu={nu}: {err}"
+    return worst
+
+
+def phase_k1b(torch, knn_inputs):
+    """K1b (the solve from distances) against its plain version at the
+    serving shape, on the distances of the same neighborhoods."""
+    from muygpys_torch.gpu.fused_predict import (
+        fused_predict_bl,
+        fused_predict_bl_plain,
+        serve_tail_terms,
+    )
+
+    nf32, q32, y32 = knn_inputs
+    n, d, B = nf32.shape
+    r = y32.shape[1]
+    nf64, q64 = nf32.double(), q32.double()
+    f2_p = (nf64[:, None] - nf64[None, :]).pow(2).sum(2)  # (n, n, B)
+    f2_c = (nf64 - q64[None]).pow(2).sum(1)  # (n, B)
+    tol = {torch.float64: (1e-7, 1e-9),
+           torch.float32: (MEAN_TOL_F32, VAR_TOL_F32)}
+    row = None
+    for dtype in (torch.float32, torch.float64):
+        y = y32.to(dtype).contiguous()
+        params = torch.tensor([LS, NOISE], dtype=dtype, device="cuda")
+        for nu, power in ((0.5, 1), (NU, 1), (2.5, 1), (math.inf, 1),
+                          ("rbf", 2), (0.31, 1), (NU_GEN, 1), (4.8, 1)):
+            gen = nu in GEN_NUS
+            pw = (f2_p.sqrt() if power == 1 else f2_p).to(dtype).contiguous()
+            cw = (f2_c.sqrt() if power == 1 else f2_c).to(dtype).contiguous()
+            co = host_coeffs(torch, nu, dtype) if gen else None
+            args = (pw, cw, y, params, co)
+            kw = dict(smoothness="gen" if gen else nu, metric_power=power)
+            mk, vk = fused_predict_bl(*args, **kw)
+            torch.cuda.synchronize()
+            mp, vp = fused_predict_bl_plain(*args, **kw)
+            assert torch.isfinite(mk).all() and torch.isfinite(vk).all()
+            err_m = float((mk - mp).abs().max())
+            err_v = float((vk - vp).abs().max())
+            tol_m, tol_v = tol[dtype]
+            v_min = float(vp.abs().min())
+            log(f"K1b {str(dtype)[6:]} nu={nu} power={power}: mean "
+                f"max_abs_err={err_m:.3e} (tol {tol_m:.0e}), var "
+                f"max_abs_err={err_v:.3e} (tol {tol_v:.0e}; var min "
+                f"{v_min:.3e})")
+            assert tol_v <= 0.1 * v_min, "variance gate too loose"
+            assert err_m <= tol_m, f"K1b mean disagrees: {err_m}"
+            assert err_v <= tol_v, f"K1b var disagrees: {err_v}"
+            if dtype == torch.float32 and nu in (NU, NU_GEN):
+                ms = time_ms(lambda: fused_predict_bl(*args, **kw))
+                plain_ms = time_ms(
+                    lambda: fused_predict_bl_plain(*args, **kw),
+                    reps=3, trials=3,
+                )
+                entries = (n * (n + 1) // 2 + n) * B
+                if gen:
+                    iu = torch.triu_indices(n, n, device="cuda")
+                    u = torch.cat([pw[iu[0], iu[1]], cw]) / LS
+                    eval_ops = k4_ops(
+                        k4_branch_counts(co[0] * u), serve_tail_terms(dtype)
+                    ) / entries
+                else:
+                    eval_ops = 6.0
+                # pw is symmetric: the n(n+1)/2 rows i >= j suffice
+                nbytes = ((n * (n + 1) // 2 + n + n * r + r + 1) * B + 2
+                          + (73 if gen else 0)) * 4
+                ops = k1_ops_per_query(n, d, r, eval_ops, coords=False) * B
+                numbers = bound_row(
+                    nbytes, ops, max_abs_err=max(err_m, err_v), ms=ms,
+                    plain_ms=plain_ms,
+                )
+                log(f"K1b f32 nu={nu} time: kernel {ms:.4f} ms, plain "
+                    f"{plain_ms:.4f} ms, bound {numbers['bound_ms']:.4f} ms "
+                    f"({numbers['bound_by']}; {nbytes} B, {ops:.0f} flop)")
+                if gen:
+                    row["gen_ms"] = ms
+                    row["gen_bound_ms"] = numbers["bound_ms"]
+                else:
+                    row = numbers
+    return row
+
+
+def phase_k2_gen(torch, train_d, y_d, bi, bnn):
+    """K2 under "gen" against its plain version on the training batch's
+    neighbourhoods, fixed and free nu, isotropic and anisotropic; returns
+    the kernels-line row of the free-smoothness training headline (f32,
+    isotropic, noise free, nu = 1.2)."""
+    from muygpys_torch.gpu.fused_train import (
+        fused_train_stats_bl,
+        fused_train_stats_bl_plain,
+        train_tail_terms,
+    )
+    from muygpys_torch.gpu.matern_nu import matern_nu_coeffs
+
+    bi = torch.as_tensor(bi, device="cuda")
+    bnn = torch.as_tensor(bnn, device="cuda")
+    nbrs = train_d[bnn]
+    diff_p = (nbrs[:, :, None, :] - nbrs[:, None, :, :]).permute(1, 2, 3, 0)
+    diff_c = (train_d[bi][:, None, :] - nbrs).permute(1, 2, 0)
+    l2_p, l2_c = (diff_p**2).sum(2).sqrt(), (diff_c**2).sum(1).sqrt()
+    y1 = y_d[bnn].permute(1, 2, 0)
+    n, B = y1.shape[0], y1.shape[2]
+    r = 1
+    # (nu, free nu, noise_free, anisotropic, length scale)
+    cases = [
+        (NU_GEN, False, True, False, LS),
+        (NU_GEN, True, True, False, LS),  # the free-smoothness headline
+        (0.31, True, False, True, LS),
+        (4.8, True, True, True, LS),
+        (2.0, True, True, False, LS),  # the clamp zone
+        # at the headline's length scale every t = sqrt(2 nu) d / ls lies
+        # under T0 (the series branch); a length scale near the neighbour
+        # spacing sends entries through the tail branch and its derivatives
+        (NU_GEN, True, True, False, LS_TAIL),
+        (4.8, True, False, True, LS_TAIL),
+    ]
+    row = None
+    worst = {}
+    for dtype in (torch.float32, torch.float64):
+        tname = str(dtype)[6:]
+        for nu, free, noise_free, aniso, ls0 in cases:
+            limits = dict(K2_GEN_REL[tname])
+            if dtype == torch.float32 and ls0 == LS_TAIL:
+                limits = dict(K2_GEN_REL_TAIL_F32)
+            if dtype == torch.float64 and nu == round(nu):
+                # at an exact integer the f64 clamp leaves mu = 1e-7 and the
+                # 1/mu-sized terms cancel to ~1e-16 / 1e-7 relative
+                limits = dict.fromkeys(limits, 1e-5)
+            assert max(limits.values()) <= 0.1
+            if aniso:
+                pw, cw, d_feat, ls = diff_p, diff_c, 2, [ls0, 1.4 * ls0]
+            else:
+                pw, cw, d_feat, ls = l2_p, l2_c, 0, [ls0]
+            params = torch.tensor(
+                ls + [2 * NOISE if noise_free else NOISE, NOISE],
+                dtype=dtype, device="cuda",
+            )
+            # as the fused objective builds them: on the card, in the
+            # data's dtype
+            co = matern_nu_coeffs(
+                torch.tensor(nu, dtype=dtype, device="cuda"), need_dnu=free
+            )
+            args = [t.to(dtype).contiguous() for t in (pw, cw, y1)] + [params]
+            kw = dict(gen_coeffs=co, smoothness="gen", noise_free=noise_free,
+                      smoothness_free=free, d_feat=d_feat)
+            out = fused_train_stats_bl(*args, **kw)
+            torch.cuda.synchronize()
+            ref = fused_train_stats_bl_plain(*args, **kw)
+            assert torch.isfinite(out).all(), "K2 gen gave a non-finite row"
+            names = k2_row_names(r, ["ls0", "ls1"] if aniso else ["ls"], free)
+            assert len(names) == out.shape[0]
+            top, top_row, over = k2_check_rows(
+                out, ref, names, limits, worst, tname
+            )
+            branches = k4_branch_counts(
+                co[0].to(dtype) * (l2_p.to(dtype) / ls0)
+            )
+            log(f"K2 gen {tname} nu={nu} free={free} noise_free={noise_free} "
+                f"aniso={aniso} ls={ls0}: largest error as a share of its "
+                f"limit {top:.3f} (row {top_row}); pairwise entries by "
+                f"branch (zero, series, tail) {branches}")
+            assert not over, f"K2 gen disagrees with its plain version: {over}"
+            if ls0 == LS_TAIL:
+                assert branches[1] > 0 and branches[2] > 0, (
+                    "the tail case must exercise both branches"
+                )
+            if (dtype == torch.float32 and nu == NU_GEN and free
+                    and not aniso and ls0 == LS):
+                ms = time_ms(lambda: fused_train_stats_bl(*args, **kw))
+                plain_ms = time_ms(lambda: fused_train_stats_bl_plain(
+                    *args, **kw), reps=3, trials=3)
+                iu = torch.triu_indices(n, n, device="cuda")
+                u = torch.cat([args[0][iu[0], iu[1]], args[1]]) / LS
+                counts = k4_branch_counts(co[0] * u)
+                entries = (n * (n + 1) // 2 + n) * B
+                # K4 with both derivatives, then H = t dphi/dt and
+                # S = dphi/dnu + coef[4] H
+                eval_ops = k4_ops(
+                    counts, train_tail_terms(dtype), True, True
+                ) / entries + 3
+                C = out.shape[0]
+                nbytes = ((n * (n + 1) // 2 + n + n * r + C) * B + 3 + 207) * 4
+                ops = k2_ops_per_point(n, 0, r, True, eval_ops, True) * B
+                row = bound_row(
+                    nbytes, ops, max_abs_err=float((out - ref).abs().max()),
+                    ms=ms, plain_ms=plain_ms,
+                    k4_branches=dict(zip(("zero", "small", "tail"), counts)),
+                )
+                log(f"K2 gen f32 time: kernel {ms:.4f} ms, plain "
+                    f"{plain_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
+                    f"({row['bound_by']}; {nbytes} B, {ops:.0f} flop; "
+                    f"entries by branch {counts})")
+    log("K2 gen worst error/magnitude by row: " + json.dumps(worst))
     return row
 
 
@@ -637,6 +1092,189 @@ def phase_train(torch, train, y_train, nbrs, bi, bnn):
         card_f64=dict(length_scale=card64["length_scale"],
                       noise=card64["noise"]),
         parameters_relative=param_rel,
+        launches=launches, trace=trace,
+    )
+
+
+def free_nu_model():
+    """The free-smoothness training headline's model: length scale, noise
+    and smoothness to be trained together."""
+    from muygpys_torch.convert import muygps_from_arrays
+
+    return muygps_from_arrays(
+        length_scale=LS, length_scale_bounds=LS_BOUNDS, noise=NOISE,
+        noise_bounds=NOISE_BOUNDS, smoothness=NU_GEN,
+        smoothness_bounds=NU_BOUNDS, scale="analytic",
+    )
+
+
+def wall_ms(torch, fn, reps=5):
+    """Median host-clock milliseconds of ``fn()`` ending in a synchronize."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[len(times) // 2]
+
+
+def phase_train_free_nu(torch, train, y_train, bi, bnn, k2_gen_ms):
+    """Free-smoothness training end to end on the card through K2 (f32),
+    held to the exact-Bessel lanes objective; returns the trained model and
+    the phase's numbers."""
+    import contextlib
+    import io
+    import re
+
+    from muygpys_torch.convert import arrays_from_muygps
+    from muygpys_torch.gpu import _build
+    from muygpys_torch.gpu.matern_nu import matern_nu_coeffs
+    from muygpys_torch.optimize import (
+        Fused_L_BFGS_B_optimize,
+        make_fast_loo_objective,
+    )
+    from muygpys_torch.optimize.fused_objective import (
+        make_fused_train_objective,
+    )
+
+    bounds = {"length_scale": LS_BOUNDS, "noise": NOISE_BOUNDS,
+              "smoothness": NU_BOUNDS}
+    model = free_nu_model()
+    train_d = torch.as_tensor(train, device="cuda")
+    y_d = torch.as_tensor(y_train, dtype=torch.float32, device="cuda")
+    cw, pw, bt, bnt = model.make_train_tensors(bi, bnn, train_d, y_d)
+    make_fused_train_objective(model, bt, bnt, cw, pw)[0]({})  # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    iters, report = [], io.StringIO()
+    with contextlib.redirect_stdout(report):
+        trained = Fused_L_BFGS_B_optimize(
+            model, bt, bnt, cw, pw, engine="kernel", verbose=True,
+            callback=lambda xk: iters.append(1),
+        )
+    torch.cuda.synchronize()
+    opt_s = time.perf_counter() - t0
+    trained.optimize_scale(pw, bnt)
+    launches = dict(_build.launches)
+    evals = 1 + int(re.search(r"\bnfev:\s*(\d+)", report.getvalue())[1])
+    vals = arrays_from_muygps(trained)
+    log(f"train free nu (card, f32): length_scale {vals['length_scale']!r}, "
+        f"noise {vals['noise']!r}, smoothness {vals['smoothness']!r}, "
+        f"sigma^2 {vals['scale']!r}; {len(iters)} L-BFGS iterations, {evals} "
+        f"objective evaluations, {launches['fused_train_stats']} K2 "
+        f"launches; Fused_L_BFGS_B_optimize {opt_s:.4f} s = "
+        f"{evals / opt_s:.1f} evaluations/s")
+    assert evals > len(iters) and launches["fused_train_stats"] >= evals, (
+        "K2 was not launched for every objective evaluation"
+    )
+    for key, (lo, hi) in bounds.items():
+        assert min(vals[key] - lo, hi - vals[key]) > 1e-6 * (hi - lo), (
+            f"trained {key} {vals[key]} ran to a bound"
+        )
+    moved = {k: abs(vals[k] / v0 - 1) for k, v0 in
+             (("length_scale", LS), ("noise", NOISE), ("smoothness", NU_GEN))}
+    assert max(moved.values()) > 1e-2, f"no parameter left its start: {moved}"
+
+    # K2 in f64 against the exact-Bessel lanes objective on the card, at one
+    # point away from the start and from the optimum
+    train64 = torch.as_tensor(train, dtype=torch.float64, device="cuda")
+    y64 = torch.as_tensor(y_train, dtype=torch.float64, device="cuda")
+    cw64, pw64, bt64, bnt64 = free_nu_model().make_train_tensors(
+        bi, bnn, train64, y64
+    )
+    data64 = (bt64, bnt64, cw64, pw64)
+    point = {"length_scale": 0.4, "noise": 2e-3, "smoothness": 1.81}
+    k2_f64, names = make_fused_train_objective(free_nu_model(), *data64)
+    lanes64, _ = make_fast_loo_objective(free_nu_model(), *data64)
+    before = _build.launches["fused_train_stats"]
+    v_k2, g_k2 = k2_f64(point)
+    assert _build.launches["fused_train_stats"] == before + 1
+    theta = {k: torch.tensor(v, dtype=torch.float64, device="cuda",
+                             requires_grad=True) for k, v in point.items()}
+    v_exact = lanes64(theta)
+    v_exact.backward()
+    rel_v = abs(float(v_k2) / float(v_exact.detach()) - 1)
+    rel_g = {k: abs(float(g_k2[k]) / float(theta[k].grad) - 1) for k in names}
+    log(f"train free nu: K2 f64 against the exact-Bessel lanes objective at "
+        f"{point}: value {float(v_k2)!r} vs {float(v_exact)!r} (relative "
+        f"{rel_v:.3e}, limit {GEN_VALUE_RTOL:.0e}); gradients relative "
+        f"{json.dumps(rel_g)} (limit {GEN_GRAD_RTOL:.0e})")
+    assert rel_v <= GEN_VALUE_RTOL, "K2 gen value is off the exact objective"
+    assert max(rel_g.values()) <= GEN_GRAD_RTOL, (
+        "K2 gen gradient is off the exact objective"
+    )
+
+    # the lanes engine (exact Bessel, autograd) on the card in f64, and both
+    # optima judged by the exact f64 objective
+    t0 = time.perf_counter()
+    lanes_vals = arrays_from_muygps(Fused_L_BFGS_B_optimize(
+        free_nu_model(), *data64, engine="lanes"
+    ))
+    lanes_s = time.perf_counter() - t0
+
+    def exact(v):
+        with torch.no_grad():
+            return float(lanes64({k: v[k] for k in names}))
+
+    v_card, v_lanes, v_start = (
+        exact(vals), exact(lanes_vals),
+        exact({"length_scale": LS, "noise": NOISE, "smoothness": NU_GEN}),
+    )
+    short = (v_lanes - v_card) / abs(v_lanes)
+    log(f"train free nu (lanes engine, card, f64, {lanes_s:.1f} s): "
+        f"length_scale {lanes_vals['length_scale']!r}, noise "
+        f"{lanes_vals['noise']!r}, smoothness {lanes_vals['smoothness']!r}; "
+        f"exact f64 objective at K2's f32 optimum {v_card!r}, at the lanes "
+        f"optimum {v_lanes!r}, at the start {v_start!r}: K2's falls short by "
+        f"{short:.3e} relative (limit {GEN_OBJECTIVE_RTOL:.0e}; the surface "
+        "is ridge-flat in (length scale, nu), so parameters are reported, "
+        "not asserted equal)")
+    assert v_card > v_start, "training did not improve the exact objective"
+    assert short <= GEN_OBJECTIVE_RTOL, (
+        "K2's optimum is worse than the lanes engine's"
+    )
+
+    # where the time of one free-nu evaluation goes: the coefficient
+    # constructor (on the card, where the objective runs it; on the CPU for
+    # comparison), K2, the epilogue; and the device's idle share
+    obj32, names32 = make_fused_train_objective(trained, bt, bnt, cw, pw)
+    at = {n: vals[n] for n in names32}
+
+    def build_on(device):
+        nu = torch.tensor(vals["smoothness"], dtype=torch.float32,
+                          device=device)
+        return lambda: matern_nu_coeffs(nu, need_dnu=True)
+
+    build_card_ms = wall_ms(torch, build_on("cuda"))
+    build_cpu_ms = wall_ms(torch, build_on("cpu"))
+    stats = obj32._stats_fn(torch.stack(
+        [torch.tensor(float(at.get(k, v)), device="cuda")
+         for k, v in obj32._defaults.items()]
+    ))
+    epilogue_ms = wall_ms(torch, lambda: obj32._epilogue(stats))
+    eval_ms = wall_ms(torch, lambda: obj32(at))
+    trace = device_trace(torch, lambda: [obj32(at) for _ in range(5)])
+    log(f"train free nu: one objective evaluation {eval_ms:.3f} ms on the "
+        f"host's clock = coefficient constructor {build_card_ms:.3f} ms (on "
+        f"the card, f32, with the nu-tangent sets; {build_cpu_ms:.3f} ms on "
+        f"this host's CPU) + K2 {k2_gen_ms:.4f} ms + epilogue "
+        f"{epilogue_ms:.3f} ms + "
+        f"the rest; device trace of 5 evaluations: {json.dumps(trace)}")
+    return trained, dict(
+        length_scale=vals["length_scale"], noise=vals["noise"],
+        smoothness=vals["smoothness"], scale=vals["scale"],
+        iterations=len(iters), evaluations=evals, optimize_s=opt_s,
+        evaluations_per_s=evals / opt_s,
+        k2_f64_vs_exact=dict(value=rel_v, gradients=rel_g),
+        lanes_f64=dict(lanes_vals, seconds=lanes_s),
+        objective_f64=dict(card=v_card, lanes=v_lanes, start=v_start,
+                           short=short),
+        evaluation_ms=dict(whole=eval_ms, build_cpu=build_cpu_ms,
+                           build_card=build_card_ms, k2=k2_gen_ms,
+                           epilogue=epilogue_ms),
         launches=launches, trace=trace,
     )
 
@@ -835,8 +1473,113 @@ def main() -> int:
     assert served["launches"]["fused_predict_coords"] > 0
     assert served["launches"]["knn_candidates_pruned"] > 0
 
-    # 9. kernels line: launches on each kernel's path (serving: fused;
-    # training: train), counted from zero just before the path ran
+    # 9. general smoothness: K4 inside K1, K1b and K2
+    rows["fused_predict_coords[gen]"] = phase_k1_gen(
+        torch, (nf, q, y), rows["fused_predict_coords"]["ms"]
+    )
+    k4_worst = phase_k4_scipy(torch)
+    log("K4 against scipy kv, worst error as a share of its limit: "
+        + json.dumps(k4_worst))
+    rows["fused_predict"] = phase_k1b(torch, (nf, q, y))
+    y_smooth_d = torch.as_tensor(y_train, dtype=torch.float32, device="cuda")
+    rows["fused_train_stats[gen,free_nu]"] = phase_k2_gen(
+        torch, train_d, y_smooth_d, bi, bnn
+    )
+
+    # 10. the distance-tensor workflow through K1b on the first request
+    from muygpys_torch.gpu.fused_predict import (
+        fused_predict_bl,
+        fused_predict_bl_plain,
+    )
+
+    def dists_path(request, dtype):
+        """make_predict_tensors -> K1b in ``dtype``; also the f64 plain
+        version on the SAME distance tensors."""
+        idx_r = torch.as_tensor(nbrs.get_nns(request)[0], device="cuda")
+        cw_r, pw_r, nn_y = model.make_predict_tensors(
+            torch.arange(len(request), device="cuda"), idx_r,
+            torch.as_tensor(request, dtype=dtype, device="cuda"),
+            train_d.to(dtype), targets_d.to(dtype),
+        )
+        args = (pw_r.permute(1, 2, 0), cw_r.T, nn_y.permute(1, 2, 0),
+                torch.tensor([LS, NOISE], dtype=dtype, device="cuda"))
+        mean, var = fused_predict_bl(*args, smoothness=NU)
+        m64, v64 = fused_predict_bl_plain(
+            *(t.double() for t in args), smoothness=NU
+        )
+        return ((mean.T.cpu().numpy(), var.cpu().numpy()),
+                (m64.T.cpu().numpy(), v64.cpu().numpy()))
+
+    dists_path(requests[0][:64], torch.float32)  # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    (m_b, v_b), (m_p, v_p) = dists_path(requests[0], torch.float32)
+    launches_by_path["dists"] = dict(_build.launches)
+    assert launches_by_path["dists"]["fused_predict"] > 0
+    assert np.isfinite(m_b).all() and np.isfinite(v_b).all()
+    # f32: the distance tensors themselves are the Gram identity's, so K1b
+    # is held to the f64 plain version on the SAME tensors, and the whole
+    # workflow to the reference engine (the same assembly in f64) under the
+    # assembly's f32 floor
+    err_m = float(np.abs(m_b - m_p).max())
+    err_v = float(np.abs(v_b - v_p).max())
+    off_m = float(np.abs(m_b - ref[0][:QUERIES]).max())
+    off_v = float(np.abs(v_b - ref[1][:QUERIES]).max())
+    log(f"dists path f32 (make_predict_tensors -> K1b), {QUERIES} queries: "
+        f"vs the f64 plain version on the same distance tensors mean "
+        f"{err_m:.3e} (tol {MEAN_TOL_F32}), var {err_v:.3e} (tol "
+        f"{VAR_TOL_F32}); vs the f64 reference engine mean {off_m:.3e} (tol "
+        f"{DISTS_F32_GRAM_FLOOR[0]}), var {off_v:.3e} (tol "
+        f"{DISTS_F32_GRAM_FLOOR[1]}; the f32 Gram-identity distances)")
+    assert err_m <= MEAN_TOL_F32 and err_v <= VAR_TOL_F32
+    assert (off_m <= DISTS_F32_GRAM_FLOOR[0]
+            and off_v <= DISTS_F32_GRAM_FLOOR[1]), (
+        "the f32 distance workflow is off the reference engine"
+    )
+    # f64: the whole workflow against the reference engine
+    (m_b, v_b), _ = dists_path(requests[0], torch.float64)
+    err_m = float(np.abs(m_b - ref[0][:QUERIES]).max())
+    err_v = float(np.abs(v_b - ref[1][:QUERIES]).max())
+    log(f"dists path f64: vs the f64 reference engine mean {err_m:.3e} (tol "
+        f"{DISTS_F64_TOL[0]:.0e}), var {err_v:.3e} (tol "
+        f"{DISTS_F64_TOL[1]:.0e})")
+    assert err_m <= DISTS_F64_TOL[0] and err_v <= DISTS_F64_TOL[1]
+
+    # 11. serving nu = 1.2 at the serving headline (the reference engine
+    # takes the exact Bessel path)
+    model_gen = muygps_from_arrays(
+        length_scale=LS, noise=NOISE, scale=1.0, smoothness=NU_GEN
+    )
+    _, served_gen = serve_checked(
+        "gen", model_gen, targets, "fused",
+        reference_outputs(model_gen, targets), VAR_TOL_F32,
+    )
+    launches_by_path["fused_gen"] = served_gen["launches"]
+    assert served_gen["launches"]["fused_predict_coords"] > 0
+    assert served_gen["launches"]["knn_candidates_pruned"] > 0
+    log("gen served: " + json.dumps(served_gen))
+
+    # 12. training a free smoothness, then serving the trained model
+    trained_gen, gen_numbers = phase_train_free_nu(
+        torch, train, y_train, bi, bnn,
+        rows["fused_train_stats[gen,free_nu]"]["ms"],
+    )
+    launches_by_path["train_gen"] = gen_numbers.pop("launches")
+    assert launches_by_path["train_gen"]["fused_train_stats"] > 0
+    log("train free nu: " + json.dumps(gen_numbers))
+    _, served_trained_gen = serve_checked(
+        "trained free nu", trained_gen, y_train, "fused",
+        reference_outputs(trained_gen, y_train),
+        VAR_TOL_F32 * gen_numbers["scale"],
+    )
+    assert served_trained_gen["launches"]["fused_predict_coords"] > 0
+
+    # 13. kernels line: launches on each kernel's path (serving: fused and
+    # fused_gen; the distance workflow: dists; training: train and
+    # train_gen), counted from zero just before the path ran
+    k1_src = "muygpys_torch/gpu/csrc/fused_predict.cu"
+    k4_src = "muygpys_torch/gpu/csrc/matern_nu.cuh"
+    k4_tpu = "muygpys_tpu/pallas/matern_nu.py:273"
     meta = {
         "fused_predict_coords": (
             "muygpys_torch/gpu/csrc/fused_predict.cu",
@@ -854,13 +1597,31 @@ def main() -> int:
             "muygpys_torch/gpu/csrc/fused_train.cu",
             "muygpys_tpu/pallas/fused_train.py:449", "train",
         ),
+        "fused_predict": (
+            k1_src, "muygpys_tpu/pallas/fused_predict.py:263", "dists",
+        ),
+        # K1 and K2 a second time, with K4 inlined (K4 has no launch of its
+        # own: its cost is the gen-minus-closed-form difference per element)
+        "fused_predict_coords[gen]": (
+            f"{k1_src} + {k4_src}",
+            f"muygpys_tpu/pallas/fused_predict.py:373 + {k4_tpu}",
+            "fused_gen",
+        ),
+        "fused_train_stats[gen,free_nu]": (
+            f"muygpys_torch/gpu/csrc/fused_train.cu + {k4_src}",
+            f"muygpys_tpu/pallas/fused_train.py:449 + {k4_tpu}", "train_gen",
+        ),
     }
     kernels = []
     for name, (source, replaces, path) in meta.items():
+        counter = name.split("[")[0]
+        assert launches_by_path[path][counter] > 0, (
+            f"{name} was not launched on its path"
+        )
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
-            launches=launches_by_path[path][name],
-            paths={p: c[name] for p, c in launches_by_path.items()},
+            launches=launches_by_path[path][counter],
+            paths={p: c[counter] for p, c in launches_by_path.items()},
             **rows[name],
         ))
     print(json.dumps({"kernels": kernels}))

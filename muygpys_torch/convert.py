@@ -30,7 +30,9 @@ _METRICS = {"l2": l2, "F2": F2}
 
 
 def _bounds(b):
-    return "fixed" if isinstance(b, str) else tuple(float(v) for v in b)
+    # a string goes through as it is: Parameter takes "fixed" and raises
+    # on any other
+    return b if isinstance(b, str) else tuple(float(v) for v in b)
 
 
 def muygps_from_arrays(
@@ -43,6 +45,7 @@ def muygps_from_arrays(
     measurement_noise: Optional[np.ndarray] = None,
     length_scale_bounds="fixed",
     noise_bounds="fixed",
+    smoothness_bounds="fixed",
 ) -> MuyGPS:
     """Build a :class:`MuyGPS` from numbers.
 
@@ -53,7 +56,8 @@ def muygps_from_arrays(
             given.
         scale: a trained variance scale sigma^2 (a ``FixedScale`` carrying
             it), or ``"analytic"`` for an ``AnalyticScale`` to be optimized.
-        smoothness: Matern nu (closed forms only); unused for RBF.
+        smoothness: Matern nu, any positive order (0.5, 1.5, 2.5 and inf
+            use their closed forms when fixed); unused for RBF.
         kernel: ``"matern"`` or ``"rbf"``.
         metric: ``"l2"`` or ``"F2"``.
         measurement_noise: heteroscedastic per-neighbor noise tensor; makes
@@ -61,6 +65,8 @@ def muygps_from_arrays(
         length_scale_bounds: ``"fixed"`` or ``(lower, upper)``; anisotropic
             models take one such entry per feature or one shared by all.
         noise_bounds: ``"fixed"`` or ``(lower, upper)``.
+        smoothness_bounds: ``"fixed"`` or ``(lower, upper)``: a free Matern
+            smoothness, trained with the other free parameters.
     """
     if metric not in _METRICS:
         raise ValueError(f"unknown metric {metric!r} (l2, F2)")
@@ -84,7 +90,9 @@ def muygps_from_arrays(
         )
     if kernel == "matern":
         kern = Matern(
-            smoothness=Parameter(float(np.asarray(smoothness))),
+            smoothness=Parameter(
+                float(np.asarray(smoothness)), _bounds(smoothness_bounds)
+            ),
             deformation=deformation,
         )
     elif kernel == "rbf":

@@ -31,6 +31,13 @@ class KernelFn:
         may be passed by name."""
         return self._fn(diffs, **kwargs)
 
+    def of_scaled_dists(self, dists):
+        """The kernel of distances the deformation has already scaled, at
+        the stored hyperparameters."""
+        raise NotImplementedError(
+            "of_scaled_dists is not implemented for base KernelFn"
+        )
+
     def get_opt_fn(self) -> Callable:
         return self._fn
 

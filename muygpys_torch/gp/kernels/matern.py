@@ -1,22 +1,23 @@
-"""The Matern kernel functor, closed-form smoothness only.
+"""The Matern kernel functor.
 
-Counterpart of :class:`muygpys_tpu.gp.kernels.Matern` for a fixed
-``nu in {1/2, 3/2, 5/2, inf}``.  General or free smoothness (the Bessel path
-and the ``matern_nu`` surrogate) waits for the general-smoothness slice and
-raises.
+Counterpart of :class:`muygpys_tpu.gp.kernels.Matern`: a fixed
+``nu in {1/2, 3/2, 5/2, inf}`` uses its closed form; any other fixed ``nu``
+and every free ``nu`` goes through the exact Bessel path
+(:func:`muygpys_torch.ops.kernels.matern_gen_fn`), which is differentiable
+in the smoothness, so gradient-based optimizers can train it.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Tuple
+from typing import Callable, List, Tuple
 
 from muygpys_torch.gp.deformation import Isotropy, l2
 from muygpys_torch.gp.hyperparameter import NamedParameter, Parameter
 from muygpys_torch.gp.kernels.kernel_fn import KernelFn
 from muygpys_torch.ops import kernels as _k
 
-_CLOSED_FORMS = {
+CLOSED_FORMS = {
     0.5: _k.matern_05_fn,
     1.5: _k.matern_15_fn,
     2.5: _k.matern_25_fn,
@@ -24,8 +25,22 @@ _CLOSED_FORMS = {
 }
 
 
+def _set_matern_fn(smoothness: Parameter) -> Callable:
+    """``(dists, **kwargs) -> K``: the closed form of a fixed closed-form
+    smoothness, else the general form reading ``smoothness`` from the
+    keyword arguments."""
+    if smoothness.fixed() and smoothness() in CLOSED_FORMS:
+        closed = CLOSED_FORMS[smoothness()]
+        return lambda dists, **kwargs: closed(dists)
+
+    def gen_fn(dists, smoothness, **kwargs):
+        return _k.matern_gen_fn(dists, smoothness)
+
+    return gen_fn
+
+
 class Matern(KernelFn):
-    """Matern kernel over a deformation."""
+    """Matern kernel over a deformation, with trainable smoothness."""
 
     def __init__(self, smoothness: Parameter = None, deformation=None):
         if smoothness is None:
@@ -33,23 +48,22 @@ class Matern(KernelFn):
         if deformation is None:
             deformation = Isotropy(l2, length_scale=Parameter(1.0))
         super().__init__(deformation=deformation)
-        nu = smoothness()
-        if not smoothness.fixed() or nu not in _CLOSED_FORMS:
-            raise ValueError(
-                f"Matern smoothness {smoothness}: general smoothness is not "
-                "ported yet (closed forms 0.5, 1.5, 2.5, inf only, fixed); "
-                "free and general nu wait for the general-smoothness slice"
-            )
         self.smoothness = NamedParameter("smoothness", smoothness)
-        self._kernel_fn = _CLOSED_FORMS[nu]
         self._make()
 
     def _make(self):
         self._make_base()
         self.smoothness.populate(self._hyperparameters)
+        self._kernel_fn = _set_matern_fn(self.smoothness)
+        # the stored smoothness where the caller names none
+        self._predef_fn = self.smoothness.apply_fn(self._kernel_fn)
         self._fn = self.deformation.length_scale.apply_embedding_fn(
-            lambda dists, **kwargs: self._kernel_fn(dists), self.deformation
+            self._predef_fn, self.deformation
         )
+
+    def of_scaled_dists(self, dists):
+        # closed form or exact Bessel path, the stored smoothness filled in
+        return self._predef_fn(dists)
 
     def get_opt_params(
         self,

@@ -28,3 +28,6 @@ class RBF(KernelFn):
         self._fn = self.deformation.length_scale.apply_embedding_fn(
             lambda dists, **kwargs: self._kernel_fn(dists), self.deformation
         )
+
+    def of_scaled_dists(self, dists):
+        return self._kernel_fn(dists)

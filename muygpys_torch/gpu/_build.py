@@ -3,8 +3,9 @@
 Each source ``csrc/<name>.cu`` is compiled on first use by ``nvcc`` for
 Hopper (``sm_90a``) into a shared library with a plain C interface under
 ``build/muygpys_torch/`` beside the package (git-ignored), and loaded with
-``ctypes``.  The library name carries a hash of the source, so an edited
-``.cu`` is rebuilt.  No source includes PyTorch's headers: a build takes
+``ctypes``.  The library name carries a hash of the source and of every
+file under ``csrc/`` it includes (``matern_nu.cuh``), so an edited ``.cu``
+or header is rebuilt.  No source includes PyTorch's headers: a build takes
 seconds, not minutes.
 
 Every C entry point takes device pointers, sizes and the CUDA stream
@@ -21,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -34,13 +36,14 @@ SOURCES = ("fused_predict", "knn", "fused_train")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    "-Xptxas", "-v",
+    "-Xptxas", "-v", "-I", str(CSRC),
 )
 
 # launches per kernel, counted by the wrappers where they launch (plain ints;
 # ``reset_launches`` zeroes them before a run whose path is to be shown)
 launches: Dict[str, int] = {
     "fused_predict_coords": 0,
+    "fused_predict": 0,
     "knn_candidates": 0,
     "knn_candidates_pruned": 0,
     "fused_train_stats": 0,
@@ -70,11 +73,31 @@ def _nvcc() -> str:
     )
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
+
+
+def source_files(name: str) -> list:
+    """``csrc/<name>.cu`` and every file under ``csrc/`` it includes, directly
+    or through another such file."""
+    files, queue = [], [CSRC / f"{name}.cu"]
+    while queue:
+        path = queue.pop()
+        if path in files or not path.exists():
+            continue
+        files.append(path)
+        queue += [CSRC / m.decode() for m in _INCLUDE.findall(path.read_bytes())]
+    return files
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256(
-        (CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    """Where the library of ``csrc/<name>.cu`` is built: the name carries a
+    digest of the source, the headers it includes and the compiler flags
+    (not of where the sources lie)."""
+    digest = hashlib.sha256()
+    for path in sorted(source_files(name)):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS[:-2]).encode())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
 def build(names: Sequence[str] = SOURCES) -> Dict[str, float]:

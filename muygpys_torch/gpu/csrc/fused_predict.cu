@@ -1,11 +1,17 @@
-// K1: fused coordinate-streaming posterior solve, hand-written for Hopper.
+// K1 and K1b: fused posterior solves, hand-written for Hopper.
 //
-// Replaces muygpys_tpu/pallas/fused_predict.py:fused_predict_coords_bl (the
-// Pallas kernel _coords_body + _matern + _solve_and_emit).  Per query b:
+// K1 replaces muygpys_tpu/pallas/fused_predict.py:fused_predict_coords_bl
+// (the Pallas kernel _coords_body + _matern + _solve_and_emit); K1b, the
+// second __global__ below, replaces fused_predict_bl (_kernel_body) of the
+// same file: the same kernel function and elimination fed from distances
+// pw (n, n, B), cw (n, B) scaled by 1/ls (l2) or 1/ls^2 (F2).  Per query b
+// K1 computes:
 //   u_p(i,c) = |(x_i - x_c) / ls|, u_c(i) = |(x_i - q) / ls|   (per-feature ls;
 //             F2 metric: the squared sum, no sqrt)
-//   K = k(u_p) + nugget I,  kc = k(u_c)          (Matern 1/2, 3/2, 5/2, inf or
-//                                                  RBF on the F2 distance)
+//   K = k(u_p) + nugget I,  kc = k(u_c)          (Matern 1/2, 3/2, 5/2, inf,
+//                                                  RBF on the F2 distance, or
+//                                                  any nu through K4,
+//                                                  matern_nu.cuh, "gen")
 //   eliminate the augmented [K | kc | y] in place (one rsqrt per pivot, one
 //   fused multiply-subtract over the trailing block; NO pivot floor, exactly
 //   as the TPU kernel), giving zc = L^{-1} kc, zy = L^{-1} y
@@ -30,12 +36,25 @@
 // The Pallas kernel instead ran the whole elimination as full-width vector
 // ops over a 512-query lane tile in VMEM; on Hopper that tile would not fit
 // the 227 KB of shared memory, and warps give the latency hiding.
+//
+// K1b moves n^2 + n + n r + r + 1 values per query (~3.9 KB at n=30, f32:
+// ~9.6 us per 8192 queries at 3.35 TB/s) against the same ~11k multiply-adds:
+// it is bound by bytes.  Its block stages each query's distances straight
+// into the augmented matrix (query index fastest, one 32-byte segment per
+// row and 8 queries) and turns them into kernel values in place, so shared
+// memory is n(n+1+r) + n per query, as K1's, and sets the queries per block.
+//
+// Under "gen" the block stages the coefficient vector once in shared memory
+// (matern_nu::stage) and every kernel evaluation is matern_nu::eval on
+// t = coef[0] u.
 
 #include <cuda_runtime.h>
 
+#include "matern_nu.cuh"
+
 namespace {
 
-enum Smoothness { NU05 = 0, NU15 = 1, NU25 = 2, NUINF = 3, RBF = 4 };
+enum Smoothness { NU05 = 0, NU15 = 1, NU25 = 2, NUINF = 3, RBF = 4, GEN = 5 };
 
 __device__ __forceinline__ float exp_t(float x) { return expf(x); }
 __device__ __forceinline__ double exp_t(double x) { return exp(x); }
@@ -46,8 +65,13 @@ __device__ __forceinline__ double rsqrt_t(double x) { return rsqrt(x); }
 
 // the closed forms of muygpys_tpu/pallas/fused_predict.py:_matern
 template <typename T>
-__device__ __forceinline__ T kernel_value(T u, int code) {
+__device__ __forceinline__ T kernel_value(T u, int code, const T* co, int nt) {
   switch (code) {
+    case GEN: {
+      T phi, unused_dt, unused_dnu;
+      matern_nu::eval(co[0] * u, co, nt, false, false, phi, unused_dt, unused_dnu);
+      return phi;
+    }
     case NU05:
       return exp_t(-u);
     case NU15: {
@@ -71,6 +95,43 @@ __device__ __forceinline__ T warp_sum(T v) {
   return v;
 }
 
+// In-place elimination of one warp's augmented [K | kc | y] (n rows of
+// m = n + 1 + r columns; lc is an n-vector of scratch), then
+// mean = zc . zy, var = 1 - zc . zc: the tail K1 and K1b share.
+template <typename T>
+__device__ void solve_and_emit(T* work, T* lc, T* __restrict__ mean, T* __restrict__ var,
+                               int n, int r, int b, int B, int lane) {
+  const int m = n + 1 + r;
+  for (int j = 0; j < n; ++j) {
+    const T inv = rsqrt_t(work[j * m + j]);
+    __syncwarp();  // every lane has read the pivot before row j is scaled
+    for (int c = j + lane; c < m; c += 32) work[j * m + c] *= inv;
+    for (int i = j + 1 + lane; i < n; i += 32) lc[i] = work[i * m + j] * inv;
+    __syncwarp();
+    // column j below the pivot is never read again: update columns > j
+    for (int c = j + 1 + lane; c < m; c += 32) {
+      const T rj = work[j * m + c];
+      for (int i = j + 1; i < n; ++i) work[i * m + c] -= lc[i] * rj;
+    }
+    __syncwarp();
+  }
+
+  // mean = zc . zy, var = 1 - zc . zc
+  T zz = T(0);
+  for (int i = lane; i < n; i += 32) {
+    const T zc = work[i * m + n];
+    zz += zc * zc;
+  }
+  zz = warp_sum(zz);
+  if (lane == 0) var[b] = T(1) - zz;
+  for (int k = 0; k < r; ++k) {
+    T s = T(0);
+    for (int i = lane; i < n; i += 32) s += work[i * m + n] * work[i * m + n + 1 + k];
+    s = warp_sum(s);
+    if (lane == 0) mean[(size_t)k * B + b] = s;
+  }
+}
+
 template <typename T>
 __global__ void fused_predict_coords_kernel(
     const T* __restrict__ nf,        // (n, d, B)
@@ -78,9 +139,10 @@ __global__ void fused_predict_coords_kernel(
     const T* __restrict__ y,         // (n, r, B)
     const T* __restrict__ params,    // (d + 1): ls_0..ls_{d-1}, noise
     const T* __restrict__ noise_nn,  // (n, B) or null
+    const T* __restrict__ gen,       // K4 coefficients (>= LEN_VAL) or null
     T* __restrict__ mean,            // (r, B)
     T* __restrict__ var,             // (B,)
-    int n, int d, int r, int B, int code, int metric_power) {
+    int n, int d, int r, int B, int code, int metric_power, int nt) {
   extern __shared__ unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   const int tq = blockDim.x / 32;  // queries (warps) per block
@@ -93,7 +155,9 @@ __global__ void fused_predict_coords_kernel(
   T* qs = xs + tq * n * d;        // [tq][d]
   T* works = qs + tq * d;         // [tq][n][m] augmented matrices
   T* lcs = works + tq * n * m;    // [tq][n] staged pivot column / nuggets
+  T* co = lcs + tq * n;           // [LEN_VAL] K4 coefficients under gen
 
+  if (code == GEN) matern_nu::stage(co, gen, matern_nu::LEN_VAL, nt);
   // cooperative, query-fastest loads of the block's slice of the inputs
   for (int e = threadIdx.x; e < n * d * tq; e += blockDim.x) {
     const int w = e % tq, row = e / tq, b = b0 + w;  // row = i * d + f
@@ -134,7 +198,7 @@ __global__ void fused_predict_coords_kernel(
       const T diff = x[i * d + f] - x[c * d + f];
       acc += diff * diff;
     }
-    T k = kernel_value(metric_power == 1 ? sqrt_t(acc) : acc, code);
+    T k = kernel_value(metric_power == 1 ? sqrt_t(acc) : acc, code, co, nt);
     if (i == c) k += noise_nn != nullptr ? lc[i] : noise;
     work[i * m + c] = k;
   }
@@ -144,55 +208,95 @@ __global__ void fused_predict_coords_kernel(
       const T diff = x[i * d + f] - qq[f];
       acc += diff * diff;
     }
-    work[i * m + n] = kernel_value(metric_power == 1 ? sqrt_t(acc) : acc, code);
+    work[i * m + n] = kernel_value(metric_power == 1 ? sqrt_t(acc) : acc, code, co, nt);
   }
   __syncwarp();
 
-  // in-place elimination of [K | kc | y]
-  for (int j = 0; j < n; ++j) {
-    const T inv = rsqrt_t(work[j * m + j]);
-    __syncwarp();  // every lane has read the pivot before row j is scaled
-    for (int c = j + lane; c < m; c += 32) work[j * m + c] *= inv;
-    for (int i = j + 1 + lane; i < n; i += 32) lc[i] = work[i * m + j] * inv;
-    __syncwarp();
-    // column j below the pivot is never read again: update columns > j
-    for (int c = j + 1 + lane; c < m; c += 32) {
-      const T rj = work[j * m + c];
-      for (int i = j + 1; i < n; ++i) work[i * m + c] -= lc[i] * rj;
-    }
-    __syncwarp();
-  }
+  solve_and_emit(work, lc, mean, var, n, r, b, B, lane);
+}
 
-  // mean = zc . zy, var = 1 - zc . zc
-  T zz = T(0);
-  for (int i = lane; i < n; i += 32) {
-    const T zc = work[i * m + n];
-    zz += zc * zc;
+// K1b: the same posterior from distances.  pw (n, n, B) and cw (n, B) are
+// scaled by 1/ls (l2) or 1/ls^2 (F2); params = [ls, noise].
+template <typename T>
+__global__ void fused_predict_kernel(
+    const T* __restrict__ pw,      // (n, n, B)
+    const T* __restrict__ cw,      // (n, B)
+    const T* __restrict__ y,       // (n, r, B)
+    const T* __restrict__ params,  // (2): ls, noise
+    const T* __restrict__ gen,     // K4 coefficients (>= LEN_VAL) or null
+    T* __restrict__ mean,          // (r, B)
+    T* __restrict__ var,           // (B,)
+    int n, int r, int B, int code, int metric_power, int nt) {
+  extern __shared__ unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
+  const int tq = blockDim.x / 32;  // queries (warps) per block
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int m = n + 1 + r;
+  const int b0 = blockIdx.x * tq;
+
+  T* works = smem;              // [tq][n][m] distances, then augmented matrices
+  T* lcs = works + tq * n * m;  // [tq][n] staged pivot column
+  T* co = lcs + tq * n;         // [LEN_VAL] K4 coefficients under gen
+
+  if (code == GEN) matern_nu::stage(co, gen, matern_nu::LEN_VAL, nt);
+  // cooperative, query-fastest loads: row = i * n + c of pw, i of cw,
+  // i * r + k of y, each straight into its place in the augmented matrix
+  for (int e = threadIdx.x; e < n * n * tq; e += blockDim.x) {
+    const int w = e % tq, row = e / tq, b = b0 + w;
+    works[w * n * m + (row / n) * m + row % n] = b < B ? pw[(size_t)row * B + b] : T(0);
   }
-  zz = warp_sum(zz);
-  if (lane == 0) var[b] = T(1) - zz;
-  for (int k = 0; k < r; ++k) {
-    T s = T(0);
-    for (int i = lane; i < n; i += 32) s += work[i * m + n] * work[i * m + n + 1 + k];
-    s = warp_sum(s);
-    if (lane == 0) mean[(size_t)k * B + b] = s;
+  for (int e = threadIdx.x; e < n * tq; e += blockDim.x) {
+    const int w = e % tq, i = e / tq, b = b0 + w;
+    works[w * n * m + i * m + n] = b < B ? cw[(size_t)i * B + b] : T(0);
   }
+  for (int e = threadIdx.x; e < n * r * tq; e += blockDim.x) {
+    const int w = e % tq, row = e / tq, b = b0 + w;
+    works[w * n * m + (row / r) * m + n + 1 + row % r] = b < B ? y[(size_t)row * B + b] : T(0);
+  }
+  __syncthreads();
+
+  const int b = b0 + warp;
+  if (b >= B) return;  // no block-wide barrier below this point
+  T* work = works + warp * n * m;
+  const T ls = params[0], noise = params[1];
+  const T inv = metric_power == 1 ? T(1) / ls : T(1) / (ls * ls);
+
+  // K = k(pw / ls) + noise I and kc = k(cw / ls), in place
+  for (int e = lane; e < n * (n + 1); e += 32) {
+    const int i = e / (n + 1), c = e % (n + 1);
+    T k = kernel_value(work[i * m + c] * inv, code, co, nt);
+    if (i == c) k += noise;
+    work[i * m + c] = k;
+  }
+  __syncwarp();
+
+  solve_and_emit(work, lcs + warp * n, mean, var, n, r, b, B, lane);
 }
 
 constexpr size_t kMaxSmem = 232448;  // 227 KB a block can opt into on sm_90
 
+// Queries per block: 8, halved until `per_query` elements each plus `fixed`
+// elements for the block fit the shared memory a block can opt into; 0 when
+// one query does not fit.
 template <typename T>
-int launch(const T* nf, const T* q, const T* y, const T* params, const T* noise_nn,
-           T* mean, T* var, int n, int d, int r, int B, int code, int metric_power,
-           void* stream) {
+int queries_per_block(size_t per_query, size_t fixed, size_t* bytes) {
+  for (int tq = 8; tq >= 1; tq /= 2) {
+    *bytes = sizeof(T) * (tq * per_query + fixed);
+    if (*bytes <= kMaxSmem) return tq;
+  }
+  return 0;
+}
+
+template <typename T>
+int launch_coords(const T* nf, const T* q, const T* y, const T* params, const T* noise_nn,
+                  const T* gen, T* mean, T* var, int n, int d, int r, int B, int code,
+                  int metric_power, int nt, void* stream) {
   if (B == 0) return 0;
   const int m = n + 1 + r;
-  int tq = 8;
   size_t bytes = 0;
-  for (; tq >= 1; tq /= 2) {
-    bytes = sizeof(T) * (size_t)tq * (n * d + d + n * m + n);
-    if (bytes <= kMaxSmem) break;
-  }
+  const int tq = queries_per_block<T>((size_t)n * d + d + (size_t)n * m + n,
+                                      code == GEN ? matern_nu::LEN_VAL : 0, &bytes);
   if (tq < 1) return (int)cudaErrorInvalidValue;  // one query's matrix does not fit
   if (bytes > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -202,7 +306,28 @@ int launch(const T* nf, const T* q, const T* y, const T* params, const T* noise_
   }
   const int grid = (B + tq - 1) / tq;
   fused_predict_coords_kernel<T><<<grid, 32 * tq, bytes, (cudaStream_t)stream>>>(
-      nf, q, y, params, noise_nn, mean, var, n, d, r, B, code, metric_power);
+      nf, q, y, params, noise_nn, gen, mean, var, n, d, r, B, code, metric_power, nt);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_dists(const T* pw, const T* cw, const T* y, const T* params, const T* gen,
+                 T* mean, T* var, int n, int r, int B, int code, int metric_power, int nt,
+                 void* stream) {
+  if (B == 0) return 0;
+  const int m = n + 1 + r;
+  size_t bytes = 0;
+  const int tq = queries_per_block<T>((size_t)n * m + n,
+                                      code == GEN ? matern_nu::LEN_VAL : 0, &bytes);
+  if (tq < 1) return (int)cudaErrorInvalidValue;  // one query's matrix does not fit
+  if (bytes > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        fused_predict_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int grid = (B + tq - 1) / tq;
+  fused_predict_kernel<T><<<grid, 32 * tq, bytes, (cudaStream_t)stream>>>(
+      pw, cw, y, params, gen, mean, var, n, r, B, code, metric_power, nt);
   return (int)cudaGetLastError();
 }
 
@@ -211,19 +336,35 @@ int launch(const T* nf, const T* q, const T* y, const T* params, const T* noise_
 extern "C" {
 
 int fused_predict_coords_f32(const float* nf, const float* q, const float* y,
-                             const float* params, const float* noise_nn, float* mean,
-                             float* var, int n, int d, int r, int B, int code,
-                             int metric_power, void* stream) {
-  return launch<float>(nf, q, y, params, noise_nn, mean, var, n, d, r, B, code,
-                       metric_power, stream);
+                             const float* params, const float* noise_nn, const float* gen,
+                             float* mean, float* var, int n, int d, int r, int B, int code,
+                             int metric_power, int nt, void* stream) {
+  return launch_coords<float>(nf, q, y, params, noise_nn, gen, mean, var, n, d, r, B, code,
+                              metric_power, nt, stream);
 }
 
 int fused_predict_coords_f64(const double* nf, const double* q, const double* y,
-                             const double* params, const double* noise_nn, double* mean,
-                             double* var, int n, int d, int r, int B, int code,
-                             int metric_power, void* stream) {
-  return launch<double>(nf, q, y, params, noise_nn, mean, var, n, d, r, B, code,
-                        metric_power, stream);
+                             const double* params, const double* noise_nn,
+                             const double* gen, double* mean, double* var, int n, int d,
+                             int r, int B, int code, int metric_power, int nt,
+                             void* stream) {
+  return launch_coords<double>(nf, q, y, params, noise_nn, gen, mean, var, n, d, r, B, code,
+                               metric_power, nt, stream);
+}
+
+int fused_predict_f32(const float* pw, const float* cw, const float* y, const float* params,
+                      const float* gen, float* mean, float* var, int n, int r, int B,
+                      int code, int metric_power, int nt, void* stream) {
+  return launch_dists<float>(pw, cw, y, params, gen, mean, var, n, r, B, code, metric_power,
+                             nt, stream);
+}
+
+int fused_predict_f64(const double* pw, const double* cw, const double* y,
+                      const double* params, const double* gen, double* mean, double* var,
+                      int n, int r, int B, int code, int metric_power, int nt,
+                      void* stream) {
+  return launch_dists<double>(pw, cw, y, params, gen, mean, var, n, r, B, code,
+                              metric_power, nt, stream);
 }
 
 const char* muygpys_cuda_error_string(int code) {

@@ -7,8 +7,10 @@
 // and cw (n) (isotropic) or the per-feature differences pw (n, n, d) and
 // cw (n, d) (anisotropic), with params = [ls_0..ls_{G-1}, noise, noise0]:
 //   u = scaled distance; K = k(u) and H = u dk/du elementwise (Matern 1/2,
-//   3/2, 5/2, inf, or RBF on the F2 distance); G_g = dK/d ls_g =
-//   (-c / ls_g) H (w_g / sum_f w_f under anisotropy, w_f = (diff_f/ls_f)^2)
+//   3/2, 5/2, inf, RBF on the F2 distance, or any nu through K4,
+//   matern_nu.cuh, "gen": t = coef[0] u, H = t dphi/dt); G_g = dK/d ls_g =
+//   (-c / ls_g) H (w_g / sum_f w_f under anisotropy, w_f = (diff_f/ls_f)^2);
+//   under a free nu also S = dK/dnu = dphi/dnu|_t + coef[4] H
 //   L = chol(K + nugget) with the relative Gill-Murray floor: a pivot below
 //   10 eps mean(diag) is floored and the column under it zeroed
 //   z = L^{-1} [kc | y], [a | b] = L^{-T} z
@@ -16,9 +18,10 @@
 //   factor L0 = chol(K + noise0 I) gives b0 and q (the reference's
 //   stored-noise sigma^2 quirk)
 //   per group g: dmean = gc.b - (G a).b, dvar = -2 gc.a + (G a).a,
-//   dq = -sum_k (G b0_k).b0_k; noise: dmean = -a.b, dvar = a.a
-// and writes the rows of out (C, B), C = (r+2) + G(r+2) + (r+1), in the TPU
-// kernel's order.
+//   dq = -sum_k (G b0_k).b0_k; noise: dmean = -a.b, dvar = a.a; a free nu:
+//   the group's three contractions once more with S in place of G
+// and writes the rows of out (C, B), C = (r+2) + G(r+2) + (r+1) [+ (r+2)],
+// in the TPU kernel's order.
 //
 // What bounds it on an H100: at the training headline (n=30, isotropic,
 // r=1, B=2048, f32, noise free) the kernel must read pw, n*n*B*4 ~ 7.4 MB of
@@ -44,7 +47,14 @@
 //      second (stored-noise) factorization runs in the SAME buffer after
 //      the first one's solves are done;
 //   vectors: kd, nugget, a column scratch, gc (G, n), s (1+r, n) for
-//      [kc | y] -> z -> [a | b], s0 (r, n) for y -> z0 -> b0.
+//      [kc | y] -> z -> [a | b], s0 (r, n) for y -> z0 -> b0;
+//   under a free nu a further field S (n, ld) and vector sc (n): K4 is
+//      evaluated ONCE per element, with its d/dnu output kept beside the G
+//      fields until the contractions, rather than a second time after the
+//      solves.  The launcher's rule counts these bytes.
+// Under "gen" the block stages the coefficient vector once in shared memory
+// (matern_nu::stage), which also re-derives the d/ds Chebyshev coefficients
+// of a truncated tail.
 // The row stride ld = n | 1 is odd, so a warp's column accesses (lane =
 // row) hit distinct banks.  The factorization is left-looking, column by
 // column across lanes (lane = row, a pivot broadcast through shared
@@ -56,9 +66,11 @@
 #include <cfloat>
 #include <cuda_runtime.h>
 
+#include "matern_nu.cuh"
+
 namespace {
 
-enum Smoothness { NU05 = 0, NU15 = 1, NU25 = 2, NUINF = 3, RBF = 4 };
+enum Smoothness { NU05 = 0, NU15 = 1, NU25 = 2, NUINF = 3, RBF = 4, GEN = 5 };
 
 __device__ __forceinline__ float exp_t(float x) { return expf(x); }
 __device__ __forceinline__ double exp_t(double x) { return exp(x); }
@@ -75,10 +87,21 @@ template <> struct Lim<double> {
   static __device__ __forceinline__ double tiny() { return DBL_MIN; }
 };
 
-// K(u) and H(u) = u dK/du, as muygpys_tpu/pallas/fused_train.py:_kernel_and_deriv
+// K(u), H(u) = u dK/du and, under a free nu, S(u) = dK/dnu at fixed u, as
+// muygpys_tpu/pallas/fused_train.py:_kernel_and_deriv
 template <typename T>
-__device__ __forceinline__ void kernel_and_deriv(T u, int code, T& k, T& h) {
+__device__ __forceinline__ void kernel_and_deriv(T u, int code, const T* co, int nt,
+                                                 bool nu_free, T& k, T& h, T& s) {
+  s = T(0);
   switch (code) {
+    case GEN: {
+      const T t = co[0] * u;
+      T dphi_dt, dnu_part;
+      matern_nu::eval(t, co, nt, true, nu_free, k, dphi_dt, dnu_part);
+      h = t * dphi_dt;
+      s = dnu_part + co[4] * h;  // the chain term dt/dnu = t / (2 nu)
+      break;
+    }
     case NU05: {
       const T e = exp_t(-u);
       k = e;
@@ -121,11 +144,13 @@ __device__ __forceinline__ T warp_sum(T v) {
 // From the raw distance (isotropic, dd = 1) or the per-feature differences
 // x[f * stride] (anisotropic) of one pair: the kernel value, with each G_g
 // written back over x[g * stride].  inv[g] scales the distance (1/ls, or
-// 1/ls^2 for an isotropic F2 distance) and gco[g] = -c / ls_g.
+// 1/ls^2 for an isotropic F2 distance) and gco[g] = -c / ls_g.  Under a free
+// nu, dK/dnu goes to *s_out.
 template <typename T>
 __device__ __forceinline__ T assemble(T* x, int stride, bool aniso, int dd,
                                       const T* inv, const T* gco, int code,
-                                      int metric_power) {
+                                      int metric_power, const T* co, int nt,
+                                      T* s_out) {
   T u, acc = T(0);
   if (!aniso) {
     u = x[0] * inv[0];
@@ -136,8 +161,9 @@ __device__ __forceinline__ T assemble(T* x, int stride, bool aniso, int dd,
     }
     u = metric_power == 1 ? sqrt_t(acc) : acc;
   }
-  T k, h;
-  kernel_and_deriv(u, code, k, h);
+  T k, h, s;
+  kernel_and_deriv(u, code, co, nt, s_out != nullptr, k, h, s);
+  if (s_out != nullptr) *s_out = s;
   if (!aniso) {
     x[0] = gco[0] * h;
   } else {
@@ -220,9 +246,11 @@ __device__ __forceinline__ T matvec_row(const T* G, const T* x, int n, int ld, i
 }
 
 // shared-memory elements of one point: D, M, kd, nugget, column, gc, s, s0
-__host__ __device__ __forceinline__ size_t point_elems(int n, int dd, int r) {
+// and, under a free nu (nu_free = 1), S and sc
+__host__ __device__ __forceinline__ size_t point_elems(int n, int dd, int r, int nu_free) {
   const int ld = n | 1;
-  return (size_t)n * ld * (dd + 1) + (size_t)n * (3 + dd + 1 + 2 * r);
+  return (size_t)n * ld * (dd + 1 + nu_free) +
+         (size_t)n * (3 + dd + 1 + 2 * r + nu_free);
 }
 
 template <typename T>
@@ -232,8 +260,10 @@ __global__ void fused_train_stats_kernel(
     const T* __restrict__ y,         // (n, r, B)
     const T* __restrict__ params,    // (dd + 2): ls..., noise, noise0
     const T* __restrict__ noise_nn,  // (n, B) or null
+    const T* __restrict__ gen,       // K4 coefficients (ncoef) or null
     T* __restrict__ out,             // (C, B)
-    int n, int d_feat, int r, int B, int code, int metric_power, int noise_free) {
+    int n, int d_feat, int r, int B, int code, int metric_power, int noise_free,
+    int nu_free, int ncoef, int nt) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int P = blockDim.x / 32;  // points (warps) per block
   const int warp = threadIdx.x / 32;
@@ -242,12 +272,14 @@ __global__ void fused_train_stats_kernel(
   const int dd = aniso ? d_feat : 1;  // length-scale groups
   const int ld = n | 1;
   const int b0 = blockIdx.x * P;
-  const size_t per_point = point_elems(n, dd, r);
+  const size_t per_point = point_elems(n, dd, r, nu_free);
 
   auto base = [&](int w) { return reinterpret_cast<T*>(smem_raw) + w * per_point; };
   // the block's length-scale coefficients, after its P points
   T* inv = base(P);
   T* gco = inv + dd;
+  T* co = gco + dd;  // [ncoef] K4 coefficients under gen
+  if (code == GEN) matern_nu::stage(co, gen, ncoef, nt);
   if (threadIdx.x < dd) {
     const int f = threadIdx.x;
     const T ls = params[f];
@@ -257,7 +289,8 @@ __global__ void fused_train_stats_kernel(
   // per-point carve-up (offsets in elements)
   const size_t oD = 0, oM = oD + (size_t)dd * n * ld, okd = oM + (size_t)n * ld,
                onug = okd + n, ocol = onug + n, ogc = ocol + n,
-               os = ogc + (size_t)dd * n, os0 = os + (size_t)(1 + r) * n;
+               os = ogc + (size_t)dd * n, os0 = os + (size_t)(1 + r) * n,
+               oS = os0 + (size_t)r * n, osc = oS + (size_t)n * ld;
 
   // cooperative, point-fastest loads of the block's slices
   for (int e = threadIdx.x; e < n * n * dd * P; e += blockDim.x) {
@@ -296,6 +329,8 @@ __global__ void fused_train_stats_kernel(
   T* gc = sm + ogc;
   T* s = sm + os;
   T* s0 = sm + os0;
+  T* S = nu_free ? sm + oS : nullptr;
+  T* sc = nu_free ? sm + osc : nullptr;
   const T noise = params[dd];
   const T noise0 = params[dd + 1];
   const T* nugp = noise_nn != nullptr ? nug : nullptr;
@@ -303,12 +338,14 @@ __global__ void fused_train_stats_kernel(
   // K (strict upper triangle of M, transposed, and kd) and the G fields
   for (int e = lane; e < n * n; e += 32) {
     const int i = e / n, j = e % n;
-    const T k = assemble(D + i * ld + j, n * ld, aniso, dd, inv, gco, code, metric_power);
+    const T k = assemble(D + i * ld + j, n * ld, aniso, dd, inv, gco, code, metric_power,
+                         co, nt, nu_free ? S + i * ld + j : nullptr);
     if (i > j) M[j * ld + i] = k;
     else if (i == j) kd[i] = k;
   }
   for (int i = lane; i < n; i += 32) {
-    s[i] = assemble(gc + i, n, aniso, dd, inv, gco, code, metric_power);  // kc
+    s[i] = assemble(gc + i, n, aniso, dd, inv, gco, code, metric_power, co, nt,
+                    nu_free ? sc + i : nullptr);  // kc
   }
   __syncwarp();
 
@@ -350,9 +387,9 @@ __global__ void fused_train_stats_kernel(
   }
   emit(q);
 
-  for (int g = 0; g < dd; ++g) {
-    const T* G = D + (size_t)g * n * ld;
-    const T* gcg = gc + (size_t)g * n;
+  // the three contractions of one derivative field G with its crosswise
+  // vector gcg: dmean (r rows), dvar, dq
+  auto emit_group = [&](const T* G, const T* gcg) {
     // G a into the (now free) column scratch; each lane reads back only
     // its own rows, so no barrier
     for (int j = lane; j < n; j += 32) col[j] = matvec_row(G, a, n, ld, j);
@@ -378,7 +415,8 @@ __global__ void fused_train_stats_kernel(
       dq -= warp_sum(pk);
     }
     emit(dq);
-  }
+  };
+  for (int g = 0; g < dd; ++g) emit_group(D + (size_t)g * n * ld, gc + (size_t)g * n);
   for (int k = 0; k < r; ++k) {
     T pk = T(0);
     for (int i = lane; i < n; i += 32) pk += a[i] * bb[k * n + i];
@@ -387,20 +425,22 @@ __global__ void fused_train_stats_kernel(
   p = T(0);
   for (int i = lane; i < n; i += 32) p += a[i] * a[i];
   emit(warp_sum(p));  // dvar / dnoise
+  if (nu_free) emit_group(S, sc);  // d / dnu, after the noise rows
 }
 
 constexpr size_t kMaxSmem = 232448;  // 227 KB a block can opt into on sm_90
 
 template <typename T>
 int launch(const T* pw, const T* cw, const T* y, const T* params, const T* noise_nn,
-           T* out, int n, int d_feat, int r, int B, int code, int metric_power,
-           int noise_free, void* stream) {
+           const T* gen, T* out, int n, int d_feat, int r, int B, int code,
+           int metric_power, int noise_free, int nu_free, int ncoef, int nt, void* stream) {
   if (B == 0) return 0;
   const int dd = d_feat > 0 ? d_feat : 1;
+  if (code != GEN) ncoef = 0;
   int P = 8;
   size_t bytes = 0;
   for (; P >= 1; P /= 2) {
-    bytes = sizeof(T) * ((size_t)P * point_elems(n, dd, r) + 2 * dd);
+    bytes = sizeof(T) * ((size_t)P * point_elems(n, dd, r, nu_free) + 2 * dd + ncoef);
     if (bytes <= kMaxSmem) break;
   }
   if (P < 1) return (int)cudaErrorInvalidValue;  // one point does not fit
@@ -412,7 +452,8 @@ int launch(const T* pw, const T* cw, const T* y, const T* params, const T* noise
   }
   const int grid = (B + P - 1) / P;
   fused_train_stats_kernel<T><<<grid, 32 * P, bytes, (cudaStream_t)stream>>>(
-      pw, cw, y, params, noise_nn, out, n, d_feat, r, B, code, metric_power, noise_free);
+      pw, cw, y, params, noise_nn, gen, out, n, d_feat, r, B, code, metric_power,
+      noise_free, nu_free, ncoef, nt);
   return (int)cudaGetLastError();
 }
 
@@ -421,19 +462,21 @@ int launch(const T* pw, const T* cw, const T* y, const T* params, const T* noise
 extern "C" {
 
 int fused_train_stats_f32(const float* pw, const float* cw, const float* y,
-                          const float* params, const float* noise_nn, float* out,
-                          int n, int d_feat, int r, int B, int code, int metric_power,
-                          int noise_free, void* stream) {
-  return launch<float>(pw, cw, y, params, noise_nn, out, n, d_feat, r, B, code,
-                       metric_power, noise_free, stream);
+                          const float* params, const float* noise_nn, const float* gen,
+                          float* out, int n, int d_feat, int r, int B, int code,
+                          int metric_power, int noise_free, int nu_free, int ncoef, int nt,
+                          void* stream) {
+  return launch<float>(pw, cw, y, params, noise_nn, gen, out, n, d_feat, r, B, code,
+                       metric_power, noise_free, nu_free, ncoef, nt, stream);
 }
 
 int fused_train_stats_f64(const double* pw, const double* cw, const double* y,
-                          const double* params, const double* noise_nn, double* out,
-                          int n, int d_feat, int r, int B, int code, int metric_power,
-                          int noise_free, void* stream) {
-  return launch<double>(pw, cw, y, params, noise_nn, out, n, d_feat, r, B, code,
-                        metric_power, noise_free, stream);
+                          const double* params, const double* noise_nn, const double* gen,
+                          double* out, int n, int d_feat, int r, int B, int code,
+                          int metric_power, int noise_free, int nu_free, int ncoef, int nt,
+                          void* stream) {
+  return launch<double>(pw, cw, y, params, noise_nn, gen, out, n, d_feat, r, B, code,
+                        metric_power, noise_free, nu_free, ncoef, nt, stream);
 }
 
 const char* muygpys_cuda_error_string(int code) {

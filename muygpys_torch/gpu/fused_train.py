@@ -4,7 +4,8 @@ its plain PyTorch version, the epilogue and the autograd form.
 Counterpart of :mod:`muygpys_tpu.pallas.fused_train`.  From the batch-last
 training tensors the kernel (``csrc/fused_train.cu``) computes, per batch
 point, the LOO value rows (mean, var, q) and their analytic derivatives with
-respect to the length scales and the noise, through the quadratic-form
+respect to the length scales, the noise and (under ``smoothness="gen"`` with
+``smoothness_free``) the Matern smoothness, through the quadratic-form
 identities (with ``a = Kin^{-1} kc`` and ``b = Kin^{-1} y``):
 
     mean  = kc^T b          dmean = dkc^T b - a^T dK b
@@ -22,9 +23,11 @@ batch is assembled in :mod:`muygpys_torch.optimize.fused_objective`; this
 module knows no model class.
 
 The layout at the public functions is the JAX package's (batch last).
-General smoothness (``"gen"``, free nu) waits for the general-smoothness
-slice and raises; ``train_tile_cap`` is a TPU VMEM rule with no
-counterpart here.
+General smoothness rides the traced-nu surrogate K4
+(:mod:`muygpys_torch.gpu.matern_nu`, ``csrc/matern_nu.cuh``): the
+coefficient vector is a runtime input, so the smoothness changes between
+optimizer steps without a rebuild.  ``train_tile_cap`` is a TPU VMEM rule
+with no counterpart here: the launcher sizes a block from its shared memory.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import torch
 
 from muygpys_torch import config
 from muygpys_torch.gpu import _build
+from muygpys_torch.gpu import matern_nu as _nu
 from muygpys_torch.ops.lanes_solver import (
     cholesky_bl,
     tri_solve_bwd_bl,
@@ -44,24 +48,49 @@ from muygpys_torch.ops.lanes_solver import (
 
 _SQRT3 = 1.7320508075688772
 _SQRT5 = 2.23606797749979
-_SMOOTHNESS_CODES = {0.5: 0, 1.5: 1, 2.5: 2, math.inf: 3, "rbf": 4}
 
-_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 
 
-def _smoothness_code(smoothness, smoothness_free: bool = False) -> int:
-    if smoothness_free or smoothness not in _SMOOTHNESS_CODES:
+def _smoothness_code(
+    smoothness, gen_coeffs, metric_power, smoothness_free: bool
+) -> int:
+    """K2's smoothness code; raises on what it does not take."""
+    if smoothness_free and smoothness != "gen":
         raise ValueError(
-            f"fused_train_stats_bl supports a fixed smoothness in "
-            f"0.5/1.5/2.5/inf/'rbf'; got {smoothness!r}"
-            f"{' (free)' if smoothness_free else ''}: general and free "
-            "smoothness wait for the general-smoothness slice"
+            'smoothness_free requires smoothness="gen" (closed forms are '
+            "fixed-order by construction)"
         )
-    return _SMOOTHNESS_CODES[smoothness]
+    return _nu.check_smoothness(
+        "fused_train_stats_bl", smoothness, gen_coeffs, metric_power,
+        _nu._LEN_DNU if smoothness_free else _nu._LEN_DT,
+    )
 
 
-def _kernel_and_deriv(u, smoothness):
-    """Returns (K(u), H(u) = u dK/du) elementwise (closed forms)."""
+def train_tail_terms(dtype) -> int:
+    """Tail Chebyshev terms K2 evaluates: f32 training trims the series to 24
+    (~2e-5 on phi, far inside gradient tolerances); f64 keeps all of it."""
+    return _nu.TAIL_TERMS_TRAIN_F32 if dtype == torch.float32 else _nu.NTAIL
+
+
+def _kernel_and_deriv(u, smoothness, gen_coeffs=None, need_dnu=False):
+    """Returns (K(u), H(u) = u dK/du[, dK/dnu]) elementwise.
+
+    ``"gen"`` evaluates the traced-nu surrogate: ``t = sqrt(2 nu) u`` with
+    the factor in ``gen_coeffs[0]``; the full dK/dnu at fixed u folds the
+    argument chain ``dt/dnu = t / (2 nu)`` (``gen_coeffs[4] = 1 / (2 nu)``)
+    into the partial from the nu-tangent coefficient sets."""
+    if smoothness == "gen":
+        co = torch.as_tensor(gen_coeffs, dtype=u.dtype, device=u.device)
+        t = co[0] * u
+        out = _nu.matern_nu_eval(
+            t, co, need_dt=True, need_dnu=need_dnu,
+            tail_terms=train_tail_terms(u.dtype),
+        )
+        H = t * out[1]
+        if need_dnu:
+            return out[0], H, out[2] + co[4] * H
+        return out[0], H
     if smoothness == 0.5:
         e = torch.exp(-u)
         return e, -u * e
@@ -85,14 +114,14 @@ def _matvec_bl(G, x):
 
 
 def fused_train_stats_bl_plain(
-    pw, cw, y, params, noise_nn=None, smoothness=1.5, metric_power=1,
-    noise_free=False, d_feat=0,
+    pw, cw, y, params, noise_nn=None, gen_coeffs=None, smoothness=1.5,
+    metric_power=1, noise_free=False, smoothness_free=False, d_feat=0,
 ):
     """Plain PyTorch version of K2, in the TPU kernel's order (the same
     floored factorization of :func:`muygpys_torch.ops.lanes_solver.cholesky_bl`,
     substitutions and contractions).  Arguments as
     :func:`fused_train_stats_bl`; returns ``(C, B)``."""
-    _smoothness_code(smoothness)
+    _smoothness_code(smoothness, gen_coeffs, metric_power, smoothness_free)
     n = pw.shape[0]
     r = y.shape[1]
     d_eff = d_feat if d_feat else 1
@@ -114,8 +143,12 @@ def fused_train_stats_bl_plain(
         inv = 1.0 / ls if metric_power == 1 else 1.0 / (ls * ls)
         u_p = pw * inv
         u_c = cw * inv
-    K, H = _kernel_and_deriv(u_p, smoothness)
-    kc, Hc = _kernel_and_deriv(u_c, smoothness)
+    if smoothness_free:
+        K, H, S = _kernel_and_deriv(u_p, smoothness, gen_coeffs, True)
+        kc, Hc, Sc = _kernel_and_deriv(u_c, smoothness, gen_coeffs, True)
+    else:
+        K, H = _kernel_and_deriv(u_p, smoothness, gen_coeffs)
+        kc, Hc = _kernel_and_deriv(u_c, smoothness, gen_coeffs)
     if d_feat:
         tiny = torch.finfo(y.dtype).tiny
         fp = torch.clamp_min(accp, tiny)
@@ -150,7 +183,8 @@ def fused_train_stats_bl_plain(
         b0 = b
         q = torch.sum(zy * zy, dim=(0, 1))
     rows = [mean, var[None, :], q[None, :]]
-    for G, gc in zip(Gs, gcs):
+
+    def group_rows(G, gc):
         wa = _matvec_bl(G, a)
         dmL = (torch.sum(gc[:, None, :] * b, dim=0)
                - torch.sum(wa[:, None, :] * b, dim=0))
@@ -159,20 +193,28 @@ def fused_train_stats_bl_plain(
         for k in range(r):
             w0 = _matvec_bl(G, b0[:, k, :])
             dqL = dqL - torch.sum(w0 * b0[:, k, :], dim=0)
-        rows += [dmL, dvL[None, :], dqL[None, :]]
+        return [dmL, dvL[None, :], dqL[None, :]]
+
+    for G, gc in zip(Gs, gcs):
+        rows += group_rows(G, gc)
     dmN = -torch.sum(a[:, None, :] * b, dim=0)
     dvN = torch.sum(a * a, dim=0)
     rows += [dmN, dvN[None, :]]
+    if smoothness_free:
+        # the same algebra as a length scale, with the dK/dnu fields
+        rows += group_rows(S, Sc)
     return torch.cat(rows, dim=0)
 
 
 def fused_train_stats_bl(
-    pw, cw, y, params, noise_nn=None, smoothness=1.5, metric_power=1,
-    noise_free=False, smoothness_free=False, d_feat=0, device=None,
+    pw, cw, y, params, noise_nn=None, gen_coeffs=None, smoothness=1.5,
+    metric_power=1, noise_free=False, smoothness_free=False, d_feat=0,
+    device=None,
 ):
     """Per-point LOO statistics and analytic derivative rows,
-    ``((r+2) + G(r+2) + (r+1), B)`` with ``G`` length-scale groups (1
-    isotropic, ``d_feat`` anisotropic).
+    ``((r+2) + G(r+2) + (r+1) [+ (r+2)], B)`` with ``G`` length-scale groups
+    (1 isotropic, ``d_feat`` anisotropic); the optional tail is the d/dnu
+    group under ``smoothness_free``.
 
     Isotropic (``d_feat=0``): distances ``pw (n, n, B)``, ``cw (n, B)``,
     ``params = [length_scale, noise, stored_noise]``.  Anisotropic
@@ -180,16 +222,19 @@ def fused_train_stats_bl(
     ``cw (n, d, B)``, ``params = [ls_0..ls_{d-1}, noise, stored_noise]``.
     ``y (n, r, B)``; optional ``noise_nn (n, B)`` heteroscedastic nugget
     (never free, so not with ``noise_free``).  ``metric_power`` 1 = l2,
-    2 = F2.  Hyperparameters are runtime values: one build serves every
-    optimizer step.
+    2 = F2.  ``smoothness="gen"`` takes a
+    :func:`muygpys_torch.gpu.matern_nu.matern_nu_coeffs` vector in
+    ``gen_coeffs`` (built with ``need_dnu=True`` when ``smoothness_free``)
+    and requires the l2 metric.  Hyperparameters and coefficients are
+    runtime values: one build serves every optimizer step.
 
     Runs on ``device`` (default ``"cuda"``): K2 there, the plain version
     for ``device="cpu"``.
     """
     dev = config.device(device)
-    code = _smoothness_code(smoothness, smoothness_free)
-    if metric_power not in (1, 2):
-        raise ValueError(f"metric_power must be 1 or 2, got {metric_power}")
+    code = _smoothness_code(
+        smoothness, gen_coeffs, metric_power, smoothness_free
+    )
     if noise_nn is not None and noise_free:
         raise ValueError(
             "heteroscedastic nugget tensors are never free parameters"
@@ -219,24 +264,32 @@ def fused_train_stats_bl(
         )
     if dev.type == "cpu":
         return fused_train_stats_bl_plain(
-            pw, cw, y, params, noise_nn, smoothness, metric_power,
-            noise_free, d_feat,
+            pw, cw, y, params, noise_nn, gen_coeffs, smoothness,
+            metric_power, noise_free, smoothness_free, d_feat,
         )
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"fused_train_stats_bl takes f32 or f64, not {dtype}")
     ins = [t.contiguous() for t in (pw, cw, y, params)]
     noise_nn = None if noise_nn is None else noise_nn.contiguous()
-    out = torch.empty(
-        ((r + 2) + d_eff * (r + 2) + (r + 1), B), dtype=dtype, device=dev
-    )
+    gen = None
+    if gen_coeffs is not None:
+        gen = torch.as_tensor(
+            gen_coeffs, dtype=dtype, device=dev
+        ).contiguous()
+    rows = (r + 2) + d_eff * (r + 2) + (r + 1)
+    if smoothness_free:
+        rows += r + 2
+    out = torch.empty((rows, B), dtype=dtype, device=dev)
     symbol = (
         "fused_train_stats_f32" if dtype == torch.float32
         else "fused_train_stats_f64"
     )
     fn = _build.function("fused_train", symbol, _ARGTYPES)
     rc = fn(
-        *(_build.ptr(t) for t in ins), _build.ptr(noise_nn), _build.ptr(out),
-        n, d_feat, r, B, code, metric_power, int(noise_free),
+        *(_build.ptr(t) for t in ins), _build.ptr(noise_nn), _build.ptr(gen),
+        _build.ptr(out), n, d_feat, r, B, code, metric_power,
+        int(noise_free), int(smoothness_free),
+        0 if gen is None else gen.numel(), train_tail_terms(dtype),
         _build.stream(dev),
     )
     _build.check(rc, "fused_train", "fused_train_stats")
@@ -268,6 +321,10 @@ def _epilogue(
         dqLs.append(stats[o + r + 1])
     o = base + G * (r + 2)
     dmN, dvN = stats[o:o + r], stats[o + r]
+    smoothness_free = "smoothness" in free_names
+    if smoothness_free:
+        o = o + r + 1
+        dmS, dvS, dqS = stats[o:o + r], stats[o + r], stats[o + r + 1]
 
     e = mean - t_bl  # (r, B)
     grads = {}
@@ -278,6 +335,8 @@ def _epilogue(
                 grads[key] = -2.0 * torch.sum(e * dmL) / t_bl.numel()
         if "noise" in free_names:
             grads["noise"] = -2.0 * torch.sum(e * dmN) / t_bl.numel()
+        if smoothness_free:
+            grads["smoothness"] = -2.0 * torch.sum(e * dmS) / t_bl.numel()
         return value, grads
 
     if loss == "huber":
@@ -290,6 +349,8 @@ def _epilogue(
                 grads[key] = -torch.sum(e * dmL / rad)
         if "noise" in free_names:
             grads["noise"] = -torch.sum(e * dmN / rad)
+        if smoothness_free:
+            grads["smoothness"] = -torch.sum(e * dmS / rad)
         return value, grads
 
     s = torch.sum(q) / (B * n)  # analytic sigma^2 (global)
@@ -330,6 +391,8 @@ def _epilogue(
         # d sigma^2 / d noise == 0 under the stored-noise quirk
         grads["noise"] = -dloss(dmN, dvN, torch.zeros((), dtype=var.dtype,
                                                       device=var.device))
+    if smoothness_free:
+        grads["smoothness"] = -dloss(dmS, dvS, torch.sum(dqS) / (B * n))
     return value, grads
 
 

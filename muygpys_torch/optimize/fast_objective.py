@@ -9,14 +9,15 @@ sigma^2.  It is the ``engine="lanes"`` of
 derivation of K2's analytic gradient (:mod:`muygpys_torch.gpu.fused_train`)
 that does not depend on JAX.
 
-Covered: Matern with a fixed closed-form nu, or RBF; Isotropy or Anisotropy;
+Covered: Matern with a fixed closed-form nu (its closed form) or any other
+fixed or free nu (the exact Bessel path of :mod:`muygpys_torch.ops.bessel`,
+differentiable in nu), or RBF; Isotropy or Anisotropy;
 homoscedastic (optionally free) or heteroscedastic noise; loss lool, mse,
 looph or huber (unnormalized pseudo-Huber on the mean).  The reference's
 stored-noise sigma^2 quirk is carried over exactly: sigma^2 perturbs Kin
 with the model's STORED noise, so a free noise costs a second
 factorization and d sigma^2 / d noise = 0.  ``layout="batched"`` waits for
-the device-chassis slice; free or general nu for the general-smoothness
-slice.
+the device-chassis slice.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ from muygpys_torch import config
 from muygpys_torch.gp.deformation import Anisotropy, Isotropy
 from muygpys_torch.gp.kernels import Matern, RBF
 from muygpys_torch.gp.noise import HeteroscedasticNoise, HomoscedasticNoise
+from muygpys_torch.ops import kernels as _k
 from muygpys_torch.ops.lanes_solver import cholesky_bl, tri_solve_fwd_bl
 from muygpys_torch.ops.loss import looph_fn, lool_fn, mse_fn, pseudo_huber_fn
 from muygpys_torch.ops.tensors import safe_sqrt
@@ -41,9 +43,9 @@ LOSSES = ("lool", "mse", "looph", "huber")
 
 def check_model(muygps, loss: str) -> str:
     """Raise a clear error for a model class or loss the fast objectives do
-    not take, before anything runs; returns the canonical loss name.  (Free
-    or general smoothness and hierarchical length scales cannot reach here:
-    ``Matern`` and ``Isotropy`` refuse them when the model is built.)"""
+    not take, before anything runs; returns the canonical loss name.
+    (Hierarchical length scales cannot reach here: ``Isotropy`` refuses them
+    when the model is built.)"""
     loss = _LOSS_ALIASES.get(loss, loss)
     kernel = muygps.kernel
     if not isinstance(kernel, (Matern, RBF)):
@@ -132,8 +134,8 @@ def make_fast_loo_objective(
     """Build ``obj_fn(params_dict) -> -loss`` in lane layout.
 
     Args:
-        muygps: Matern (closed form) or RBF, Isotropy or Anisotropy,
-            homoscedastic or heteroscedastic noise.
+        muygps: Matern (any fixed or free smoothness) or RBF, Isotropy or
+            Anisotropy, homoscedastic or heteroscedastic noise.
         batch_targets: ``(B, r)`` or ``(B,)``.
         batch_nn_targets: ``(B, n, r)`` or ``(B, n)``.
         crosswise_dists / pairwise_dists: what ``make_train_tensors`` gives
@@ -158,7 +160,19 @@ def make_fast_loo_objective(
         boundary_scale = 3.0 if loss == "looph" else 1.5
     dev = config.device(device)
     kernel = muygps.kernel
-    kfn = kernel._kernel_fn
+    if isinstance(kernel, RBF):
+        nu0 = None
+
+        def kfn(dists, nu):
+            return _k.rbf_fn(dists)
+
+    else:
+        nu0 = kernel.smoothness()
+        matern_fn = kernel._kernel_fn  # closed form, or Bessel path in nu
+
+        def kfn(dists, nu):
+            return matern_fn(dists, smoothness=nu)
+
     names, _, _ = muygps.get_opt_params()
     pw_bl, cw_bl, y_bl, t_bl, d_feat = batch_last(
         muygps, batch_targets, batch_nn_targets, crosswise_dists,
@@ -205,8 +219,9 @@ def make_fast_loo_objective(
 
     def obj_fn(params):
         u_p, u_c = scaled_dists(params)
-        Kraw = kfn(u_p)
-        Kcross = kfn(u_c)  # (n, B)
+        nu = params.get("smoothness", nu0)
+        Kraw = kfn(u_p, nu)
+        Kcross = kfn(u_c, nu)  # (n, B)
         if noise0 is None:
             Kin = Kraw + eye_bl * eps_bl[:, None, :]
         else:

@@ -2,22 +2,25 @@
 
 Counterpart of :func:`muygpys_tpu.optimize.Fused_L_BFGS_B_optimize`: the
 same result contract as :data:`muygpys_torch.optimize.L_BFGS_B_optimize`
-for the production model classes (Matern with a closed-form smoothness or
-RBF, Isotropy or Anisotropy, homo- or heteroscedastic noise, loss in lool,
+for the production model classes (Matern with any fixed or free smoothness,
+or RBF, Isotropy or Anisotropy, homo- or heteroscedastic noise, loss in lool,
 mse, looph, huber), with the objective evaluated by
 
 - ``engine="kernel"`` (the JAX ``"pallas"``): K2, one launch per evaluation
   returning the value AND the analytic gradient
   (:func:`muygpys_torch.optimize.fused_objective.make_fused_train_objective`);
+  a free smoothness, or a fixed one without a closed form, goes through the
+  traced-nu surrogate and must stay inside ``[0.05, 10]`` on the l2 metric;
 - ``engine="lanes"``: the lane-layout objective under ``torch.autograd``
-  (:func:`muygpys_torch.optimize.fast_objective.make_fast_loo_objective`).
+  (:func:`muygpys_torch.optimize.fast_objective.make_fast_loo_objective`),
+  general smoothness through the exact Bessel path.
 
 Unlike the JAX chassis there is no fallback: on a CUDA device a kernel that
 does not build or launch, or a probe at the initial point that is not
 finite, raises.  An unsupported model class raises before any launch:
-shear models ``NotImplementedError``; free or general smoothness and
-hierarchical length scales never get that far (``Matern`` and ``Isotropy``
-refuse them with ``ValueError`` when the model is built).
+shear models ``NotImplementedError``; hierarchical length scales never get
+that far (``Isotropy`` refuses them with ``ValueError`` when the model is
+built).
 
     model = Fused_L_BFGS_B_optimize(model, bt, bnt, cw, pw, loss="lool")
 """

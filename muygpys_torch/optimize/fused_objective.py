@@ -5,7 +5,12 @@ the model's parameters become K2's runtime parameter vector, and one
 evaluation is one K2 launch (:func:`muygpys_torch.gpu.fused_train.fused_train_stats_bl`)
 plus the host epilogue, returning the value and the analytic gradient.  The
 model classes and losses are those of
-:func:`muygpys_torch.optimize.fast_objective.make_fast_loo_objective`.
+:func:`muygpys_torch.optimize.fast_objective.make_fast_loo_objective`.  A
+free Matern smoothness, or a fixed one without a closed form, rides the
+traced-nu surrogate (:mod:`muygpys_torch.gpu.matern_nu`).  A fixed
+smoothness builds its coefficient vector once, with the objective; a free
+one builds it, with the nu-tangent sets, at every evaluation.  Both build on
+the objective's device, in the data's dtype.
 """
 
 from __future__ import annotations
@@ -18,12 +23,14 @@ import torch
 from muygpys_torch import config
 from muygpys_torch.gp.deformation import Anisotropy
 from muygpys_torch.gp.kernels import RBF
+from muygpys_torch.gp.kernels.matern import CLOSED_FORMS
 from muygpys_torch.gp.noise import HeteroscedasticNoise
 from muygpys_torch.gpu.fused_train import (
     FusedLOO,
     _epilogue,
     fused_train_stats_bl,
 )
+from muygpys_torch.gpu.matern_nu import NU_MAX, NU_MIN, matern_nu_coeffs
 from muygpys_torch.optimize.fast_objective import batch_last, check_model
 
 
@@ -34,8 +41,9 @@ class FusedTrainObjective:
     ``value_and_grad_fn`` contract; :meth:`value` is the differentiable form
     over a 1-D tensor ordered as :attr:`names`, through
     :class:`muygpys_torch.gpu.fused_train.FusedLOO`.  ``defaults`` holds
-    K2's parameter vector (length scales, noise, stored noise) as 0-d
-    tensors keyed by name; a free parameter's value replaces its default.
+    K2's parameter vector (length scales, noise, stored noise and, when it
+    is free, the smoothness) as 0-d tensors keyed by name; a free
+    parameter's value replaces its default.
     """
 
     def __init__(self, names: Sequence[str], defaults: Dict, stats_fn,
@@ -81,7 +89,10 @@ def make_fused_train_objective(
 
     The model classes of
     :func:`muygpys_torch.optimize.fast_objective.make_fast_loo_objective`:
-    Matern with a fixed closed-form smoothness, or RBF; Isotropy (distance
+    Matern (a fixed closed-form smoothness by its formula; a free one, with
+    bounds inside ``[0.05, 10]``, or any other fixed one in that range
+    through the traced-nu surrogate with analytic d/dnu rows, l2 metric
+    only) or RBF; Isotropy (distance
     tensors ``(B, n)`` / ``(B, n, n)``) or Anisotropy (per-feature
     differences ``(B, n, d)`` / ``(B, n, n, d)``, one derivative group per
     feature); homoscedastic or heteroscedastic noise; loss in {lool, mse,
@@ -115,21 +126,64 @@ def make_fused_train_objective(
         noise_free = "noise" in names
         noise0 = float(muygps.noise())
         noise_nn = None
+    smoothness, smoothness_free = _kernel_smoothness(kernel)
+    gen = smoothness == "gen"
+    dtype = pw_bl.dtype
     defaults = {
-        key: torch.tensor(float(val), dtype=pw_bl.dtype, device=dev)
+        key: torch.tensor(float(val), dtype=dtype, device=dev)
         for key, val in [(p.name(), p()) for p in ls_params]
         + [("noise", noise0), ("stored noise", noise0)]
+        + ([("smoothness", kernel.smoothness())] if smoothness_free else [])
     }
-    stats_fn = functools.partial(
+    launch = functools.partial(
         fused_train_stats_bl, pw_bl.contiguous(), cw_bl.contiguous(),
-        y_bl.contiguous(), noise_nn=noise_nn,
-        smoothness="rbf" if isinstance(kernel, RBF)
-        else float(kernel.smoothness()),
+        y_bl.contiguous(), noise_nn=noise_nn, smoothness=smoothness,
         metric_power=1 if kernel.deformation.metric.name == "l2" else 2,
-        noise_free=noise_free, d_feat=d_feat, device=dev,
+        noise_free=noise_free, smoothness_free=smoothness_free,
+        d_feat=d_feat, device=dev,
     )
+    # the whole nu-dependence of the kernel, ~10^2 scalars, built where the
+    # data lies and in its dtype
+    if smoothness_free:
+        def stats_fn(vec):
+            return launch(
+                vec[:-1], gen_coeffs=matern_nu_coeffs(vec[-1], need_dnu=True)
+            )
+    elif gen:
+        nu = torch.tensor(float(kernel.smoothness()), dtype=dtype, device=dev)
+        stats_fn = functools.partial(launch, gen_coeffs=matern_nu_coeffs(nu))
+    else:
+        stats_fn = launch
     epilogue = functools.partial(
         _epilogue, t_bl=t_bl, loss=loss, free_names=names, n=pw_bl.shape[0],
         boundary_scale=boundary_scale, ls_keys=ls_keys,
     )
     return FusedTrainObjective(names, defaults, stats_fn, epilogue), names
+
+
+def _kernel_smoothness(kernel):
+    """``(smoothness argument of K2, whether it is free)`` for a model's
+    kernel: ``"rbf"``, a closed-form order, or ``"gen"`` for a free or any
+    other fixed order, which must lie in the surrogate's certified domain
+    and on the l2 metric."""
+    if isinstance(kernel, RBF):
+        return "rbf", False
+    nu = float(kernel.smoothness())
+    free = not kernel.smoothness.fixed()
+    if free:
+        lo, hi = kernel.smoothness.get_bounds()
+        if not (NU_MIN <= lo and hi <= NU_MAX):
+            raise ValueError(
+                f"free smoothness bounds ({lo}, {hi}) exceed the certified "
+                f"surrogate domain [{NU_MIN}, {NU_MAX}]"
+            )
+    elif nu in CLOSED_FORMS:
+        return nu, False
+    elif not (NU_MIN <= nu <= NU_MAX):
+        raise ValueError(
+            f"fixed smoothness {nu} outside the certified surrogate domain "
+            f"[{NU_MIN}, {NU_MAX}]"
+        )
+    if kernel.deformation.metric.name != "l2":
+        raise ValueError("general-smoothness Matern requires the l2 metric")
+    return "gen", free

@@ -15,9 +15,14 @@ Counterpart of :class:`muygpys_tpu.serve.FastServer`.  Engines:
 - ``"reference"``: the generic standard-layout path (debugging;
   homoscedastic models only).
 
-Models served: Matern (closed-form smoothness) or RBF kernels over an
-Isotropy or Anisotropy deformation, homoscedastic or heteroscedastic noise
-(pass the per-training-point ``measurement_noise``).  The query batch is
+Models served: Matern or RBF kernels over an Isotropy or Anisotropy
+deformation, homoscedastic or heteroscedastic noise (pass the
+per-training-point ``measurement_noise``).  Any Matern smoothness nu in
+``[0.05, 10]`` serves through the kernels: the closed forms by their
+formula, any other order through the traced-nu surrogate
+(:mod:`muygpys_torch.gpu.matern_nu`), whose coefficients are built once per
+server; ``"lanes"`` and ``"reference"`` serve any order through the exact
+Bessel path.  The query batch is
 padded (``mode="edge"``) up to a fixed bucket.  ``mesh``/``shard`` and the
 shear models are not ported yet.
 """
@@ -32,10 +37,12 @@ import torch
 from muygpys_torch import config
 from muygpys_torch.gp.deformation import Anisotropy, Isotropy
 from muygpys_torch.gp.kernels import Matern, RBF
+from muygpys_torch.gp.kernels.matern import CLOSED_FORMS
 from muygpys_torch.gp.muygps import MuyGPS
 from muygpys_torch.gp.noise import HeteroscedasticNoise, HomoscedasticNoise
 from muygpys_torch.gpu.fused_predict import fused_predict_coords_bl
 from muygpys_torch.gpu.knn import knn_cuda, knn_cuda_pruned, spatial_sort
+from muygpys_torch.gpu.matern_nu import NU_MAX, NU_MIN, matern_nu_coeffs_host
 from muygpys_torch.neighbors import NN_Wrapper, _brute_force_knn
 from muygpys_torch.ops import tensors as _t
 from muygpys_torch.ops.lanes_solver import serve_mean_and_variance_bl
@@ -165,7 +172,34 @@ class FastServer:
             else float(muygps.kernel.smoothness())
         )
         self._metric_power = 2 if deformation.metric.name == "F2" else 1
+        self._gen_coeffs = None
+        if engine in ("kernel", "fused"):
+            self._smoothness, self._gen_coeffs = self._kernel_smoothness()
         self._predict_fn = self._build()
+
+    def _kernel_smoothness(self):
+        """``(smoothness argument, coefficient vector)`` for K1: a closed
+        form compiles to its formula; any other order ships as a
+        coefficient vector built ONCE here, on the host in f64, then cast
+        (the kernels take it as a runtime input, so one build of them
+        serves every general-smoothness model)."""
+        nu = self._smoothness
+        if nu == "rbf" or nu in CLOSED_FORMS:
+            return nu, None
+        if not (NU_MIN <= nu <= NU_MAX):
+            raise ValueError(
+                f"{self.engine} engine serves general Matern smoothness in "
+                f"[{NU_MIN}, {NU_MAX}]; got {nu} (use the lanes engine for "
+                "exotic orders)"
+            )
+        if self._metric_power != 1:
+            raise ValueError(
+                "general-smoothness Matern requires the l2 metric"
+            )
+        np_dtype = np.float64 if self._dtype == torch.float64 else np.float32
+        return "gen", torch.as_tensor(
+            matern_nu_coeffs_host(nu, np_dtype), device=self.device
+        )
 
     def _build(self):
         if self.engine == "reference":
@@ -192,7 +226,8 @@ class FastServer:
         noise_nn = None if self._meas is None else rows[:, :, d + r].T
         mean, var = fused_predict_coords_bl(
             nf, queries.T, y, self._params, noise_nn=noise_nn,
-            smoothness=self._smoothness, metric_power=self._metric_power,
+            gen_coeffs=self._gen_coeffs, smoothness=self._smoothness,
+            metric_power=self._metric_power,
             device=self.device,
         )
         return mean.T, self._scale * var
@@ -280,7 +315,7 @@ class FastServer:
         y = self._targets[nn_idx].permute(1, 2, 0)  # (n, r, B)
         n = pw.shape[0]
         eye = torch.eye(n, dtype=pw.dtype, device=pw.device)[:, :, None]
-        kernel_fn = self.muygps.kernel._kernel_fn
+        kernel_fn = self.muygps.kernel.of_scaled_dists
         if self._meas is None:
             Kin = kernel_fn(pw) + self._noise * eye
         else:

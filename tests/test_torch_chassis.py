@@ -103,6 +103,89 @@ def test_adam_follows_jax(batch):
     )
 
 
+def _free_nu_model():
+    """tests/test_pallas_train.py's free-smoothness model: started AT an
+    integer, length scale and smoothness free, noise fixed."""
+    return jax_model_to_train(
+        nu=1.0, nu_bounds=(0.2, 3.0), noise_bounds="fixed"
+    )
+
+
+def _exact_objective(batch):
+    """The port's exact-Bessel generic objective, the judge of an optimum."""
+    obj = L_BFGS_B_optimize.make_obj_fn(
+        carried_for_training(_free_nu_model()), *batch, loss_fn=lool_fn
+    )
+
+    def at(ls, nu):
+        with torch.no_grad():
+            return float(obj(length_scale=ls, smoothness=nu))
+
+    return at
+
+
+@pytest.fixture(scope="module")
+def jax_free_nu(batch):
+    jm = _free_nu_model()
+    trained = jopt.Fused_L_BFGS_B_optimize(
+        jm, *batch, engine="pallas", interpret=True
+    )
+    return (float(trained.kernel.deformation.length_scale()),
+            float(trained.kernel.smoothness()))
+
+
+@pytest.mark.parametrize("engine", ["kernel", "lanes"])
+def test_fused_chassis_trains_free_smoothness(batch, jax_free_nu, engine):
+    """A free-nu model through both engines.  The random-target problem is
+    ridge-flat in (ls, nu), so the bar is the OBJECTIVE reached, judged by
+    the exact objective at both optima (tests/test_pallas_train.py):
+    no worse than the JAX chassis's by 5e-3 relative."""
+    exact = _exact_objective(batch)
+    v_ref = exact(*jax_free_nu)
+    _build.reset_launches()
+    trained = Fused_L_BFGS_B_optimize(
+        carried_for_training(_free_nu_model()), *batch, engine=engine,
+        device="cpu",
+    )
+    assert _build.launches["fused_train_stats"] == 0
+    vals = arrays_from_muygps(trained)
+    assert 0.01 <= vals["length_scale"] <= 5.0
+    assert 0.2 <= vals["smoothness"] <= 3.0
+    # it moved: the start is (0.4, 1.0)
+    v_start = exact(0.4, 1.0)
+    v_opt = exact(vals["length_scale"], vals["smoothness"])
+    assert v_opt > v_start
+    assert v_opt >= v_ref - 5e-3 * abs(v_ref), (v_opt, v_ref, vals)
+
+
+def test_generic_chassis_trains_free_smoothness(batch, jax_free_nu):
+    """L_BFGS_B_optimize on autograd through kve (d/dnu by forward mode
+    through the algorithm) reaches the fused chassis's objective."""
+    exact = _exact_objective(batch)
+    trained = L_BFGS_B_optimize(
+        carried_for_training(_free_nu_model()), *batch, loss_fn=lool_fn
+    )
+    vals = arrays_from_muygps(trained)
+    v_ref = exact(*jax_free_nu)
+    v_opt = exact(vals["length_scale"], vals["smoothness"])
+    assert v_opt >= v_ref - 5e-3 * abs(v_ref), (v_opt, v_ref, vals)
+
+
+def test_adam_follows_jax_with_free_smoothness(batch):
+    """Adam on a free-nu model takes the optax trajectory."""
+    jm = _free_nu_model()
+    jref = jopt.Adam_optimize(jm, *batch, loss_fn=jopt.lool_fn, n_iter=6)
+    tm = Adam_optimize(
+        carried_for_training(jm), *batch, loss_fn=lool_fn, n_iter=6
+    )
+    vals = arrays_from_muygps(tm)
+    np.testing.assert_allclose(
+        [vals["length_scale"], vals["smoothness"]],
+        [float(jref.kernel.deformation.length_scale()),
+         float(jref.kernel.smoothness())], rtol=1e-6,
+    )
+
+
 def test_chassis_survive_a_failing_cholesky(batch):
     """A proposal whose factorization fails scores the penalty instead of
     ending the run (torch raises where JAX returns NaN)."""

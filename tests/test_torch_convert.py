@@ -17,7 +17,7 @@ from muygpys_torch.gp.noise import HeteroscedasticNoise, HomoscedasticNoise
 @pytest.mark.parametrize(
     "spec",
     [dict(nu=0.5), dict(nu=math.inf, ls=(0.2, 0.3, 0.4)),
-     dict(kernel="rbf", metric="F2"),
+     dict(kernel="rbf", metric="F2"), dict(nu=1.2), dict(nu=4.8, ls=(0.2, 0.3)),
      dict(nu=2.5, hetero=np.full((3, 4), 0.01), scale=0.3)],
 )
 def test_carried_model_matches(spec):
@@ -46,17 +46,23 @@ def test_convert_errors():
         muygps_from_arrays(0.5, noise=1e-3, smoothness=1.5, metric="l1")
     with pytest.raises(ValueError, match="unknown kernel"):
         muygps_from_arrays(0.5, noise=1e-3, kernel="cauchy")
-    with pytest.raises(ValueError, match="general smoothness"):
-        muygps_from_arrays(0.5, noise=1e-3, smoothness=0.7)
+    # a general smoothness builds; a value outside its bounds does not
+    assert muygps_from_arrays(0.5, noise=1e-3, smoothness=0.7).kernel.smoothness() == 0.7
+    with pytest.raises(ValueError, match="greater than the upper bound"):
+        muygps_from_arrays(
+            0.5, noise=1e-3, smoothness=7.0, smoothness_bounds=(0.1, 5.0)
+        )
+    with pytest.raises(ValueError, match="unknown bound option"):
+        muygps_from_arrays(0.5, noise=1e-3, smoothness=0.7, smoothness_bounds="free")
 
 
 def jax_model_to_train(kernel="matern", nu=1.5, ls=0.4, ls_bounds=(0.01, 5.0),
                        noise=1e-3, noise_bounds=(1e-6, 1e-1), metric="l2",
-                       hetero=None):
+                       hetero=None, nu_bounds="fixed"):
     """A JAX MuyGPS still to be trained, with an AnalyticScale.  ``ls``
     scalar -> Isotropy, sequence -> Anisotropy (``ls_bounds`` shared);
     ``noise_bounds="fixed"`` fixes the noise; ``hetero`` an array ->
-    HeteroscedasticNoise."""
+    HeteroscedasticNoise; ``nu_bounds`` a pair -> free smoothness."""
     from muygpys_tpu.gp import MuyGPS
     from muygpys_tpu.gp.deformation import F2, Anisotropy, Isotropy, l2
     from muygpys_tpu.gp.hyperparameter import (
@@ -75,7 +81,8 @@ def jax_model_to_train(kernel="matern", nu=1.5, ls=0.4, ls_bounds=(0.01, 5.0),
             *(Parameter(v, ls_bounds) for v in ls)
         ))
     kern = (RBF(deformation=deformation) if kernel == "rbf"
-            else Matern(smoothness=Parameter(nu), deformation=deformation))
+            else Matern(smoothness=Parameter(nu, nu_bounds),
+                        deformation=deformation))
     noise_fn = (HomoscedasticNoise(noise, noise_bounds) if hetero is None
                 else HeteroscedasticNoise(np.asarray(hetero)))
     return MuyGPS(kernel=kern, noise=noise_fn, scale=AnalyticScale())
@@ -108,12 +115,16 @@ def carried_for_training(jm):
         kernel="rbf" if is_rbf else "matern",
         metric=d.metric.name,
         measurement_noise=np.asarray(jm.noise()) if hetero else None,
+        smoothness_bounds="fixed" if is_rbf or jm.kernel.smoothness.fixed()
+        else jm.kernel.smoothness.get_bounds(),
     )
 
 
 @pytest.mark.parametrize(
     "spec",
     [dict(), dict(ls=(0.3, 0.7), noise_bounds="fixed"),
+     dict(nu=1.2, nu_bounds=(0.31, 5.0)), dict(nu=1.37),
+     dict(nu=2.0, nu_bounds=(0.2, 3.0), ls=(0.3, 0.7), noise_bounds="fixed"),
      dict(kernel="rbf", metric="F2", ls_bounds=(0.1, 2.0)),
      dict(nu=2.5, hetero=np.full((3, 4), 0.01))],
 )
@@ -140,9 +151,18 @@ def test_model_to_train_carried_across(spec):
 
 
 def test_model_with_free_smoothness_is_refused():
+    """A free smoothness is no longer refused: it is the last name of the
+    optimization surface, and comes back out as a number.  What is refused
+    is a scale the port does not know."""
     from muygpys_torch.gp.hyperparameter import Parameter
 
-    with pytest.raises(ValueError, match="general-smoothness slice"):
-        Matern(smoothness=Parameter(1.5, (0.5, 2.5)))
+    kern = Matern(smoothness=Parameter(1.5, (0.5, 2.5)))
+    assert kern.get_opt_params() == (["smoothness"], [1.5], [(0.5, 2.5)])
+    tm = muygps_from_arrays(
+        0.5, noise=1e-3, smoothness=1.2, smoothness_bounds=(0.31, 5.0),
+        length_scale_bounds=(0.01, 5.0), scale="analytic",
+    )
+    assert tm.get_opt_params()[0] == ["length_scale", "smoothness"]
+    assert arrays_from_muygps(tm)["smoothness"] == 1.2
     with pytest.raises(ValueError, match="unknown scale"):
         muygps_from_arrays(0.5, noise=1e-3, smoothness=1.5, scale="median")

@@ -15,9 +15,12 @@ import torch
 from muygpys_torch.gpu import _build
 from muygpys_torch.gpu import knn as K
 from muygpys_torch.gpu.fused_predict import (
+    fused_predict_bl,
+    fused_predict_bl_plain,
     fused_predict_coords_bl,
     fused_predict_coords_bl_plain,
 )
+from muygpys_torch.gpu.matern_nu import matern_nu_coeffs, matern_nu_coeffs_host
 
 pytestmark = pytest.mark.cuda
 
@@ -63,6 +66,86 @@ def test_k1_kernel_matches_plain(smoothness, power, hetero, dtype):
     assert tol_v <= 0.1 * float(vp.abs().min())
     torch.testing.assert_close(mk, mp, rtol=rtol, atol=tol_m)
     torch.testing.assert_close(vk, vp, rtol=rtol, atol=tol_v)
+
+
+# general smoothness: a small and a large order, and the clamp zone
+GEN_NUS = [0.31, 1.2, 2.0, 4.8]
+
+
+def _gen_coeffs(nu, dtype, train=False, need_dnu=False):
+    """Coefficients as the entry points build them: serving on the host in
+    f64, then cast; training in the data's dtype (clamp 1e-2 in f32)."""
+    if not train:
+        np_dtype = np.float64 if dtype == torch.float64 else np.float32
+        return torch.as_tensor(matern_nu_coeffs_host(nu, np_dtype)).cuda()
+    return matern_nu_coeffs(torch.tensor(nu, dtype=dtype), need_dnu).cuda()
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("nu", GEN_NUS)
+def test_k1_gen_kernel_matches_plain(nu, dtype):
+    """K4 inlined in K1: distances on both sides of the series/tail split
+    (t = sqrt(2 nu) u / ls up to ~9) and a heteroscedastic nugget."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(2)
+    n, d, r, B = 12, 3, 2, 1000
+    opts = dict(dtype=torch.float64, device="cuda", generator=g)
+    nf = torch.rand((n, d, B), **opts).to(dtype)
+    q = torch.rand((d, B), **opts).to(dtype)
+    y = torch.randn((n, r, B), **opts).to(dtype)
+    params = torch.tensor([0.5, 0.7, 0.9, 1e-3], dtype=dtype, device="cuda")
+    noise_nn = (torch.rand((n, B), **opts) * 1e-2).to(dtype)
+    co = _gen_coeffs(nu, dtype)
+    before = _build.launches["fused_predict_coords"]
+    mk, vk = fused_predict_coords_bl(
+        nf, q, y, params, noise_nn, gen_coeffs=co, smoothness="gen"
+    )
+    torch.cuda.synchronize()
+    assert _build.launches["fused_predict_coords"] == before + 1
+    mp, vp = fused_predict_coords_bl_plain(
+        nf, q, y, params, noise_nn, gen_coeffs=co, smoothness="gen"
+    )
+    tol_m, tol_v = K1_TOL[dtype]
+    # f64: the series/tail cancellation costs ~e^2 x 1e-16 per element
+    rtol = 1e-8 if dtype == torch.float64 else 0.0
+    assert tol_v <= 0.1 * float(vp.abs().min())
+    torch.testing.assert_close(mk, mp, rtol=rtol, atol=tol_m * 10 if dtype == torch.float64 else tol_m)
+    torch.testing.assert_close(vk, vp, rtol=rtol, atol=tol_v * 10 if dtype == torch.float64 else tol_v)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize(
+    "smoothness,power", [(0.5, 1), (1.5, 1), (2.5, 1), (math.inf, 1),
+                         ("rbf", 2), (0.31, 1), (1.2, 1), (2.0, 1), (4.8, 1)],
+)
+def test_k1b_kernel_matches_plain(smoothness, power, dtype):
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    n, r, B = 30, 2, 1001
+    opts = dict(dtype=torch.float64, device="cuda", generator=g)
+    pts = torch.rand((n, 2, B), **opts)
+    q = torch.rand((2, B), **opts)
+    pw = ((pts[:, None] - pts[None, :]) ** 2).sum(2)
+    cw = ((pts - q[None]) ** 2).sum(1)
+    if power == 1:
+        pw, cw = pw.sqrt(), cw.sqrt()
+    y = torch.randn((n, r, B), **opts)
+    params = torch.tensor([0.6, 1e-3], dtype=dtype, device="cuda")
+    gen = smoothness in GEN_NUS
+    co = _gen_coeffs(smoothness, dtype) if gen else None
+    args = [t.to(dtype).contiguous() for t in (pw, cw, y)] + [params, co]
+    kw = dict(smoothness="gen" if gen else smoothness, metric_power=power)
+    before = _build.launches["fused_predict"]
+    mk, vk = fused_predict_bl(*args, **kw)
+    torch.cuda.synchronize()
+    assert _build.launches["fused_predict"] == before + 1
+    mp, vp = fused_predict_bl_plain(*args, **kw)
+    assert torch.isfinite(mk).all() and torch.isfinite(vk).all()
+    # n = 30 at noise 1e-3: conditioning ~1e5, so f64 1e-9 and f32 as K1's
+    tol_m, tol_v = ((1e-9, 1e-9) if dtype == torch.float64
+                    else (2e-2, 2e-5))
+    torch.testing.assert_close(mk, mp, rtol=0, atol=tol_m)
+    torch.testing.assert_close(vk, vp, rtol=0, atol=tol_v)
 
 
 @pytest.mark.parametrize("pruned", [False, True])
@@ -171,6 +254,69 @@ def test_k2_kernel_matches_plain(case, n, dtype):
         assert err <= rel * mag, f"row {i}: error {err} against {mag}"
 
 
+# (nu, free nu, noise_free, r, d_feat, heteroscedastic)
+K2_GEN_CASES = [
+    (1.2, False, True, 1, 0, False),
+    (1.2, True, True, 1, 0, False),
+    (0.31, True, False, 2, 0, True),
+    (4.8, True, True, 1, 2, False),
+    (2.0, True, False, 2, 2, False),
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize(
+    "case,n", [(c, 30) for c in K2_GEN_CASES] + [(K2_GEN_CASES[3], 40)],
+    ids=[f"{c}-n{n}" for c, n in
+         [(c, 30) for c in K2_GEN_CASES] + [(K2_GEN_CASES[3], 40)]],
+)
+def test_k2_gen_kernel_matches_plain(case, n, dtype):
+    """K2 under "gen", fixed and free nu: every row, the d/dnu group
+    included, against the plain version.  n = 40 anisotropic with the S
+    field makes an f64 block hold fewer than 8 points."""
+    _need_card()
+    from muygpys_torch.gpu.fused_train import (
+        fused_train_stats_bl,
+        fused_train_stats_bl_plain,
+    )
+
+    nu, free, noise_free, r, d_feat, hetero = case
+    g = torch.Generator(device="cuda").manual_seed(4)
+    B = 1000
+    opts = dict(dtype=torch.float64, device="cuda", generator=g)
+    # neighborhoods wide enough that t = sqrt(2 nu) u / ls crosses T0 = 2
+    pts = torch.rand((n, 2, B), **opts) * 0.6
+    q = torch.rand((2, B), **opts) * 0.6
+    diff_p = pts[:, None] - pts[None, :]
+    diff_c = pts - q[None]
+    if d_feat:
+        pw, cw, params = diff_p, diff_c, [0.3, 0.4]
+    else:
+        pw, cw = (diff_p**2).sum(2).sqrt(), (diff_c**2).sum(1).sqrt()
+        params = [0.3]
+    params = torch.tensor(params + [2e-2, 1e-2], device="cuda")
+    y = torch.randn((n, r, B), **opts)
+    noise_nn = torch.rand((n, B), **opts) * 1e-2 + 1e-2 if hetero else None
+    args = [t.to(dtype).contiguous() if t is not None else None
+            for t in (pw, cw, y, params, noise_nn)]
+    kw = dict(gen_coeffs=_gen_coeffs(nu, dtype, train=True, need_dnu=free),
+              smoothness="gen", noise_free=noise_free, smoothness_free=free,
+              d_feat=d_feat)
+    before = _build.launches["fused_train_stats"]
+    out = fused_train_stats_bl(*args, **kw)
+    torch.cuda.synchronize()
+    assert _build.launches["fused_train_stats"] == before + 1
+    ref = fused_train_stats_bl_plain(*args, **kw)
+    G = d_feat if d_feat else 1
+    assert out.shape[0] == (r + 2) + G * (r + 2) + (r + 1) + (r + 2) * free
+    assert torch.isfinite(out).all()
+    # f64: at an exact integer (mu clamped to 1e-7) the 1/mu-sized terms
+    # cancel to ~1e-16 / 1e-7 relative; f32: a hundredth of the row
+    rel = (1e-5 if nu == round(nu) else 1e-8) if dtype == torch.float64 else 1e-2
+    for i, (err, mag) in enumerate(k2_row_errors(out, ref, r)):
+        assert err <= rel * mag, f"row {i}: error {err} against {mag}"
+
+
 def test_fused_chassis_on_the_card_matches_cpu():
     """Fused_L_BFGS_B_optimize through K2 on the card (f64) lands at the
     optimum of the same chassis on the CPU (K2's plain version), with one
@@ -209,3 +355,49 @@ def test_fused_chassis_on_the_card_matches_cpu():
     np.testing.assert_allclose(
         out["cuda"]["noise"], out["cpu"]["noise"], rtol=1e-6
     )
+
+
+def test_free_nu_objective_builds_its_coefficients_on_the_card(monkeypatch):
+    """The free-smoothness K2 objective on the card: the coefficient vector
+    is built from a tensor on the card at every evaluation, and value and
+    gradients equal the same objective on the CPU (K2's plain version, the
+    same constructor there) in f64."""
+    _need_card()
+    from muygpys_torch.convert import muygps_from_arrays
+    from muygpys_torch.gpu import matern_nu
+    from muygpys_torch.optimize import fused_objective
+
+    built = []
+
+    def counting(nu, need_dnu=False):
+        built.append(nu.device.type)
+        return matern_nu.matern_nu_coeffs(nu, need_dnu=need_dnu)
+
+    monkeypatch.setattr(fused_objective, "matern_nu_coeffs", counting)
+    rng = np.random.default_rng(5)
+    B, n = 128, 12
+    pts = rng.uniform(size=(B, n, 2))
+    q = rng.uniform(size=(B, 2))
+    pw = np.sqrt(((pts[:, :, None] - pts[:, None]) ** 2).sum(-1))
+    cw = np.sqrt(((q[:, None] - pts) ** 2).sum(-1))
+    y = np.sin(3 * pts[..., 0]) + 0.1 * rng.standard_normal((B, n))
+    t = np.sin(3 * q[:, 0]) + 0.1 * rng.standard_normal(B)
+    at = {"length_scale": 0.4, "noise": 2e-3, "smoothness": 1.81}
+    got = {}
+    for dev in ("cpu", "cuda"):
+        model = muygps_from_arrays(
+            0.5, noise=1e-3, smoothness=1.2, smoothness_bounds=(0.31, 5.0),
+            length_scale_bounds=(0.01, 5.0), noise_bounds=(1e-6, 1.0),
+            scale="analytic",
+        )
+        obj, names = fused_objective.make_fused_train_objective(
+            model, t, y, cw, pw, device=dev
+        )
+        del built[:]
+        before = _build.launches["fused_train_stats"]
+        value, grads = obj(at)
+        assert built == [dev]
+        assert _build.launches["fused_train_stats"] == before + (dev == "cuda")
+        assert value.device.type == dev
+        got[dev] = [float(value)] + [float(grads[k]) for k in names]
+    np.testing.assert_allclose(got["cuda"], got["cpu"], rtol=1e-7)

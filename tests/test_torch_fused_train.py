@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from muygpys_tpu.pallas.fused_train import fused_train_stats_bl as jax_k2
+from muygpys_tpu.pallas.matern_nu import matern_nu_coeffs as jax_coeffs
 from muygpys_torch.gpu import _build
 from muygpys_torch.gpu.fused_train import (
     fused_train_stats_bl,
@@ -94,15 +95,92 @@ def test_plain_matches_tpu_kernel_rows(smoothness, power, noise_free, r,
     np.testing.assert_array_equal(out_w.numpy(), out)
 
 
+# (nu, free nu, noise_free, r, d_feat, heteroscedastic): K2 under "gen", a
+# fixed order without the tangent sets and a free one with the d/dnu rows,
+# isotropic and anisotropic, homo- and heteroscedastic, the clamp zone
+GEN_CASES = [
+    (1.2, False, True, 1, 0, False),
+    (1.2, True, True, 1, 0, False),
+    (0.31, True, False, 2, 0, False),
+    (4.8, True, True, 1, 2, False),
+    (2.0, True, False, 1, 0, True),
+    (1.37, True, False, 2, 2, True),
+]
+
+
+@pytest.mark.parametrize("nu,free,noise_free,r,d_feat,hetero", GEN_CASES)
+def test_gen_plain_matches_tpu_kernel_rows(nu, free, noise_free, r, d_feat,
+                                           hetero):
+    """The same coefficient vector (JAX's f64 constructor, with the nu-tangent
+    sets when nu is free) through the Pallas kernel and through the plain
+    version, row by row; the d/dnu group comes after the noise rows."""
+    args = k2_inputs(10 + GEN_CASES.index((nu, free, noise_free, r, d_feat,
+                                           hetero)), d_feat, r, 1, hetero,
+                     noise_free)
+    pw, cw, y, params, noise_nn = args
+    co = np.asarray(jax_coeffs(jnp.float64(nu), need_dnu=free))
+    kw = dict(smoothness="gen", noise_free=noise_free, smoothness_free=free,
+              d_feat=d_feat)
+    ref = np.asarray(jax_k2(
+        jnp.asarray(pw), jnp.asarray(cw), jnp.asarray(y), jnp.asarray(params),
+        noise_nn=None if noise_nn is None else jnp.asarray(noise_nn),
+        gen_coeffs=jnp.asarray(co), batch_tile=B, interpret=True, **kw,
+    ))
+    _build.reset_launches()
+    out = fused_train_stats_bl(
+        *args, gen_coeffs=co, device="cpu", **kw
+    ).numpy()
+    assert _build.launches["fused_train_stats"] == 0
+    G = d_feat if d_feat else 1
+    rows = (r + 2) + G * (r + 2) + (r + 1) + ((r + 2) if free else 0)
+    assert out.shape == ref.shape == (rows, B)
+    # at an exact integer the clamp leaves mu = 1e-7, and the coefficient
+    # sets carry 1/mu-sized terms that cancel in the evaluator: the two
+    # frameworks' roundings (fused multiply-adds or not) then differ by
+    # ~1e-16 / 1e-7 relative instead of ~1e-16
+    rtol = 1e-5 if nu == round(nu) else 1e-8
+    for i in range(rows):
+        scale = np.abs(ref[i]).max()
+        assert scale > 0
+        np.testing.assert_allclose(
+            out[i], ref[i], rtol=rtol, atol=1e-2 * rtol * scale,
+            err_msg=f"row {i}",
+        )
+    if free:
+        # the leading rows do not depend on the tangent sets
+        fixed = fused_train_stats_bl(
+            *args, gen_coeffs=co[:139], device="cpu",
+            **dict(kw, smoothness_free=False),
+        ).numpy()
+        np.testing.assert_array_equal(fixed, out[:rows - (r + 2)])
+
+
 def test_wrapper_checks():
     pw, cw, y, params, noise_nn = k2_inputs(0, 0, 1, 1, True, False)
-    with pytest.raises(ValueError, match="general-smoothness slice"):
+    co = np.zeros(207)
+    with pytest.raises(ValueError, match="requires gen_coeffs"):
         fused_train_stats_bl(pw, cw, y, params, smoothness="gen", device="cpu")
-    with pytest.raises(ValueError, match="general-smoothness slice"):
+    with pytest.raises(ValueError, match="pass any other order as 'gen'"):
         fused_train_stats_bl(pw, cw, y, params, smoothness=1.37, device="cpu")
-    with pytest.raises(ValueError, match="general-smoothness slice"):
+    with pytest.raises(ValueError, match='smoothness_free requires smoothness="gen"'):
         fused_train_stats_bl(
             pw, cw, y, params, smoothness_free=True, device="cpu"
+        )
+    with pytest.raises(ValueError, match="requires the l2 metric"):
+        fused_train_stats_bl(
+            pw, cw, y, params, gen_coeffs=co, smoothness="gen",
+            metric_power=2, device="cpu",
+        )
+    # a fixed order needs the d/dt sets, a free one the nu-tangent sets too
+    with pytest.raises(ValueError, match="needs 139 coefficients"):
+        fused_train_stats_bl(
+            pw, cw, y, params, gen_coeffs=co[:73], smoothness="gen",
+            device="cpu",
+        )
+    with pytest.raises(ValueError, match="needs 207 coefficients"):
+        fused_train_stats_bl(
+            pw, cw, y, params, gen_coeffs=co[:139], smoothness="gen",
+            smoothness_free=True, device="cpu",
         )
     with pytest.raises(ValueError, match="never free"):
         fused_train_stats_bl(

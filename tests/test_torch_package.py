@@ -92,6 +92,31 @@ def test_library_name_tracks_source(tmp_path, monkeypatch):
     assert first.name.startswith("libk_") and first.suffix == ".so"
 
 
+def test_library_name_tracks_headers(tmp_path, monkeypatch):
+    """A header under csrc/ that a source includes, directly or through
+    another header, is part of the library's digest; one it does not include
+    is not."""
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    (tmp_path / "k.cu").write_text('#include <cuda_runtime.h>\n#include "a.cuh"\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n  #  include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// one")
+    (tmp_path / "other.cuh").write_text("// one")
+    assert [p.name for p in sorted(_build.source_files("k"))] == [
+        "a.cuh", "b.cuh", "k.cu"
+    ]
+    first = _build.library_path("k")
+    (tmp_path / "other.cuh").write_text("// two")
+    assert _build.library_path("k") == first
+    (tmp_path / "b.cuh").write_text("// two")
+    assert _build.library_path("k") != first
+    # the shipped sources: both fused kernels include K4's header
+    monkeypatch.undo()
+    for name in ("fused_predict", "fused_train"):
+        assert _build.CSRC / "matern_nu.cuh" in _build.source_files(name)
+    assert _build.source_files("knn") == [_build.CSRC / "knn.cu"]
+    assert str(_build.CSRC) in _build.NVCC_FLAGS
+
+
 def test_build_without_nvcc_raises(tmp_path, monkeypatch):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     monkeypatch.setattr(_build.shutil, "which", lambda _: None)
@@ -112,8 +137,8 @@ def test_launch_counters_reset():
     _build.launches["knn_candidates"] += 2
     _build.reset_launches()
     assert set(_build.launches) == {
-        "fused_predict_coords", "knn_candidates", "knn_candidates_pruned",
-        "fused_train_stats",
+        "fused_predict_coords", "fused_predict", "knn_candidates",
+        "knn_candidates_pruned", "fused_train_stats",
     }
     assert all(v == 0 for v in _build.launches.values())
 
