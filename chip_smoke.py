@@ -56,12 +56,32 @@ Phases (any failure raises and the script exits non-zero):
 12. training a free smoothness at the training headline: length scale, noise
    and nu together (nu 1.2 in (0.31, 5)), lool, f32, through K2; K2's f64
    value and gradients at one point against the exact-Bessel lanes
-   objective on the card; the objective reached against the lanes engine's,
-   both judged by the exact f64 objective; where the time of one evaluation
+   objective on the card; the objective reached against the lanes engine's
+   (capped at 10 L-BFGS iterations, to keep the run short), both judged by
+   the exact f64 objective; where the time of one evaluation
    goes (coefficient constructor, K2, epilogue); the trained model served;
-13. the kernels line: one JSON object with every kernel's launches on its
+13. K5 (the fused multi-output block solve of the lensing shear family)
+   against its plain version on real shear blocks at the shear serving
+   shape (B=2048, nn=30: m=90 for the 3-in/3-out kernel, m=60 for
+   2-in/3-out), f32 and f64, through both entries (batch-last and
+   frontend), plus a batch with one block made singular by duplicated rows;
+   the library yardstick (torch.linalg.cholesky + solve_triangular) and the
+   lanes engine's eager block Cholesky, timed once;
+14. shear serving end to end: the 50,000-point sky of
+   scripts/shear_sky_demo.py (ShearKernel, ls 0.05, ShearNoise33 at 1e-3 of
+   2/ls^4, nn=30, f32), FastServer(engine="kernel", bucket=2048) over an
+   exact NN_Wrapper answers three requests (2048, 2048, 1000); mean
+   (count, 3) and covariance (count, 3, 3) held against the lanes engine in
+   f64 on the same neighbours; one request of ShearKernel2in3out; a
+   profiler trace of the three requests;
+15. shear training, then serving the trained model: a LOO batch of 2048,
+   Fused_L_BFGS_B_optimize(loss="mse") with the length scale free, on the
+   card in f32, held against the same chassis on the CPU in f64; one lool
+   evaluation and gradient of the batched layout against the lanes layout
+   in f64; the trained model served through K5;
+16. the kernels line: one JSON object with every kernel's launches on its
    path, error against its plain version, times and bound;
-14. the last line: {"ok": true, "device": {...}}.
+17. the last line: {"ok": true, "device": {...}}.
 
 Kernel times are CUDA-event medians over back-to-back launches; wall times
 are medians of single runs.  Bounds use the H100 SXM data-sheet peaks
@@ -178,6 +198,51 @@ OBJECTIVE_RTOL = 1e-3
 # tolerances
 F32_PARAM_RTOL = {"length_scale": 2e-2, "noise": 1e-2}
 F64_PARAM_RTOL = {"length_scale": 1e-3, "noise": 1e-2}
+# the exact-Bessel lanes optimization of the free-smoothness phase stops
+# after this many L-BFGS iterations (it is a reference, not a path of the
+# port; uncapped it took 19-26 iterations and 44-56 s on the H100, capped
+# at 10 it came within 2.9e-6 of K2's optimum in 27-36 s)
+LANES_REFERENCE_ITERATIONS = 10
+# the lanes layout of the shear lool objective is checked on this many
+# points of the batch: its autograd graph holds every step of the block
+# Cholesky
+SHEAR_LANES_BATCH = 512
+
+# the lensing shear family: the serving batch and neighbour count of the JAX
+# package's shear headline, the demo's length scale (it enters the kernel as
+# the SQUARED RBF length scale) and its nugget, 1e-3 * 2 / ls^4; the sky of
+# scripts/shear_sky_demo.py cut to the 50,000 points of the other headlines
+SHEAR_BATCH, SHEAR_NN = 2048, 30
+SHEAR_LS, SHEAR_LS_BOUNDS = 0.05, (0.005, 0.5)
+SHEAR_NOISE = 1e-3 * 2.0 / SHEAR_LS**4
+SHEAR_REQUESTS = (2048, 2048, 1000)
+# K5 against its plain version on real shear blocks, mean and covariance
+# each against its own limit, absolute.  The prior diagonal is 2/ls^2 = 800
+# and the nugget 320; posterior means are ~0.1-1, posterior variances
+# 11-13.  Each limit is ~10x the spread measured on the H100 (f32: mean
+# 9.5e-7, covariance 1.2e-4, the rounding of S = zc^T zc, whose entries are
+# of the prior's size; f64: 2.0e-15 and 3.4e-13, held at 1e-12 and 1e-10;
+# PERF.md, Findings) and under a tenth of the quantity it guards
+K5_TOL = {"float64": (1e-12, 1e-10), "float32": (1e-5, 1e-3)}
+# the singular batch (unit-scale A A^T blocks with condition numbers ~10):
+# the other blocks absolutely (measured 3.8e-6 in f32, 1.1e-14 in f64), the
+# singular block relative to its own (huge) values (measured 2.8e-8, 2.2e-16)
+K5_SINGULAR_OTHERS = {"float64": 1e-12, "float32": 5e-5}
+K5_SINGULAR_REL = {"float64": 1e-12, "float32": 1e-6}
+# shear serving in f32 through K5 against the lanes engine in f64 on the
+# same neighbours, mean and covariance absolute, as multiples of the prior
+# diagonal 2/ls^2 (the f32 rounding of S scales with it, and a trained
+# length scale of 0.0072 raises it 48x against the fixed nugget): ~10x the
+# spread measured on the H100 at ls 0.05 (mean 1.0e-6, covariance 1.5e-4 on
+# a prior of 800) and 6-13x at the trained length scale (3.7e-5, 1.4e-2 on
+# 38,400); PERF.md, Findings
+SHEAR_MEAN_REL_F32, SHEAR_COV_REL_F32 = 1.25e-8, 2e-6
+# shear training: tests/test_shear_objective.py's tolerance on the length
+# scale, and the f64 objective at the card's optimum against the CPU's
+SHEAR_LS_RTOL, SHEAR_OBJECTIVE_RTOL = 5e-3, 1e-3
+# one lool evaluation, batched layout against lanes layout, f64
+# (tests/test_shear_objective.py's tolerances)
+SHEAR_LOOL_RTOL = (1e-9, 1e-7)
 
 
 def log(*args):
@@ -1207,11 +1272,14 @@ def phase_train_free_nu(torch, train, y_train, bi, bnn, k2_gen_ms):
         "K2 gen gradient is off the exact objective"
     )
 
-    # the lanes engine (exact Bessel, autograd) on the card in f64, and both
+    # the lanes engine (exact Bessel, autograd) on the card in f64, capped
+    # at LANES_REFERENCE_ITERATIONS L-BFGS iterations (its evaluations are
+    # bound by the host's dispatch, ~0.8 s each whatever the batch); both
     # optima judged by the exact f64 objective
     t0 = time.perf_counter()
     lanes_vals = arrays_from_muygps(Fused_L_BFGS_B_optimize(
-        free_nu_model(), *data64, engine="lanes"
+        free_nu_model(), *data64, engine="lanes",
+        options=dict(maxiter=LANES_REFERENCE_ITERATIONS),
     ))
     lanes_s = time.perf_counter() - t0
 
@@ -1224,7 +1292,8 @@ def phase_train_free_nu(torch, train, y_train, bi, bnn, k2_gen_ms):
         exact({"length_scale": LS, "noise": NOISE, "smoothness": NU_GEN}),
     )
     short = (v_lanes - v_card) / abs(v_lanes)
-    log(f"train free nu (lanes engine, card, f64, {lanes_s:.1f} s): "
+    log(f"train free nu (lanes engine, card, f64, at most "
+        f"{LANES_REFERENCE_ITERATIONS} iterations, {lanes_s:.1f} s): "
         f"length_scale {lanes_vals['length_scale']!r}, noise "
         f"{lanes_vals['noise']!r}, smoothness {lanes_vals['smoothness']!r}; "
         f"exact f64 objective at K2's f32 optimum {v_card!r}, at the lanes "
@@ -1248,21 +1317,23 @@ def phase_train_free_nu(torch, train, y_train, bi, bnn, k2_gen_ms):
                           device=device)
         return lambda: matern_nu_coeffs(nu, need_dnu=True)
 
-    build_card_ms = wall_ms(torch, build_on("cuda"))
-    build_cpu_ms = wall_ms(torch, build_on("cpu"))
+    # medians of 3 and a trace of 2 evaluations: each evaluation is ~0.8 s
+    # of host dispatch, and the trace runs its window eight times
+    build_card_ms = wall_ms(torch, build_on("cuda"), reps=3)
+    build_cpu_ms = wall_ms(torch, build_on("cpu"), reps=3)
     stats = obj32._stats_fn(torch.stack(
         [torch.tensor(float(at.get(k, v)), device="cuda")
          for k, v in obj32._defaults.items()]
     ))
     epilogue_ms = wall_ms(torch, lambda: obj32._epilogue(stats))
-    eval_ms = wall_ms(torch, lambda: obj32(at))
-    trace = device_trace(torch, lambda: [obj32(at) for _ in range(5)])
+    eval_ms = wall_ms(torch, lambda: obj32(at), reps=3)
+    trace = device_trace(torch, lambda: [obj32(at) for _ in range(2)])
     log(f"train free nu: one objective evaluation {eval_ms:.3f} ms on the "
         f"host's clock = coefficient constructor {build_card_ms:.3f} ms (on "
         f"the card, f32, with the nu-tangent sets; {build_cpu_ms:.3f} ms on "
         f"this host's CPU) + K2 {k2_gen_ms:.4f} ms + epilogue "
         f"{epilogue_ms:.3f} ms + "
-        f"the rest; device trace of 5 evaluations: {json.dumps(trace)}")
+        f"the rest; device trace of 2 evaluations: {json.dumps(trace)}")
     return trained, dict(
         length_scale=vals["length_scale"], noise=vals["noise"],
         smoothness=vals["smoothness"], scale=vals["scale"],
@@ -1279,9 +1350,385 @@ def phase_train_free_nu(torch, train, y_train, bi, bnn, k2_gen_ms):
     )
 
 
+def shear_model(family="33", ls=SHEAR_LS, free=False):
+    """The shear headline's model: ShearKernel with ShearNoise33 ("33"), or
+    ShearKernel2in3out with homoscedastic noise ("23"), the nugget 1e-3 of
+    2/ls^4, a FixedScale; ``free`` leaves the length scale to be trained."""
+    from muygpys_torch.convert import muygps_from_arrays
+
+    return muygps_from_arrays(
+        ls, length_scale_bounds=SHEAR_LS_BOUNDS if free else "fixed",
+        noise=SHEAR_NOISE,
+        kernel="shear" if family == "33" else "shear_2in3out",
+        noise_model="shear33" if family == "33" else "homoscedastic",
+    )
+
+
+def k5_flops_per_query(m, o):
+    """Floating-point operations of one K5 query: per pivot the sqrt and
+    reciprocal, the scaled row and column, a multiply and a subtract over
+    the trailing block of the augmented matrix; then the o + o^2 dot
+    products."""
+    W = m + o + 1
+    elimination = sum(
+        2 + (W - j) + (m - 1 - j) + 2 * (m - 1 - j) * (W - 1 - j)
+        for j in range(m)
+    )
+    return elimination + 2 * m * (o + o * o) + m
+
+
+def phase_k5(torch):
+    """K5 against its plain version on real shear blocks at the shear
+    serving shape, both entries, f32 and f64, m = 90 and m = 60; a batch
+    with a singular block; returns the kernels-line row (f32, m = 90, the
+    frontend entry the serving path uses)."""
+    import numpy as np
+
+    from muygpys_torch.gpu import multiout_solve as K5
+    from muygpys_torch.ops.lanes_solver import (
+        multiout_frontend_bl,
+        serve_mean_and_variance_multiout_bl,
+    )
+
+    # the JAX package's shear serving inputs: seed 7, uniform queries,
+    # neighbours scattered 0.03 around each, white-noise observations
+    rng = np.random.default_rng(7)
+    q = rng.uniform(size=(SHEAR_BATCH, 2))
+    nf = q[:, None, :] + 0.03 * rng.standard_normal((SHEAR_BATCH, SHEAR_NN, 2))
+    y3 = rng.standard_normal((SHEAR_BATCH, 3, SHEAR_NN))
+    row = None
+    for family, I in (("33", 3), ("23", 2)):
+        model = shear_model(family)
+        for dtype in (torch.float32, torch.float64):
+            tname = str(dtype)[6:]
+            q_d = torch.as_tensor(q, dtype=dtype, device="cuda")
+            nf_d = torch.as_tensor(nf, dtype=dtype, device="cuda")
+            y = torch.as_tensor(y3[:, 3 - I:], dtype=dtype, device="cuda")
+            pw = nf_d[:, :, None, :] - nf_d[:, None, :, :]
+            cw = q_d[:, None, :] - nf_d
+            Kin = model.noise.perturb(model.kernel(pw)).contiguous()
+            Kc = model.kernel(cw).contiguous()
+            Kout = model.kernel.Kout().to(dtype=dtype, device="cuda")
+            B, m, o = Kin.shape[0], I * SHEAR_NN, Kc.shape[-1]
+            bl = [t.contiguous() for t in multiout_frontend_bl(Kin, Kc, y)]
+            mean_f, cov_f = K5.multiout_serve_cuda(Kin, Kc, Kout, y)
+            mean_b, cov_b = K5.fused_multiout_solve_bl(bl[0], bl[1], Kout, bl[2])
+            torch.cuda.synchronize()
+            mean_p, cov_p = K5.fused_multiout_solve_bl_plain(
+                bl[0], bl[1], Kout, bl[2]
+            )
+            assert torch.isfinite(mean_f).all() and torch.isfinite(cov_f).all()
+            # one kernel, two sets of strides: the same arithmetic
+            assert torch.equal(mean_f, mean_b.T), "K5's two entries differ"
+            assert torch.equal(cov_f, cov_b.permute(2, 0, 1))
+            err_m = float((mean_b - mean_p).abs().max())
+            err_c = float((cov_b - cov_p).abs().max())
+            tol_m, tol_c = K5_TOL[tname]
+            diag = cov_p.diagonal(dim1=0, dim2=1)
+            log(f"K5 {tname} m={m} o={o} B={B}: mean max_abs_err={err_m:.3e} "
+                f"(tol {tol_m:.0e}; |mean| median "
+                f"{float(mean_p.abs().median()):.3e}), cov max_abs_err="
+                f"{err_c:.3e} (tol {tol_c:.0e}; posterior variance min "
+                f"{float(diag.min()):.3e} median {float(diag.median()):.3e}, "
+                f"prior diagonal {float(Kout.diagonal().max()):.1f})")
+            assert float(diag.min()) > 0, "a posterior variance is not positive"
+            assert tol_m <= 0.1 * float(mean_p.abs().median())
+            assert tol_c <= 0.1 * float(diag.min()), "covariance gate too loose"
+            assert err_m <= tol_m, f"K5 mean disagrees with its plain version: {err_m}"
+            assert err_c <= tol_c, f"K5 cov disagrees with its plain version: {err_c}"
+            if dtype == torch.float32:
+                ms = time_ms(lambda: K5.multiout_serve_cuda(Kin, Kc, Kout, y))
+                bl_ms = time_ms(lambda: K5.fused_multiout_solve_bl(
+                    bl[0], bl[1], Kout, bl[2]))
+                nbytes = (m * m + m * o + m + o + o * o) * 4 * B
+                ops = k5_flops_per_query(m, o) * B
+                numbers = bound_row(nbytes, ops, ms=ms)
+                log(f"K5 f32 m={m} time: kernel {ms:.4f} ms from the frontend "
+                    f"layout, {bl_ms:.4f} ms from the batch-last layout; "
+                    f"bound {numbers['bound_ms']:.4f} ms "
+                    f"({numbers['bound_by']}; {nbytes} B, {ops} flop)")
+            if dtype == torch.float32 and family == "33":
+                plain_ms = time_ms(lambda: K5.fused_multiout_solve_bl_plain(
+                    bl[0], bl[1], Kout, bl[2]), reps=2, trials=3, warmup=1)
+                flat, rhs = Kin.reshape(B, m, m), torch.cat(
+                    [Kc.reshape(B, m, o), y.reshape(B, m, 1)], dim=2)
+
+                def library():
+                    L = torch.linalg.cholesky(flat)
+                    Z = torch.linalg.solve_triangular(L, rhs, upper=False)
+                    zc, zy = Z[:, :, :o], Z[:, :, o]
+                    return (torch.einsum("bmo,bm->bo", zc, zy),
+                            Kout[None] - torch.einsum("bmo,bmp->bop", zc, zc))
+
+                lib_mean, lib_cov = library()
+                lib_ms = time_ms(library, reps=5, trials=3)
+                # the lanes engine's eager block Cholesky: thousands of
+                # launches a call, a yardstick for nothing; timed once
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                serve_mean_and_variance_multiout_bl(bl[0], bl[1], Kout, bl[2])
+                torch.cuda.synchronize()
+                lanes_ms = (time.perf_counter() - t0) * 1e3
+                row = dict(
+                    numbers, max_abs_err=max(err_m, err_c), plain_ms=plain_ms,
+                    library_ms=lib_ms, batch_last_ms=bl_ms,
+                    mean_max_abs_err=err_m, cov_max_abs_err=err_c,
+                )
+                log(f"K5 f32 m={m}: plain version {plain_ms:.4f} ms; library "
+                    f"(torch.linalg.cholesky + solve_triangular + einsum, no "
+                    f"pivot floor) {lib_ms:.4f} ms, off the kernel by mean "
+                    f"{float((lib_mean - mean_f).abs().max()):.3e} cov "
+                    f"{float((lib_cov - cov_f).abs().max()):.3e}; the lanes "
+                    f"engine's eager block Cholesky {lanes_ms:.1f} ms (one "
+                    "call, host clock)")
+            if dtype == torch.float32 and family == "23":
+                row["m60_ms"], row["m60_batch_last_ms"] = ms, bl_ms
+
+    # a batch with one block made singular by duplicated rows
+    rng = np.random.default_rng(3)
+    B, I, n, O = 64, 3, 8, 3
+    m = I * n
+    A = rng.standard_normal((B, m, 2 * m))
+    flat = A @ A.transpose(0, 2, 1) / (2 * m) + 0.5 * np.eye(m)
+    flat[3, 5, :] = flat[3, 4, :]
+    flat[3, :, 5] = flat[3, :, 4]
+    Kc_np = rng.standard_normal((B, I, n, O))
+    y_np = rng.standard_normal((B, I, n))
+    ok = [b for b in range(B) if b != 3]
+    for dtype in (torch.float32, torch.float64):
+        tname = str(dtype)[6:]
+        Kin = torch.as_tensor(flat.reshape(B, I, n, I, n), dtype=dtype, device="cuda")
+        Kc = torch.as_tensor(Kc_np, dtype=dtype, device="cuda")
+        y = torch.as_tensor(y_np, dtype=dtype, device="cuda")
+        Kout = torch.eye(O, dtype=dtype, device="cuda") * 1.3 + 0.1
+        mean, cov = K5.multiout_serve_cuda(Kin, Kc, Kout, y)
+        torch.cuda.synchronize()
+        bl = multiout_frontend_bl(Kin, Kc, y)
+        mean_p, cov_p = K5.fused_multiout_solve_bl_plain(bl[0], bl[1], Kout, bl[2])
+        mean_p, cov_p = mean_p.T, cov_p.permute(2, 0, 1)
+        assert torch.isfinite(mean).all() and torch.isfinite(cov).all(), (
+            "K5 gave a non-finite output on the singular batch"
+        )
+        ordinary = K5_SINGULAR_OTHERS[tname]
+        err_ok = max(float((mean[ok] - mean_p[ok]).abs().max()),
+                     float((cov[ok] - cov_p[ok]).abs().max()))
+        big = float(mean_p[3].abs().max())
+        rel_m = float((mean[3] - mean_p[3]).abs().max()) / big
+        rel_c = float((cov[3] - cov_p[3]).abs().max()) / float(cov_p[3].abs().max())
+        log(f"K5 {tname} singular batch (m={m}, B={B}): the other blocks "
+            f"max_abs_err={err_ok:.3e} (tol {ordinary:.0e}); the singular "
+            f"block, |mean| up to {big:.3e}: relative error mean {rel_m:.3e} "
+            f"cov {rel_c:.3e} (tol {K5_SINGULAR_REL[tname]:.0e})")
+        assert big > 1e3, "the pivot floor did not act on the singular block"
+        assert err_ok <= ordinary, "K5 disagrees beside the singular block"
+        assert max(rel_m, rel_c) <= K5_SINGULAR_REL[tname], (
+            "K5 disagrees with its plain version on the singular block"
+        )
+    return row
+
+
+def shear_sky(np):
+    """The sky of scripts/shear_sky_demo.py on TRAIN points: seed 0
+    positions, a smooth three-component field plus N(0, 0.02^2); and the
+    queries of the three requests."""
+    rng = np.random.default_rng(0)
+    pts = rng.uniform(size=(TRAIN, 2)).astype(np.float32)
+    kx, ky = 2 * np.pi * np.array([3.0, 7.0]), 2 * np.pi * np.array([5.0, 2.0])
+    phase = pts @ np.stack([kx, ky], axis=1)
+    targets = np.stack(
+        [
+            np.sin(phase[:, 0]) + 0.5 * np.cos(phase[:, 1]),
+            0.5 * np.cos(phase[:, 0]),
+            0.5 * np.sin(phase[:, 1]),
+        ],
+        axis=1,
+    ).astype(np.float32)
+    targets += 0.02 * rng.standard_normal((TRAIN, 3)).astype(np.float32)
+    queries = rng.uniform(size=(sum(SHEAR_REQUESTS), 2)).astype(np.float32)
+    cuts = np.cumsum(SHEAR_REQUESTS)[:-1]
+    return pts, targets, np.split(queries, cuts)
+
+
+def shear_serve_checked(torch, label, model, nbrs, pts, obs, requests):
+    """Serve the requests in f32 through K5 (counts zeroed just before, read
+    just after) and hold mean and covariance, each against its own limit,
+    to the lanes engine in f64 on the same neighbours."""
+    import numpy as np
+
+    from muygpys_torch import config
+    from muygpys_torch.gpu import _build
+    from muygpys_torch.serve import FastServer
+
+    config.update("ftype", 64)
+    lanes = FastServer(model, nbrs, pts, obs, bucket=SHEAR_BATCH, engine="lanes")
+    config.update("ftype", 32)
+    refs = [lanes.predict(r) for r in requests]
+    m_ref = np.concatenate([o[0] for o in refs])
+    c_ref = np.concatenate([o[1] for o in refs])
+    server = FastServer(model, nbrs, pts, obs, bucket=SHEAR_BATCH, engine="kernel")
+    server.predict(requests[-1])  # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    mean, cov, rate = serve(torch, server, requests)
+    launches = dict(_build.launches)
+    count = sum(len(r) for r in requests)
+    assert mean.shape == (count, 3) and cov.shape == (count, 3, 3)
+    assert mean.dtype == np.float32
+    assert np.isfinite(mean).all() and np.isfinite(cov).all()
+    diag = np.diagonal(c_ref, axis1=1, axis2=2)
+    assert (np.diagonal(cov, axis1=1, axis2=2) > 0).all(), (
+        "a served variance is not positive"
+    )
+    prior = float(model.kernel.Kout().diagonal().max())
+    tol_m, tol_c = SHEAR_MEAN_REL_F32 * prior, SHEAR_COV_REL_F32 * prior
+    err_m = float(np.abs(mean - m_ref).max())
+    err_c = float(np.abs(cov - c_ref).max())
+    log(f"{label} kernel: {rate:.1f} predictions/s over {count} queries in "
+        f"{len(requests)} requests; vs the lanes engine in f64 on the same "
+        f"neighbours: mean {err_m:.3e} (tol {tol_m:.3e}; |mean| median "
+        f"{float(np.median(np.abs(m_ref))):.3e}), cov {err_c:.3e} (tol "
+        f"{tol_c:.3e}; variance min {float(diag.min()):.3e} median "
+        f"{float(np.median(diag)):.3e}, prior diagonal {prior:.1f}); "
+        f"launches {launches}")
+    assert launches["multiout_solve"] == len(requests), (
+        "K5 was not launched once per bucket"
+    )
+    assert tol_m <= 0.1 * float(np.median(np.abs(m_ref)))
+    assert tol_c <= 0.1 * float(diag.min()), "covariance gate too loose"
+    assert err_m <= tol_m, f"{label} mean off: {err_m}"
+    assert err_c <= tol_c, f"{label} cov off: {err_c}"
+    return server, dict(
+        preds_per_sec=rate, mean_max_abs_err=err_m, cov_max_abs_err=err_c,
+        launches=launches,
+    )
+
+
+def phase_shear_train(torch, pts, targets, nbrs):
+    """Shear training on the card in f32 (the fused chassis routes a shear
+    model to the shared-factorization objective in its batched layout),
+    held against the same chassis on the CPU in f64; one lool evaluation,
+    batched layout against lanes layout; returns the trained model and the
+    phase's numbers."""
+    import contextlib
+    import io
+    import re
+
+    import numpy as np
+
+    from muygpys_torch.convert import arrays_from_muygps
+    from muygpys_torch.optimize import (
+        Fused_L_BFGS_B_optimize,
+        make_shear_loo_objective,
+        sample_batch,
+    )
+
+    bi, bnn = sample_batch(
+        nbrs, TRAIN_BATCH, TRAIN, rng=np.random.default_rng(2)
+    )
+
+    def tensors(dtype, device):
+        model = shear_model(free=True)
+        cw, pw, bt, bnt = model.make_train_tensors(
+            bi, bnn, torch.as_tensor(pts, dtype=dtype, device=device),
+            torch.as_tensor(targets, dtype=dtype, device=device),
+        )
+        # (B, nn, 3) -> the flattened observation layout (B, 3, nn)
+        return bt, bnt.transpose(-2, -1).contiguous(), cw, pw
+
+    data32 = tensors(torch.float32, "cuda")
+    make_shear_loo_objective(  # warm-up: the first backward pass
+        shear_model(free=True), *data32, layout="batched"
+    )[0]({"length_scale": torch.tensor(SHEAR_LS, device="cuda",
+                                       requires_grad=True)}).backward()
+    torch.cuda.synchronize()
+    # the mse objective is ~2e-3 and flat in the length scale, so scipy's
+    # default projected-gradient tolerance (1e-5) stops ~2% short of the
+    # optimum; both runs get tolerances that let them converge
+    tight = dict(options=dict(gtol=1e-8, ftol=1e-14))
+    iters, report = [], io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(report):
+        trained = Fused_L_BFGS_B_optimize(
+            shear_model(free=True), *data32, loss="mse", verbose=True,
+            callback=lambda xk: iters.append(1), **tight,
+        )
+    torch.cuda.synchronize()
+    opt_s = time.perf_counter() - t0
+    evals = 1 + int(re.search(r"\bnfev:\s*(\d+)", report.getvalue())[1])
+    ls = arrays_from_muygps(trained)["length_scale"]
+    lo, hi = SHEAR_LS_BOUNDS
+    log(f"shear train (card, f32, batched layout): length_scale {ls!r} from "
+        f"{SHEAR_LS}; {len(iters)} L-BFGS iterations, {evals} objective "
+        f"evaluations in {opt_s:.4f} s = {evals / opt_s:.1f} evaluations/s")
+    assert min(ls - lo, hi - ls) > 1e-6 * (hi - lo), f"length scale {ls} at a bound"
+
+    data64 = tensors(torch.float64, "cpu")
+    t0 = time.perf_counter()
+    ref = Fused_L_BFGS_B_optimize(
+        shear_model(free=True), *data64, loss="mse", device="cpu", **tight
+    )
+    cpu_s = time.perf_counter() - t0
+    ls_ref = arrays_from_muygps(ref)["length_scale"]
+    obj64, _ = make_shear_loo_objective(
+        shear_model(free=True), *data64, layout="batched", device="cpu"
+    )
+    with torch.no_grad():
+        v_card, v_cpu, v_start = (
+            float(obj64({"length_scale": v})) for v in (ls, ls_ref, SHEAR_LS)
+        )
+    rel_ls = abs(ls / ls_ref - 1)
+    rel_v = abs(v_card - v_cpu) / abs(v_cpu)
+    log(f"shear train (CPU, f64, {cpu_s:.1f} s): length_scale {ls_ref!r}; the "
+        f"card's is off by {rel_ls:.3e} relative (limit {SHEAR_LS_RTOL:.0e}); "
+        f"f64 objective at the card's optimum {v_card!r}, at the CPU's "
+        f"{v_cpu!r}, at the start {v_start!r}: relative difference "
+        f"{rel_v:.3e} (limit {SHEAR_OBJECTIVE_RTOL:.0e})")
+    assert abs(SHEAR_LS / ls_ref - 1) > 10 * SHEAR_LS_RTOL, (
+        "the optimum is too near the start for the gate to see training"
+    )
+    assert v_cpu > v_start, "training did not improve the f64 objective"
+    assert rel_ls <= SHEAR_LS_RTOL, "the card's length scale is off the f64 optimum"
+    assert rel_v <= SHEAR_OBJECTIVE_RTOL, "the card's optimum is not the f64 one"
+
+    # one lool evaluation and gradient (FixedScale): the batched layout
+    # against the lanes layout, f64, on the card, on the first 512 points of
+    # the batch (the lanes layout's autograd graph holds every step of the
+    # 90-step block Cholesky)
+    sub = tuple(t[:SHEAR_LANES_BATCH].cuda() for t in data64)
+    out = {}
+    for layout in ("batched", "lanes"):
+        obj, _ = make_shear_loo_objective(
+            shear_model(free=True), *sub, loss="lool", layout=layout
+        )
+        theta = torch.tensor(0.04, dtype=torch.float64, device="cuda",
+                             requires_grad=True)
+        value = obj({"length_scale": theta})
+        value.backward()
+        out[layout] = (float(value.detach()), float(theta.grad))
+    rel_value = abs(out["batched"][0] / out["lanes"][0] - 1)
+    rel_grad = abs(out["batched"][1] / out["lanes"][1] - 1)
+    log(f"shear lool at length_scale 0.04 (f64, {SHEAR_LANES_BATCH} "
+        f"points): batched {out['batched']!r}, lanes {out['lanes']!r}: value "
+        f"relative {rel_value:.3e} (limit {SHEAR_LOOL_RTOL[0]:.0e}), gradient "
+        f"relative {rel_grad:.3e} (limit {SHEAR_LOOL_RTOL[1]:.0e})")
+    assert rel_value <= SHEAR_LOOL_RTOL[0] and rel_grad <= SHEAR_LOOL_RTOL[1], (
+        "the two layouts of the shear lool objective disagree"
+    )
+    return trained, dict(
+        length_scale=ls, iterations=len(iters), evaluations=evals,
+        optimize_s=opt_s, evaluations_per_s=evals / opt_s,
+        cpu_f64=dict(length_scale=ls_ref, seconds=cpu_s),
+        length_scale_relative=rel_ls,
+        objective_f64=dict(card=v_card, cpu=v_cpu, start=v_start,
+                           relative=rel_v),
+        lool_layouts=dict(value=rel_value, gradient=rel_grad),
+    )
+
+
 def main() -> int:
     import torch
 
+    started = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -1574,9 +2021,44 @@ def main() -> int:
     )
     assert served_trained_gen["launches"]["fused_predict_coords"] > 0
 
-    # 13. kernels line: launches on each kernel's path (serving: fused and
+    # 13. K5 against its plain version at the shear serving shape
+    rows["multiout_solve"] = phase_k5(torch)
+
+    # 14. shear serving end to end on the 50,000-point sky
+    sky, sky_targets, shear_requests = shear_sky(np)
+    sky_nbrs = NN_Wrapper(sky, SHEAR_NN)
+    shear_server, shear_e2e = shear_serve_checked(
+        torch, "shear", shear_model(), sky_nbrs, sky, sky_targets,
+        shear_requests,
+    )
+    launches_by_path["shear"] = shear_e2e["launches"]
+    shear_trace = device_trace(
+        torch, lambda: [shear_server.predict(r) for r in shear_requests]
+    )
+    shear_e2e["trace"] = shear_trace
+    log(f"shear device trace: {json.dumps(shear_trace)}")
+    _, shear_23 = shear_serve_checked(
+        torch, "shear 2-in-3-out", shear_model("23"), sky_nbrs, sky,
+        sky_targets[:, 1:], shear_requests[:1],
+    )
+    shear_e2e["two_in_three_out"] = shear_23
+    log("shear e2e: " + json.dumps(shear_e2e))
+
+    # 15. shear training, then serving the trained model
+    shear_trained, shear_train_numbers = phase_shear_train(
+        torch, sky, sky_targets, sky_nbrs
+    )
+    log("shear train: " + json.dumps(shear_train_numbers))
+    _, shear_served = shear_serve_checked(
+        torch, "shear trained", shear_trained, sky_nbrs, sky, sky_targets,
+        shear_requests[:1],
+    )
+    log("shear trained served: " + json.dumps(shear_served))
+
+    # 16. kernels line: launches on each kernel's path (serving: fused and
     # fused_gen; the distance workflow: dists; training: train and
-    # train_gen), counted from zero just before the path ran
+    # train_gen; shear serving: shear), counted from zero just before the
+    # path ran
     k1_src = "muygpys_torch/gpu/csrc/fused_predict.cu"
     k4_src = "muygpys_torch/gpu/csrc/matern_nu.cuh"
     k4_tpu = "muygpys_tpu/pallas/matern_nu.py:273"
@@ -1611,6 +2093,10 @@ def main() -> int:
             f"muygpys_torch/gpu/csrc/fused_train.cu + {k4_src}",
             f"muygpys_tpu/pallas/fused_train.py:449 + {k4_tpu}", "train_gen",
         ),
+        "multiout_solve": (
+            "muygpys_torch/gpu/csrc/multiout_solve.cu",
+            "muygpys_tpu/pallas/multiout_solve.py:122", "shear",
+        ),
     }
     kernels = []
     for name, (source, replaces, path) in meta.items():
@@ -1624,6 +2110,8 @@ def main() -> int:
             paths={p: c[counter] for p, c in launches_by_path.items()},
             **rows[name],
         ))
+    log(f"chip_smoke: every phase passed in "
+        f"{time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

@@ -15,7 +15,13 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from muygpys_torch.gp.deformation import Anisotropy, F2, Isotropy, l2
+from muygpys_torch.gp.deformation import (
+    Anisotropy,
+    DifferenceIsotropy,
+    F2,
+    Isotropy,
+    l2,
+)
 from muygpys_torch.gp.hyperparameter import (
     AnalyticScale,
     FixedScale,
@@ -23,10 +29,20 @@ from muygpys_torch.gp.hyperparameter import (
     VectorParameter,
 )
 from muygpys_torch.gp.kernels import Matern, RBF
+from muygpys_torch.gp.kernels.experimental import (
+    ShearKernel,
+    ShearKernel2in3out,
+)
 from muygpys_torch.gp.muygps import MuyGPS
-from muygpys_torch.gp.noise import HeteroscedasticNoise, HomoscedasticNoise
+from muygpys_torch.gp.noise import (
+    HeteroscedasticNoise,
+    HomoscedasticNoise,
+    ShearNoise33,
+)
 
 _METRICS = {"l2": l2, "F2": F2}
+_SHEAR_KERNELS = {"shear": ShearKernel, "shear_2in3out": ShearKernel2in3out}
+_NOISE_MODELS = {"homoscedastic": HomoscedasticNoise, "shear33": ShearNoise33}
 
 
 def _bounds(b):
@@ -46,6 +62,7 @@ def muygps_from_arrays(
     length_scale_bounds="fixed",
     noise_bounds="fixed",
     smoothness_bounds="fixed",
+    noise_model: str = "homoscedastic",
 ) -> MuyGPS:
     """Build a :class:`MuyGPS` from numbers.
 
@@ -58,7 +75,11 @@ def muygps_from_arrays(
             it), or ``"analytic"`` for an ``AnalyticScale`` to be optimized.
         smoothness: Matern nu, any positive order (0.5, 1.5, 2.5 and inf
             use their closed forms when fixed); unused for RBF.
-        kernel: ``"matern"`` or ``"rbf"``.
+        kernel: ``"matern"``, ``"rbf"``, or a lensing shear kernel,
+            ``"shear"`` (:class:`ShearKernel`) or ``"shear_2in3out"``
+            (:class:`ShearKernel2in3out`): these sit on a
+            ``DifferenceIsotropy(F2, ...)`` whatever ``metric`` says, and
+            ``length_scale`` is a scalar (the squared RBF length scale).
         metric: ``"l2"`` or ``"F2"``.
         measurement_noise: heteroscedastic per-neighbor noise tensor; makes
             the model heteroscedastic.
@@ -67,11 +88,24 @@ def muygps_from_arrays(
         noise_bounds: ``"fixed"`` or ``(lower, upper)``.
         smoothness_bounds: ``"fixed"`` or ``(lower, upper)``: a free Matern
             smoothness, trained with the other free parameters.
+        noise_model: ``"homoscedastic"`` or ``"shear33"``
+            (:class:`ShearNoise33`, twice the nugget on the convergence
+            block of a ``"shear"`` model).
     """
+    if noise_model not in _NOISE_MODELS:
+        raise ValueError(
+            f"unknown noise model {noise_model!r} (homoscedastic, shear33)"
+        )
     if metric not in _METRICS:
         raise ValueError(f"unknown metric {metric!r} (l2, F2)")
     ls = np.asarray(length_scale, dtype=float)
-    if ls.ndim == 0:
+    if kernel in _SHEAR_KERNELS:
+        if ls.ndim != 0:
+            raise ValueError("a shear kernel takes a scalar length scale")
+        deformation = DifferenceIsotropy(
+            F2, length_scale=Parameter(float(ls), _bounds(length_scale_bounds))
+        )
+    elif ls.ndim == 0:
         deformation = Isotropy(
             _METRICS[metric],
             length_scale=Parameter(float(ls), _bounds(length_scale_bounds)),
@@ -97,12 +131,16 @@ def muygps_from_arrays(
         )
     elif kernel == "rbf":
         kern = RBF(deformation=deformation)
+    elif kernel in _SHEAR_KERNELS:
+        kern = _SHEAR_KERNELS[kernel](deformation=deformation)
     else:
-        raise ValueError(f"unknown kernel {kernel!r} (matern, rbf)")
+        raise ValueError(
+            f"unknown kernel {kernel!r} (matern, rbf, shear, shear_2in3out)"
+        )
     if measurement_noise is not None:
         noise_fn = HeteroscedasticNoise(np.asarray(measurement_noise))
     else:
-        noise_fn = HomoscedasticNoise(
+        noise_fn = _NOISE_MODELS[noise_model](
             float(np.asarray(noise)), _bounds(noise_bounds)
         )
     if isinstance(scale, str):
@@ -118,7 +156,10 @@ def muygps_from_arrays(
 def arrays_from_muygps(muygps: MuyGPS) -> Dict[str, object]:
     """The model's values as numpy numbers: ``length_scale`` (a float, or
     an array under anisotropy), ``noise`` (a float, or the heteroscedastic
-    array), ``scale`` and, for Matern, ``smoothness``."""
+    array), ``scale`` and, for Matern, ``smoothness``; and the strings
+    ``kernel`` and ``noise_model`` as :func:`muygps_from_arrays` takes
+    them (``"heteroscedastic"`` for a model built from
+    ``measurement_noise``)."""
     kernel = muygps.kernel
     ls = np.asarray(kernel.deformation.length_scale(), dtype=float)
     noise = muygps.noise()
@@ -132,4 +173,15 @@ def arrays_from_muygps(muygps: MuyGPS) -> Dict[str, object]:
     }
     if isinstance(kernel, Matern):
         out["smoothness"] = float(kernel.smoothness())
+    out["kernel"] = (
+        "shear" if isinstance(kernel, ShearKernel)
+        else "shear_2in3out" if isinstance(kernel, ShearKernel2in3out)
+        else "rbf" if isinstance(kernel, RBF) else "matern"
+    )
+    out["noise_model"] = (
+        "shear33" if isinstance(muygps.noise, ShearNoise33)
+        else "heteroscedastic"
+        if isinstance(muygps.noise, HeteroscedasticNoise)
+        else "homoscedastic"
+    )
     return out

@@ -1,9 +1,12 @@
-"""Isotropic deformation: one length scale over a distance tensor.
+"""Isotropic deformations: one length scale over a distance or a difference
+tensor.
 
-Counterpart of :class:`muygpys_tpu.gp.deformation.Isotropy`: the tensors are
-*distances*, assembled from indices through the metric's Gram-identity path.
-The length scale is the named parameter ``length_scale``; hierarchical
-(nonstationary) length scales are not ported yet.
+Counterpart of :mod:`muygpys_tpu.gp.deformation.isotropy`.  ``Isotropy``'s
+tensors are *distances*, assembled from indices through the metric's
+Gram-identity path; ``DifferenceIsotropy``'s are the feature-wise
+*differences* the shear kernels need.  The length scale is the named
+parameter ``length_scale``; hierarchical (nonstationary) length scales are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -36,5 +39,25 @@ class Isotropy:
     def crosswise_tensor(self, data, nn_data, data_indices, nn_indices):
         """Distances ``(batch, nn)`` between batch points and neighbors."""
         return self.metric.crosswise_distances(
+            data, nn_data, data_indices, nn_indices
+        )
+
+
+class DifferenceIsotropy(Isotropy):
+    """Isotropy over feature-wise *differences* (required by the shear
+    kernels, which need the raw differences before the metric collapse)."""
+
+    def __call__(self, dists, length_scale=None, **kwargs):
+        if length_scale is None:
+            length_scale = self.length_scale()
+        return self.metric(dists / length_scale)
+
+    def pairwise_tensor(self, data, nn_indices):
+        """Differences ``(batch, nn, nn, feat)`` among each neighborhood."""
+        return self.metric.pairwise_differences(data, nn_indices)
+
+    def crosswise_tensor(self, data, nn_data, data_indices, nn_indices):
+        """Differences ``(batch, nn, feat)``."""
+        return self.metric.crosswise_differences(
             data, nn_data, data_indices, nn_indices
         )

@@ -20,6 +20,7 @@ from muygpys_torch.gp.mean import PosteriorMean
 from muygpys_torch.gp.noise import HomoscedasticNoise
 from muygpys_torch.gp.variance import PosteriorVariance
 from muygpys_torch.ops import solve as _solve
+from muygpys_torch.ops.lanes_solver import multiout_serve_mean_and_variance
 
 
 class MuyGPS:
@@ -79,13 +80,20 @@ class MuyGPS:
     def posterior_mean_and_variance(
         self, Kin, Kcross, batch_nn_targets
     ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """Fused mean + scaled variance from ONE batched solve."""
-        mean, var = _solve.serve_mean_and_variance(
-            self.noise.perturb(Kin),
-            Kcross,
-            self.kernel.Kout(),
-            batch_nn_targets,
-        )
+        """Fused mean + scaled variance from ONE batched solve.  A
+        multi-output block layout (``Kin`` 5-D, the lensing shear family)
+        goes through the batch-last floored Cholesky of
+        :mod:`muygpys_torch.ops.lanes_solver` and returns the full
+        ``(o, o)`` covariance per query."""
+        perturbed = self.noise.perturb(Kin)
+        if Kin.ndim == 5:
+            mean, var = multiout_serve_mean_and_variance(
+                perturbed, Kcross, self.kernel.Kout(), batch_nn_targets
+            )
+        else:
+            mean, var = _solve.serve_mean_and_variance(
+                perturbed, Kcross, self.kernel.Kout(), batch_nn_targets
+            )
         return mean, self.scale() * var
 
     # --- optimization surface ---

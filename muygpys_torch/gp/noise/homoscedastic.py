@@ -31,9 +31,22 @@ class HomoscedasticNoise(NamedParameter):
 
     def perturb(self, Kin: torch.Tensor, noise: Optional[float] = None,
                 **kwargs) -> torch.Tensor:
-        """``Kin + tau^2 I`` for ``Kin (batch, nn, nn)``."""
+        """``Kin + tau^2 I`` for ``Kin (batch, nn, nn)``, or over the
+        flattened ``(in * nn, in * nn)`` blocks of the multi-output layout
+        ``(batch, in, nn, in, nn)``."""
         if noise is None:
             noise = self._val
+        if Kin.ndim == 5:
+            b, in_count, nn_count, in2, nn2 = Kin.shape
+            if (in_count, nn_count) != (in2, nn2):
+                raise ValueError(
+                    "homoscedastic perturbation takes (b, in, nn, in, nn), "
+                    f"got {tuple(Kin.shape)}"
+                )
+            all_count = in_count * nn_count
+            eye = torch.eye(all_count, dtype=Kin.dtype, device=Kin.device)
+            flat = Kin.reshape(b, all_count, all_count) + noise * eye
+            return flat.reshape(Kin.shape)
         eye = torch.eye(Kin.shape[-1], dtype=Kin.dtype, device=Kin.device)
         return Kin + noise * eye
 

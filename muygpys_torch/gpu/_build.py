@@ -31,7 +31,7 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "muygpys_torch"
-SOURCES = ("fused_predict", "knn", "fused_train")
+SOURCES = ("fused_predict", "knn", "fused_train", "multiout_solve")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -47,6 +47,7 @@ launches: Dict[str, int] = {
     "knn_candidates": 0,
     "knn_candidates_pruned": 0,
     "fused_train_stats": 0,
+    "multiout_solve": 0,
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

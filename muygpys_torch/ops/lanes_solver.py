@@ -4,7 +4,8 @@ Counterpart of :mod:`muygpys_tpu.ops.lanes_solver` (the ``"lanes"``
 engine): ``K (n, n, B)``, so each step of the right-looking Cholesky and the
 triangular substitutions is one elementwise op over the whole batch.  Plain
 PyTorch, run eagerly; a Python loop over ``n`` replaces the unrolled JAX
-loop.
+loop.  The multi-output functions serve the lensing shear family, whose
+flattened observation block has ``m = I * n`` rows.
 """
 
 from __future__ import annotations
@@ -94,3 +95,62 @@ def serve_mean_and_variance_bl(
     mean = torch.einsum("nb,nrb->rb", Kcross, sol[:, 1:, :])
     var = Kout - torch.einsum("nb,nb->b", Kcross, sol[:, 0, :])
     return mean, var
+
+
+def serve_mean_and_variance_multiout_bl(
+    Kin: torch.Tensor,
+    Kcross: torch.Tensor,
+    Kout: torch.Tensor,
+    nn_targets: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Multi-output posterior (full covariance block) in batch-last layout,
+    for kernels whose cross-covariance carries an output dimension (the
+    lensing shear family): ``Kin (m, m, B)`` with ``m`` the flattened
+    observation size, ``Kcross (m, o, B)``, ``Kout (o, o)``,
+    ``nn_targets (m, B)``.
+
+    One forward substitution against the stacked ``[Kcross | y]`` serves
+    both moments: with ``z = L^{-1} [Kcross | y]``, ``mean = zc^T zy`` and
+    ``cov = Kout - zc^T zc``.  Returns mean ``(o, B)`` and posterior
+    covariance ``(o, o, B)``.
+    """
+    o = Kcross.shape[1]
+    rhs = torch.cat([Kcross, nn_targets[:, None, :]], dim=1)
+    z = tri_solve_fwd_bl(cholesky_bl(Kin), rhs)  # (m, o+1, B)
+    zc, zy = z[:, :o, :], z[:, o, :]
+    mean = torch.einsum("mob,mb->ob", zc, zy)
+    Kout = torch.as_tensor(Kout, dtype=Kin.dtype, device=Kin.device)
+    cov = Kout[:, :, None] - torch.einsum("mob,mpb->opb", zc, zc)
+    return mean, cov
+
+
+def multiout_frontend_bl(
+    Kin: torch.Tensor, Kcross: torch.Tensor, nn_targets: torch.Tensor
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Frontend block layout to batch-last operands: ``Kin (B, I, n, I, n)``,
+    ``Kcross (B, I, n, O)``, ``nn_targets (B, I, n)`` become ``(m, m, B)``,
+    ``(m, O, B)``, ``(m, B)`` with ``m = I * n`` (views, nothing is copied)."""
+    B, I, n = Kin.shape[0], Kin.shape[1], Kin.shape[2]
+    m = I * n
+    o = Kcross.shape[-1]
+    return (
+        Kin.reshape(B, m, m).permute(1, 2, 0),
+        Kcross.reshape(B, m, o).permute(1, 2, 0),
+        nn_targets.reshape(B, m).T,
+    )
+
+
+def multiout_serve_mean_and_variance(
+    Kin: torch.Tensor,
+    Kcross: torch.Tensor,
+    Kout: torch.Tensor,
+    nn_targets: torch.Tensor,
+    **kwargs,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Frontend-layout multi-output serve through the batch-last solver:
+    ``Kin (B, I, n, I, n)``, ``Kcross (B, I, n, O)``, ``nn_targets
+    (B, I, n)``, ``Kout (O, O)``; returns mean ``(B, O)`` and posterior
+    covariance ``(B, O, O)``."""
+    Kin_bl, Kc_bl, y_bl = multiout_frontend_bl(Kin, Kcross, nn_targets)
+    mean, cov = serve_mean_and_variance_multiout_bl(Kin_bl, Kc_bl, Kout, y_bl)
+    return mean.T, cov.permute(2, 0, 1)

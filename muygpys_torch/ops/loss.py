@@ -2,9 +2,9 @@
 
 Counterpart of :mod:`muygpys_tpu.ops.loss`: cross-entropy, mse, lool and
 its unscaled form, pseudo-Huber and looph, as sums of per-point terms that
-``torch.autograd`` differentiates.  The per-row weights of the JAX package
-(ragged sharding) and the full multivariate covariance form of lool wait
-for the sharding and multi-output slices.
+``torch.autograd`` differentiates; lool also takes full ``(b, r, r)``
+covariance blocks (the shear family).  The per-row weights of the JAX
+package (ragged sharding) wait for the sharding slice.
 """
 
 from __future__ import annotations
@@ -42,15 +42,21 @@ def _columns(variances, predictions):
 
 
 def lool_fn_unscaled(predictions, targets, variances, **kwargs):
-    """Leave-one-out likelihood (Eq. 10 of arXiv:2209.11280)."""
-    if variances.ndim not in (1, predictions.ndim):
-        raise NotImplementedError(
-            "full multivariate covariance blocks are not ported yet"
+    """Leave-one-out likelihood (Eq. 10 of arXiv:2209.11280); with full
+    covariance blocks ``variances (b, r, r)`` its multivariate form,
+    ``res^T C^{-1} res + log det C`` per point."""
+    if variances.ndim in (1, predictions.ndim):
+        variances = _columns(_floor_variances(variances), predictions)
+        return torch.sum(
+            (predictions - targets) ** 2 / variances + torch.log(variances)
         )
-    variances = _columns(_floor_variances(variances), predictions)
-    return torch.sum(
-        (predictions - targets) ** 2 / variances + torch.log(variances)
-    )
+    residual = predictions - targets
+    if residual.ndim == 1:
+        residual = residual[:, None]
+    sol = torch.linalg.solve(variances, residual[..., None])
+    quad = (residual[..., None, :] @ sol)[..., 0, 0]
+    _, logdet = torch.linalg.slogdet(variances)
+    return torch.sum(quad + logdet)
 
 
 def lool_fn(predictions, targets, variances, scale, **kwargs):

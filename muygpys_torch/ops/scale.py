@@ -1,12 +1,12 @@
 """Analytic sigma^2 (variance scale) estimation.
 
-Counterpart of :mod:`muygpys_tpu.ops.scale` for the univariate and
-diagonal-multivariate layouts ``Kin (b, n, n)``:
+Counterpart of :mod:`muygpys_tpu.ops.scale`:
 
     sigma^2 = (1 / (b n)) sum_i Y_i^T (Kin_i + eps)^{-1} Y_i
 
-through one batched Cholesky, ``y^T K^{-1} y = |L^{-1} y|^2``.  The block
-(5-D) layouts of the shear models are not ported yet.
+through one batched Cholesky, ``y^T K^{-1} y = |L^{-1} y|^2``, for
+``Kin (b, n, n)`` and for the multi-output block layout ``(b, i, n, i, n)``
+(flattened to ``i * n`` rows; the normalization stays ``b * n``).
 """
 
 from __future__ import annotations
@@ -14,14 +14,26 @@ from __future__ import annotations
 import torch
 
 
+def _flatten(Kin, nn_targets):
+    if Kin.ndim == 3:
+        y = nn_targets if nn_targets.ndim == 3 else nn_targets[:, :, None]
+        return Kin, y, Kin.shape[1]
+    if Kin.ndim == 5:
+        b, in_count, nn_count = Kin.shape[:3]
+        all_count = in_count * nn_count
+        return (
+            Kin.reshape(b, all_count, all_count),
+            nn_targets.reshape(b, all_count, 1),
+            nn_count,
+        )
+    raise ValueError(
+        f"unsupported Kin shape {tuple(Kin.shape)} for scale optim"
+    )
+
+
 def analytic_scale_optim_unnormalized(Kin, nn_targets, **kwargs):
     """``sum_i |L_i^{-1} Y_i|^2`` for ``Kin (b, n, n)``, ``nn_targets
     (b, n)`` or ``(b, n, r)``."""
-    if Kin.ndim != 3:
-        raise NotImplementedError(
-            f"Kin of shape {tuple(Kin.shape)}: multi-output block layouts "
-            "are not ported yet"
-        )
     if nn_targets.ndim == 2:
         nn_targets = nn_targets[:, :, None]
     L = torch.linalg.cholesky(Kin)
@@ -31,7 +43,7 @@ def analytic_scale_optim_unnormalized(Kin, nn_targets, **kwargs):
 
 def analytic_scale_optim(Kin, nn_targets, **kwargs):
     """sigma^2 = numerator / (batch_count * nn_count)."""
-    batch_count, nn_count = Kin.shape[0], Kin.shape[1]
-    return analytic_scale_optim_unnormalized(Kin, nn_targets) / (
-        batch_count * nn_count
+    Kin_flat, y_flat, nn_count = _flatten(Kin, nn_targets)
+    return analytic_scale_optim_unnormalized(Kin_flat, y_flat) / (
+        Kin.shape[0] * nn_count
     )

@@ -1,25 +1,21 @@
 """Batched per-neighborhood posterior solvers, standard layout.
 
-Counterpart of :mod:`muygpys_tpu.ops.solve` for the univariate and
-diagonal-multivariate layouts the ``"reference"`` engine and
-:class:`muygpys_torch.gp.muygps.MuyGPS` use:
-``Kin (b, n, n)``, ``Kcross (b, n)``, ``nn_targets (b, n)`` or
-``(b, n, r)``.  The multi-output block layouts (shear) are not ported yet.
+Counterpart of :mod:`muygpys_tpu.ops.solve`.  Shape conventions:
+
+- univariate and diagonal-multivariate: ``Kin (b, n, n)``, ``Kcross (b, n)``,
+  ``nn_targets (b, n)`` or ``(b, n, r)``;
+- flattened multi-output blocks (the shear family): ``Kin (b, i, n, i, n)``,
+  ``Kcross (b, i, n, o)``, ``nn_targets (b, i, n)``: the ``(i, n)`` axes are
+  flattened into one observation axis of ``i * n`` rows, and the variance is
+  the full ``(o, o)`` block per neighborhood.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
-
-
-def _check_layout(Kin: torch.Tensor) -> None:
-    if Kin.ndim != 3:
-        raise NotImplementedError(
-            f"Kin of shape {tuple(Kin.shape)}: multi-output block layouts "
-            "are not ported yet"
-        )
 
 
 def _as_columns(nn_targets: torch.Tensor):
@@ -27,9 +23,58 @@ def _as_columns(nn_targets: torch.Tensor):
     return (nn_targets[:, :, None] if squeeze else nn_targets), squeeze
 
 
+def _like(Kout, ref: torch.Tensor):
+    """A tensor prior (the shear ``(o, o)`` block) in ``ref``'s dtype and on
+    its device; a number goes through as it is."""
+    if torch.is_tensor(Kout):
+        return Kout.to(dtype=ref.dtype, device=ref.device)
+    return Kout
+
+
+def _matching_ndim(nn_targets: torch.Tensor, Kin: torch.Tensor) -> int:
+    """Count of leading dims shared by ``nn_targets`` and ``Kin``."""
+    count = 0
+    for a, b in zip(nn_targets.shape, Kin.shape):
+        if a != b:
+            break
+        count += 1
+    return count
+
+
+def _flatten_blocks(Kin, Kcross, nn_targets=None, batch_dim_count: int = 1):
+    """``(Kin (batch, in, in), Kcross (batch, in, out), targets (batch, in,
+    extra) or None, batch_shape, out_shape, extra_shape)`` for the generic
+    layout, as ``muygpys_tpu.ops.solve._mean_shapes`` / ``_var_shapes`` cut
+    it."""
+    if nn_targets is not None:
+        batch_in_ndim = _matching_ndim(nn_targets, Kin)
+        in_shape = tuple(Kin.shape[batch_in_ndim:])
+        batch_shape = tuple(Kin.shape[: Kin.ndim - 2 * len(in_shape)])
+    else:
+        in_dim_count = (Kin.ndim - batch_dim_count) // 2
+        batch_shape = tuple(Kin.shape[:batch_dim_count])
+        in_shape = tuple(Kin.shape[batch_dim_count + in_dim_count:])
+    out_shape = tuple(Kcross.shape[len(batch_shape) + len(in_shape):])
+    in_size, out_size = math.prod(in_shape), math.prod(out_shape)
+    Kin_flat = Kin.reshape(batch_shape + (in_size, in_size))
+    Kcross_flat = Kcross.reshape(batch_shape + (in_size, out_size))
+    targets_flat, extra_shape = None, ()
+    if nn_targets is not None:
+        extra_shape = tuple(
+            nn_targets.shape[len(batch_shape) + len(in_shape):]
+        )
+        targets_flat = nn_targets.reshape(
+            batch_shape + (in_size, math.prod(extra_shape))
+        )
+    return Kin_flat, Kcross_flat, targets_flat, batch_shape, out_shape, extra_shape
+
+
 def posterior_mean(Kin, Kcross, nn_targets, **kwargs) -> torch.Tensor:
     """``mu = Kcross Kin^{-1} Y`` per neighborhood."""
-    _check_layout(Kin)
+    if Kin.ndim != 3:
+        Kf, Kc, y, batch, out, extra = _flatten_blocks(Kin, Kcross, nn_targets)
+        F = torch.cholesky_solve(Kc, torch.linalg.cholesky(Kf))
+        return (F.transpose(-2, -1) @ y).reshape(batch + out + extra)
     y, squeeze = _as_columns(nn_targets)
     L = torch.linalg.cholesky(Kin)
     F = torch.cholesky_solve(Kcross[:, :, None], L)  # (b, n, 1)
@@ -37,20 +82,50 @@ def posterior_mean(Kin, Kcross, nn_targets, **kwargs) -> torch.Tensor:
     return mean[:, 0] if squeeze else mean
 
 
-def diagonal_variance(Kin, Kcross, Kout, **kwargs) -> torch.Tensor:
-    """``Kout - Kcross Kin^{-1} Kcross^T`` per neighborhood."""
-    _check_layout(Kin)
+def diagonal_variance(
+    Kin, Kcross, Kout, batch_dim_count: int = 1, **kwargs
+) -> torch.Tensor:
+    """``Kout - Kcross Kin^{-1} Kcross^T`` per neighborhood (the full
+    ``(o, o)`` block for the multi-output layout)."""
+    Kout = _like(Kout, Kin)
+    if Kin.ndim != 3:
+        Kf, Kc, _, batch, out, _ = _flatten_blocks(
+            Kin, Kcross, batch_dim_count=batch_dim_count
+        )
+        V = torch.linalg.solve_triangular(
+            torch.linalg.cholesky(Kf), Kc, upper=False
+        )
+        return Kout - (V.transpose(-2, -1) @ V).reshape(batch + out + out)
     L = torch.linalg.cholesky(Kin)
     V = torch.linalg.solve_triangular(L, Kcross[:, :, None], upper=False)
     return Kout - torch.sum(V[:, :, 0] ** 2, dim=-1)
+
+
+def posterior_mean_and_variance(
+    Kin, Kcross, Kout, nn_targets, **kwargs
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean and variance sharing ONE Cholesky factorization, any layout."""
+    Kf, Kc, y, batch, out, extra = _flatten_blocks(Kin, Kcross, nn_targets)
+    L = torch.linalg.cholesky(Kf)
+    Z = torch.linalg.solve_triangular(
+        L, torch.cat([Kc, y], dim=-1), upper=False
+    )
+    V, W = Z[..., : Kc.shape[-1]], Z[..., Kc.shape[-1]:]
+    mean = (V.transpose(-2, -1) @ W).reshape(batch + out + extra)
+    var = _like(Kout, Kin) - (V.transpose(-2, -1) @ V).reshape(
+        batch + out + out
+    )
+    return mean, var
 
 
 def serve_mean_and_variance(
     Kin, Kcross, Kout, nn_targets, **kwargs
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused mean + variance from ONE batched solve against the stacked
-    right-hand sides ``[Kcross, Y]``."""
-    _check_layout(Kin)
+    right-hand sides ``[Kcross, Y]`` (one shared factorization for the
+    multi-output layout)."""
+    if Kin.ndim != 3:
+        return posterior_mean_and_variance(Kin, Kcross, Kout, nn_targets)
     y, squeeze = _as_columns(nn_targets)
     rhs = torch.cat([Kcross[:, :, None], y], dim=-1)
     sol = torch.linalg.solve(Kin, rhs)

@@ -1,9 +1,9 @@
 """LOO training: batch sampling, objectives, losses and the chassis.
 
-Counterpart of :mod:`muygpys_tpu.optimize` for the training slice.  Not
-ported yet: ``Bayes_optimize``, the device chassis
+Counterpart of :mod:`muygpys_tpu.optimize` for the training slices.  Not
+ported yet: ``Bayes_optimize`` and the device chassis
 (``make_device_trainer``, ``Device_LBFGS_optimize``,
-``Fused_Device_LBFGS_optimize``, ``device_lbfgs``) and the shear objective.
+``Fused_Device_LBFGS_optimize``, ``device_lbfgs``).
 """
 
 from muygpys_torch.optimize.batch import (
@@ -32,6 +32,10 @@ from muygpys_torch.optimize.loss import (
     pseudo_huber_fn,
 )
 from muygpys_torch.optimize.objective import make_loo_crossval_fn
+from muygpys_torch.optimize.shear_objective import (
+    make_shear_loo_objective,
+    shear_objective_supports,
+)
 
 __all__ = [
     "Adam_optimize",
@@ -48,8 +52,10 @@ __all__ = [
     "looph_fn",
     "make_fast_loo_objective",
     "make_loo_crossval_fn",
+    "make_shear_loo_objective",
     "mse_fn",
     "pseudo_huber_fn",
     "sample_balanced_batch",
     "sample_batch",
+    "shear_objective_supports",
 ]

@@ -49,9 +49,10 @@ def check_model(muygps, loss: str) -> str:
     loss = _LOSS_ALIASES.get(loss, loss)
     kernel = muygps.kernel
     if not isinstance(kernel, (Matern, RBF)):
-        raise NotImplementedError(
-            f"{type(kernel).__name__} is not ported: the fast objectives "
-            "train Matern and RBF; the shear models wait for the shear slice"
+        raise ValueError(
+            f"the fast objectives train Matern and RBF kernels, not "
+            f"{type(kernel).__name__}; the shear models train through "
+            "make_shear_loo_objective"
         )
     if not isinstance(kernel.deformation, (Isotropy, Anisotropy)):
         raise ValueError(

@@ -15,12 +15,19 @@ mse, looph, huber), with the objective evaluated by
   (:func:`muygpys_torch.optimize.fast_objective.make_fast_loo_objective`),
   general smoothness through the exact Bessel path.
 
+A lensing shear model (``ShearKernel``, ``ShearKernel2in3out``) with loss
+mse, or lool under a ``FixedScale``, trains on the shared-factorization
+assembly of :mod:`muygpys_torch.optimize.shear_objective` in its batched
+layout under ``torch.autograd``, whatever ``engine`` says.  Shear lool with
+an ``AnalyticScale`` is a different objective (the scale is re-estimated at
+every evaluation) and raises a ``ValueError`` that names the generic
+``L_BFGS_B_optimize`` chassis, which trains it.
+
 Unlike the JAX chassis there is no fallback: on a CUDA device a kernel that
 does not build or launch, or a probe at the initial point that is not
-finite, raises.  An unsupported model class raises before any launch:
-shear models ``NotImplementedError``; hierarchical length scales never get
-that far (``Isotropy`` refuses them with ``ValueError`` when the model is
-built).
+finite, raises.  An unsupported model class raises ``ValueError`` before any
+launch; hierarchical length scales never get that far (``Isotropy`` refuses
+them when the model is built).
 
     model = Fused_L_BFGS_B_optimize(model, bt, bnt, cw, pw, loss="lool")
 """
@@ -31,6 +38,10 @@ import numpy as np
 import torch
 
 from muygpys_torch import config
+from muygpys_torch.gp.kernels.experimental import (
+    ShearKernel,
+    ShearKernel2in3out,
+)
 from muygpys_torch.optimize import bijectors
 from muygpys_torch.optimize.chassis import (
     PENALTY,
@@ -39,6 +50,10 @@ from muygpys_torch.optimize.chassis import (
 )
 from muygpys_torch.optimize.fast_objective import make_fast_loo_objective
 from muygpys_torch.optimize.fused_objective import make_fused_train_objective
+from muygpys_torch.optimize.shear_objective import (
+    make_shear_loo_objective,
+    shear_objective_supports,
+)
 
 
 def Fused_L_BFGS_B_optimize(
@@ -64,10 +79,24 @@ def Fused_L_BFGS_B_optimize(
     x0_names, x0, bounds = _get_opt_lists(muygps, verbose=verbose)
     args = (muygps, batch_targets, batch_nn_targets, crosswise_dists,
             pairwise_dists)
-    if engine == "kernel":
+    shear = isinstance(muygps.kernel, (ShearKernel, ShearKernel2in3out))
+    if shear and not shear_objective_supports(muygps, loss):
+        raise ValueError(
+            f"the fused chassis trains a shear model with loss 'mse', or "
+            f"'lool' under a FixedScale; got loss {loss!r} with "
+            f"{type(muygps.scale).__name__}.  Use the generic "
+            "L_BFGS_B_optimize chassis, which re-estimates the scale at "
+            "every evaluation"
+        )
+    if engine == "kernel" and not shear:
         vag, _ = make_fused_train_objective(*args, loss=loss, device=dev)
     else:
-        obj_fn, _ = make_fast_loo_objective(*args, loss=loss, device=dev)
+        if shear:
+            obj_fn, _ = make_shear_loo_objective(
+                *args, loss=loss, layout="batched", device=dev
+            )
+        else:
+            obj_fn, _ = make_fast_loo_objective(*args, loss=loss, device=dev)
         dtype = torch.as_tensor(pairwise_dists).dtype
 
         def vag(params):
@@ -102,7 +131,12 @@ def Fused_L_BFGS_B_optimize(
 
     def fun(z):
         theta = bijectors.forward_np(z, lo, hi)
-        v, g = vag({n: theta[i] for i, n in enumerate(x0_names)})
+        try:
+            v, g = vag({n: theta[i] for i, n in enumerate(x0_names)})
+        except torch.linalg.LinAlgError:
+            # the batched shear layout factorizes with torch.linalg.cholesky,
+            # which raises where the floored block elimination carries on
+            return PENALTY, np.zeros_like(z)
         # value and gradient reach the host in one transfer
         vg = torch.stack([v] + [g[n] for n in x0_names]).double().cpu()
         fv, gt = float(vg[0]), vg[1:].numpy()

@@ -15,7 +15,14 @@ Counterpart of :class:`muygpys_tpu.serve.FastServer`.  Engines:
 - ``"reference"``: the generic standard-layout path (debugging;
   homoscedastic models only).
 
-Models served: Matern or RBF kernels over an Isotropy or Anisotropy
+The lensing shear family (``ShearKernel``, ``ShearKernel2in3out`` over a
+``DifferenceIsotropy``) serves through ``"lanes"`` (the batch-last floored
+block Cholesky) or ``"kernel"`` (difference tensors -> shear blocks -> nugget
+-> the K5 block solve, :mod:`muygpys_torch.gpu.multiout_solve`) over exact
+neighbor indices; ``predict`` then returns mean ``(count, 3)`` and the full
+covariance ``(count, 3, 3)``.
+
+Other models served: Matern or RBF kernels over an Isotropy or Anisotropy
 deformation, homoscedastic or heteroscedastic noise (pass the
 per-training-point ``measurement_noise``).  Any Matern smoothness nu in
 ``[0.05, 10]`` serves through the kernels: the closed forms by their
@@ -23,8 +30,8 @@ formula, any other order through the traced-nu surrogate
 (:mod:`muygpys_torch.gpu.matern_nu`), whose coefficients are built once per
 server; ``"lanes"`` and ``"reference"`` serve any order through the exact
 Bessel path.  The query batch is
-padded (``mode="edge"``) up to a fixed bucket.  ``mesh``/``shard`` and the
-shear models are not ported yet.
+padded (``mode="edge"``) up to a fixed bucket.  ``mesh``-sharded serving is
+not ported yet.
 """
 
 from __future__ import annotations
@@ -37,12 +44,17 @@ import torch
 from muygpys_torch import config
 from muygpys_torch.gp.deformation import Anisotropy, Isotropy
 from muygpys_torch.gp.kernels import Matern, RBF
+from muygpys_torch.gp.kernels.experimental import (
+    ShearKernel,
+    ShearKernel2in3out,
+)
 from muygpys_torch.gp.kernels.matern import CLOSED_FORMS
 from muygpys_torch.gp.muygps import MuyGPS
 from muygpys_torch.gp.noise import HeteroscedasticNoise, HomoscedasticNoise
 from muygpys_torch.gpu.fused_predict import fused_predict_coords_bl
 from muygpys_torch.gpu.knn import knn_cuda, knn_cuda_pruned, spatial_sort
 from muygpys_torch.gpu.matern_nu import NU_MAX, NU_MIN, matern_nu_coeffs_host
+from muygpys_torch.gpu.multiout_solve import multiout_serve_cuda
 from muygpys_torch.neighbors import NN_Wrapper, _brute_force_knn
 from muygpys_torch.ops import tensors as _t
 from muygpys_torch.ops.lanes_solver import serve_mean_and_variance_bl
@@ -53,7 +65,8 @@ class FastServer:
 
     Args:
         muygps: trained model (Matern/RBF kernel, Isotropy/Anisotropy
-            deformation, homoscedastic or heteroscedastic noise).
+            deformation, homoscedastic or heteroscedastic noise; or a shear
+            kernel over a DifferenceIsotropy).
         nbrs_lookup: KNN index over the training features.
         train_features / train_targets: the training set (univariate or
             multivariate targets).
@@ -87,23 +100,45 @@ class FastServer:
         spatial_sort: Optional[bool] = None,
         device=None,
     ):
+        self._shear = isinstance(
+            muygps.kernel, (ShearKernel, ShearKernel2in3out)
+        )
+        deformation = muygps.kernel.deformation
+        if not self._shear:
+            if not isinstance(muygps.kernel, (Matern, RBF)):
+                raise ValueError(
+                    "FastServer supports Matern/RBF/Shear kernels, not "
+                    f"{type(muygps.kernel)}"
+                )
+            if not isinstance(deformation, (Isotropy, Anisotropy)):
+                raise ValueError(
+                    "FastServer requires an Isotropy or Anisotropy "
+                    f"deformation, not {type(deformation)}"
+                )
+        if engine not in ("fused", "kernel", "lanes", "reference"):
+            raise ValueError(f"unknown engine {engine!r}")
+        if shard not in ("queries", "train"):
+            raise ValueError(f"unknown shard mode {shard!r}")
+        if self._shear and engine not in ("lanes", "kernel"):
+            raise ValueError(
+                "shear models serve via the lanes engine (multi-output "
+                "batch-last block solver) or the kernel engine (the fused "
+                "block solve)"
+            )
+        if self._shear and measurement_noise is not None:
+            raise ValueError(
+                "shear serving does not take per-point measurement noise "
+                "(ShearNoise33 is the lensing noise model)"
+            )
+        if self._shear and shard == "train":
+            raise ValueError(
+                "shear serving shards queries (shard='train' is a fused-"
+                "engine mode)"
+            )
         if mesh is not None or shard != "queries":
             raise NotImplementedError(
                 "multi-device serving (mesh/shard) is not ported yet"
             )
-        if not isinstance(muygps.kernel, (Matern, RBF)):
-            raise NotImplementedError(
-                f"serving {type(muygps.kernel).__name__} is not ported yet "
-                "(Matern and RBF only)"
-            )
-        deformation = muygps.kernel.deformation
-        if not isinstance(deformation, (Isotropy, Anisotropy)):
-            raise ValueError(
-                "FastServer requires an Isotropy or Anisotropy deformation, "
-                f"not {type(deformation)}"
-            )
-        if engine not in ("fused", "kernel", "lanes", "reference"):
-            raise ValueError(f"unknown engine {engine!r}")
 
         self.device = config.device(device)
         self.muygps = muygps
@@ -126,6 +161,11 @@ class FastServer:
             targets, dtype=self._dtype, device=self.device
         )
         feature_count = train.shape[1]
+
+        if self._shear:
+            # multi-output block path: noise, scale and Kout are the model's
+            self._predict_fn = self._build_shear()
+            return
 
         if isinstance(muygps.noise, HeteroscedasticNoise):
             if measurement_noise is None:
@@ -176,6 +216,47 @@ class FastServer:
         if engine in ("kernel", "fused"):
             self._smoothness, self._gen_coeffs = self._kernel_smoothness()
         self._predict_fn = self._build()
+
+    def _build_shear(self):
+        """Serving program of the lensing shear family: difference tensors
+        -> shear covariance blocks -> multi-output block solve -> posterior
+        mean ``(B, 3)`` and full covariance ``(B, 3, 3)`` per query.
+        Observed targets are 3-component (kappa, gamma1, gamma2) for
+        :class:`ShearKernel`, 2-component (gamma1, gamma2) for
+        :class:`ShearKernel2in3out`.  ``engine="kernel"`` solves the
+        nugget-perturbed blocks through K5 in the layout they are assembled
+        in; on a CUDA device it has no other route."""
+        muygps, kernel = self.muygps, self.muygps.kernel
+        deformation = kernel.deformation
+        obs = 2 if isinstance(kernel, ShearKernel2in3out) else 3
+        if self._targets.shape[1] != obs:
+            raise ValueError(
+                f"{type(kernel).__name__} observes {obs} components; "
+                f"train_targets has {self._targets.shape[1]}"
+            )
+        if self.engine == "kernel":
+            Kout = kernel.Kout().to(dtype=self._dtype, device=self.device)
+
+            def solve(Kin, Kcross, nnt):
+                mean, cov = multiout_serve_cuda(
+                    muygps.noise.perturb(Kin), Kcross, Kout, nnt,
+                    device=self.device,
+                )
+                return mean, muygps.scale() * cov
+
+        else:
+            solve = muygps.posterior_mean_and_variance
+
+        def core(queries, nn_idx):
+            pw = deformation.pairwise_tensor(self._train, nn_idx)
+            cw = deformation.crosswise_tensor(
+                queries, self._train,
+                torch.arange(queries.shape[0], device=self.device), nn_idx,
+            )
+            nnt = self._targets[nn_idx].transpose(-2, -1)  # (B, obs, n)
+            return solve(kernel(pw), kernel(cw), nnt)
+
+        return core
 
     def _kernel_smoothness(self):
         """``(smoothness argument, coefficient vector)`` for K1: a closed
@@ -334,7 +415,8 @@ class FastServer:
 
     def predict(self, test_features) -> Tuple[np.ndarray, np.ndarray]:
         """Posterior (mean ``(count, r)``, variance ``(count,)``) for a batch
-        of queries of any size."""
+        of queries of any size; a shear model returns mean ``(count, 3)``
+        and covariance ``(count, 3, 3)``."""
         test = np.asarray(test_features)
         if test.ndim == 1:
             test = test[:, None]

@@ -212,3 +212,97 @@ def test_fused_chassis_refuses_a_nonfinite_start(batch, engine):
             carried_for_training(jax_model_to_train()), t, y, cw, pw,
             engine=engine, device="cpu",
         )
+
+
+# -- the lensing shear family -------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def shear_batch():
+    from _torch_models import shear_problem
+
+    return shear_problem(np.random.default_rng(23))
+
+
+@pytest.fixture(scope="module")
+def jax_shear_optimum(shear_batch):
+    """The JAX generic chassis on the shear problem, loss mse: the optimum
+    tests/test_shear_objective.py holds every shear route to."""
+    import jax.numpy as jnp
+
+    from _torch_models import jax_shear_model, shear_train_tensors
+
+    jm = jax_shear_model("33", ls_bounds=(0.02, 0.5))
+    data = shear_train_tensors(jm, *shear_batch, "33", jnp.asarray)
+    ref = jopt.L_BFGS_B_optimize(jm, *data, loss_fn=jopt.mse_fn)
+    return float(ref.kernel.deformation.length_scale())
+
+
+def _shear_model_and_data(shear_batch, family="33", **kw):
+    from _torch_models import (
+        carried_shear,
+        jax_shear_model,
+        shear_train_tensors,
+    )
+
+    kw.setdefault("ls_bounds", (0.02, 0.5))
+    tm = carried_shear(jax_shear_model(family, **kw))
+    return tm, shear_train_tensors(tm, *shear_batch, family, torch.as_tensor)
+
+
+@pytest.mark.parametrize("engine", ["kernel", "lanes"])
+def test_fused_chassis_routes_shear(shear_batch, jax_shear_optimum, engine):
+    """A shear model the shear objective accepts trains on its batched
+    layout whatever ``engine`` says, launches no kernel, and lands at the
+    generic chassis' optimum (tests/test_shear_objective.py's rtol 5e-3)."""
+    tm, data = _shear_model_and_data(shear_batch)
+    _build.reset_launches()
+    trained = Fused_L_BFGS_B_optimize(
+        tm, *data, loss="mse", engine=engine, device="cpu"
+    )
+    assert sum(_build.launches.values()) == 0
+    ls = arrays_from_muygps(trained)["length_scale"]
+    assert abs(ls - 0.15) > 1e-3  # it moved
+    np.testing.assert_allclose(ls, jax_shear_optimum, rtol=5e-3)
+    assert arrays_from_muygps(tm)["length_scale"] == 0.15  # a new model
+
+
+def test_generic_chassis_trains_shear(shear_batch, jax_shear_optimum):
+    """scripts/shear_sky_demo.py's call: L_BFGS_B_optimize(..., loss_fn=
+    mse_fn) on a shear model, through the block layouts of ops/solve.py."""
+    tm, data = _shear_model_and_data(shear_batch)
+    trained = L_BFGS_B_optimize(tm, *data, loss_fn=mse_fn)
+    np.testing.assert_allclose(
+        arrays_from_muygps(trained)["length_scale"], jax_shear_optimum,
+        rtol=5e-3,
+    )
+
+
+def test_fused_chassis_shear_lool_fixed_scale(shear_batch):
+    """lool under a FixedScale routes to the shear objective too: the fused
+    chassis and the generic one reach the same optimum of the same
+    objective."""
+    tm, data = _shear_model_and_data(shear_batch, noise=1e-2)
+    fused = Fused_L_BFGS_B_optimize(tm, *data, loss="lool", device="cpu")
+    generic = L_BFGS_B_optimize(tm, *data, loss_fn=lool_fn)
+    np.testing.assert_allclose(
+        arrays_from_muygps(fused)["length_scale"],
+        arrays_from_muygps(generic)["length_scale"], rtol=5e-3,
+    )
+
+
+def test_fused_chassis_shear_analytic_scale_names_the_generic_chassis(
+    shear_batch,
+):
+    """Shear lool with an AnalyticScale is a different objective (the scale
+    is re-estimated per evaluation): a targeted ValueError, before any
+    evaluation, names the chassis that trains it -- and that chassis does."""
+    tm, data = _shear_model_and_data(shear_batch, scale="analytic", noise=1e-2)
+    with pytest.raises(ValueError, match="L_BFGS_B_optimize"):
+        Fused_L_BFGS_B_optimize(tm, *data, loss="lool", device="cpu")
+    with pytest.raises(ValueError, match="L_BFGS_B_optimize"):
+        Fused_L_BFGS_B_optimize(tm, *data, loss="looph", device="cpu")
+    # mse is scale-free: accepted
+    assert Fused_L_BFGS_B_optimize(tm, *data, loss="mse", device="cpu")
+    trained = L_BFGS_B_optimize(tm, *data, loss_fn=lool_fn)
+    assert 0.02 < arrays_from_muygps(trained)["length_scale"] < 0.5

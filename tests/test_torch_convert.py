@@ -41,7 +41,66 @@ def test_carried_model_matches(spec):
         assert tm.noise() == float(jm.noise())
 
 
+@pytest.mark.parametrize(
+    "family,analytic", [("33", False), ("23", False), ("33", True)]
+)
+def test_carried_shear_model_matches(family, analytic):
+    """A JAX shear model crosses over as numbers and strings, with its free
+    parameters' bounds, and reads back out."""
+    from _torch_models import carried_shear, jax_shear_model
+
+    from muygpys_torch.gp.deformation import DifferenceIsotropy
+    from muygpys_torch.gp.hyperparameter import AnalyticScale, FixedScale
+    from muygpys_torch.gp.kernels.experimental import (
+        ShearKernel,
+        ShearKernel2in3out,
+    )
+    from muygpys_torch.gp.noise import ShearNoise33
+
+    jm = jax_shear_model(
+        family, ls=0.05, ls_bounds=(0.005, 0.5), noise=320.0,
+        scale="analytic" if analytic else 1.7,
+    )
+    tm = carried_shear(jm)
+    assert isinstance(tm.kernel.deformation, DifferenceIsotropy)
+    assert tm.kernel.deformation.metric.name == "F2"
+    assert isinstance(
+        tm.kernel, ShearKernel if family == "33" else ShearKernel2in3out
+    )
+    assert isinstance(tm.noise, ShearNoise33) == (family == "33")
+    assert isinstance(tm.noise, HomoscedasticNoise)
+    assert isinstance(tm.scale, AnalyticScale if analytic else FixedScale)
+    j_names, j_vals, j_bounds = jm.get_opt_params()
+    t_names, t_vals, t_bounds = tm.get_opt_params()
+    assert t_names == list(j_names) == ["length_scale"]
+    np.testing.assert_array_equal(t_vals, np.asarray(j_vals))
+    np.testing.assert_array_equal(t_bounds, np.asarray(j_bounds).reshape(-1, 2))
+    np.testing.assert_allclose(
+        tm.kernel.Kout().numpy(), np.asarray(jm.kernel.Kout()), rtol=1e-14
+    )
+    vals = arrays_from_muygps(tm)
+    assert vals == {
+        "length_scale": 0.05, "noise": 320.0,
+        "scale": 1.0 if analytic else 1.7,
+        "kernel": "shear" if family == "33" else "shear_2in3out",
+        "noise_model": "shear33" if family == "33" else "homoscedastic",
+    }
+    # and the strings rebuild the same model
+    again = muygps_from_arrays(**vals)
+    assert type(again.kernel) is type(tm.kernel)
+    assert type(again.noise) is type(tm.noise)
+    assert arrays_from_muygps(again) == vals
+    assert arrays_from_muygps(carried(jax_model()))["kernel"] == "matern"
+    assert arrays_from_muygps(
+        carried(jax_model(kernel="rbf", metric="F2"))
+    )["kernel"] == "rbf"
+
+
 def test_convert_errors():
+    with pytest.raises(ValueError, match="unknown noise model"):
+        muygps_from_arrays(0.5, noise=1e-3, kernel="shear", noise_model="33")
+    with pytest.raises(ValueError, match="scalar length scale"):
+        muygps_from_arrays([0.5, 0.6], noise=1e-3, kernel="shear")
     with pytest.raises(ValueError, match="unknown metric"):
         muygps_from_arrays(0.5, noise=1e-3, smoothness=1.5, metric="l1")
     with pytest.raises(ValueError, match="unknown kernel"):

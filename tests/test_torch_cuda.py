@@ -401,3 +401,183 @@ def test_free_nu_objective_builds_its_coefficients_on_the_card(monkeypatch):
         assert value.device.type == dev
         got[dev] = [float(value)] + [float(grads[k]) for k in names]
     np.testing.assert_allclose(got["cuda"], got["cpu"], rtol=1e-7)
+
+
+# -- K5: the fused multi-output block solve ----------------------------------
+
+
+def _shear_blocks(B, I, n, dtype, seed=0, ls=0.05):
+    """Real shear blocks in the frontend layout, as the serving path
+    assembles them: neighbours scattered 0.03 around each query, nugget 1e-3
+    of the prior diagonal."""
+    from muygpys_torch.convert import muygps_from_arrays
+
+    rng = np.random.default_rng(seed)
+    q = rng.uniform(size=(B, 2))
+    nf = q[:, None, :] + 0.03 * rng.standard_normal((B, n, 2))
+    y = rng.standard_normal((B, I, n))
+    model = muygps_from_arrays(
+        ls, noise=1e-3 * 2 / ls**4,
+        kernel="shear" if I == 3 else "shear_2in3out",
+        noise_model="shear33" if I == 3 else "homoscedastic",
+    )
+    nf_d = torch.as_tensor(nf, device="cuda").to(dtype)
+    q_d = torch.as_tensor(q, device="cuda").to(dtype)
+    pw = nf_d[:, :, None, :] - nf_d[:, None, :, :]
+    cw = q_d[:, None, :] - nf_d
+    Kin = model.noise.perturb(model.kernel(pw))
+    return (Kin, model.kernel(cw),
+            model.kernel.Kout().to(dtype=dtype, device="cuda"),
+            torch.as_tensor(y, device="cuda").to(dtype))
+
+
+# K5 against its plain version, as fractions of the largest |mean| and of
+# the prior diagonal (800).  Measured on an H100 at the serving shape: f32
+# mean 9.5e-7 absolute, covariance 1.2e-4 = 1.5e-7 of the prior; f64 2.0e-15
+# and 3.4e-13.  These shapes differ from that one, so the limits sit ~100x
+# above those spreads
+K5_REL = {torch.float64: (1e-11, 1e-12), torch.float32: (1e-4, 1e-5)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("I,n,B", [(3, 30, 257), (2, 30, 64), (3, 8, 1000)])
+def test_k5_kernel_matches_plain_in_both_layouts(I, n, B, dtype):
+    _need_card()
+    from muygpys_torch.gpu import multiout_solve as K5
+    from muygpys_torch.ops.lanes_solver import multiout_frontend_bl
+
+    Kin, Kc, Kout, y = _shear_blocks(B, I, n, dtype)
+    before = _build.launches["multiout_solve"]
+    mean_f, cov_f = K5.multiout_serve_cuda(Kin, Kc, Kout, y)
+    Kin_bl, Kc_bl, y_bl = multiout_frontend_bl(Kin, Kc, y)
+    mean_b, cov_b = K5.fused_multiout_solve_bl(Kin_bl, Kc_bl, Kout, y_bl)
+    torch.cuda.synchronize()
+    assert _build.launches["multiout_solve"] == before + 2
+    mean_p, cov_p = K5.fused_multiout_solve_bl_plain(Kin_bl, Kc_bl, Kout, y_bl)
+    assert mean_f.shape == (B, 3) and cov_f.shape == (B, 3, 3)
+    assert mean_b.shape == (3, B) and cov_b.shape == (3, 3, B)
+    # one kernel, two sets of strides: the same arithmetic, bit for bit
+    assert torch.equal(mean_f, mean_b.T)
+    assert torch.equal(cov_f, cov_b.permute(2, 0, 1))
+    rel_m, rel_c = K5_REL[dtype]
+    m_scale = float(mean_p.abs().max())
+    c_scale = float(Kout.diagonal().max())
+    assert float((mean_b - mean_p).abs().max()) <= rel_m * m_scale
+    assert float((cov_b - cov_p).abs().max()) <= rel_c * c_scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_k5_singular_block_stays_finite(dtype):
+    """A block made singular by duplicated rows: every output finite, the
+    other blocks at the ordinary limit, the singular one close to the plain
+    version's (huge) numbers."""
+    _need_card()
+    from muygpys_torch.gpu import multiout_solve as K5
+    from muygpys_torch.ops.lanes_solver import multiout_frontend_bl
+
+    rng = np.random.default_rng(3)
+    B, I, n, O = 16, 3, 8, 3
+    m = I * n
+    A = rng.standard_normal((B, m, 2 * m))
+    flat = A @ A.transpose(0, 2, 1) / (2 * m) + 0.5 * np.eye(m)
+    flat[3, 5, :] = flat[3, 4, :]
+    flat[3, :, 5] = flat[3, :, 4]
+    Kin = torch.as_tensor(flat.reshape(B, I, n, I, n), device="cuda").to(dtype)
+    Kc = torch.as_tensor(rng.standard_normal((B, I, n, O)), device="cuda").to(dtype)
+    y = torch.as_tensor(rng.standard_normal((B, I, n)), device="cuda").to(dtype)
+    Kout = torch.eye(O, device="cuda", dtype=dtype) * 1.3 + 0.1
+    mean, cov = K5.multiout_serve_cuda(Kin, Kc, Kout, y)
+    torch.cuda.synchronize()
+    mean_p, cov_p = K5.fused_multiout_solve_bl_plain(
+        *multiout_frontend_bl(Kin, Kc, y)[:2], Kout, y.reshape(B, m).T
+    )
+    mean_p, cov_p = mean_p.T, cov_p.permute(2, 0, 1)
+    assert torch.isfinite(mean).all() and torch.isfinite(cov).all()
+    ok = [b for b in range(B) if b != 3]
+    # measured on an H100: 1.1e-14 (f64) and 3.8e-6 (f32) absolute
+    tol = 1e-11 if dtype == torch.float64 else 1e-4
+    torch.testing.assert_close(mean[ok], mean_p[ok], rtol=tol, atol=tol)
+    torch.testing.assert_close(cov[ok], cov_p[ok], rtol=tol, atol=tol)
+    # the floored pivot is the same number on both sides, and row 5's
+    # right-hand sides are the O(1) difference of rows 5 and 4 divided by
+    # sqrt(floor): huge, but as well determined as any other block's
+    assert float(mean_p[3].abs().max()) > 1e3
+    # (measured 2.2e-16 and 2.8e-8 relative)
+    rel = 1e-11 if dtype == torch.float64 else 1e-5
+    assert float((mean[3] - mean_p[3]).abs().max()) <= rel * float(mean_p[3].abs().max())
+    assert float((cov[3] - cov_p[3]).abs().max()) <= rel * float(cov_p[3].abs().max())
+
+
+def test_k5_launcher_refuses_what_does_not_fit():
+    _need_card()
+    from muygpys_torch.gpu import multiout_solve as K5
+
+    m = 239  # one query's f32 matrix is over the 227 KB a block can use
+    Kin = torch.eye(m, device="cuda")[None].repeat(2, 1, 1).reshape(2, 1, m, 1, m)
+    with pytest.raises(ValueError, match="shared memory"):
+        K5.multiout_serve_cuda(
+            Kin, torch.zeros((2, 1, m, 3), device="cuda"),
+            torch.eye(3, device="cuda"), torch.zeros((2, 1, m), device="cuda"),
+        )
+    # the largest f32 shape that fits launches, with the opt-in above 48 KB
+    m = 238
+    Kin = torch.eye(m, device="cuda")[None].repeat(2, 1, 1).reshape(2, 1, m, 1, m)
+    mean, cov = K5.multiout_serve_cuda(
+        Kin, torch.ones((2, 1, m, 3), device="cuda"),
+        torch.eye(3, device="cuda") * 300, torch.ones((2, 1, m), device="cuda"),
+    )
+    torch.cuda.synchronize()
+    torch.testing.assert_close(mean, torch.full((2, 3), float(m), device="cuda"))
+    torch.testing.assert_close(
+        cov, (torch.eye(3, device="cuda") * 300 - m)[None].repeat(2, 1, 1)
+    )
+
+
+@pytest.mark.parametrize("family", ["33", "23"])
+def test_shear_server_kernel_engine_on_the_card(family):
+    """FastServer(engine="kernel") on the card launches K5 once per bucket
+    and agrees with the lanes engine on the same neighbours."""
+    _need_card()
+    from muygpys_torch import config
+    from muygpys_torch.convert import muygps_from_arrays
+    from muygpys_torch.neighbors import NN_Wrapper
+    from muygpys_torch.serve import FastServer
+
+    rng = np.random.default_rng(5)
+    pts = rng.uniform(size=(3000, 2)).astype(np.float32)
+    phase = pts @ (2 * np.pi * np.array([3.0, 5.0], dtype=np.float32))
+    targets = np.stack(
+        [np.sin(phase), 0.4 * np.cos(phase), 0.3 * np.sin(2 * phase)], axis=1
+    )
+    obs = targets if family == "33" else targets[:, 1:]
+    ls = 0.05
+    model = muygps_from_arrays(
+        ls, noise=1e-3 * 2 / ls**4,
+        kernel="shear" if family == "33" else "shear_2in3out",
+        noise_model="shear33" if family == "33" else "homoscedastic",
+    )
+    xte = rng.uniform(size=(300, 2)).astype(np.float32)
+    nbrs = NN_Wrapper(pts, 30)
+    old = config.state.ftype
+    try:
+        config.update("ftype", 64)
+        before = _build.launches["multiout_solve"]
+        m64, c64 = FastServer(model, nbrs, pts, obs, bucket=128,
+                              engine="kernel").predict(xte)
+        assert _build.launches["multiout_solve"] == before + 3
+        ml, cl = FastServer(model, nbrs, pts, obs, bucket=128,
+                            engine="lanes").predict(xte)
+        config.update("ftype", 32)
+        m32, c32 = FastServer(model, nbrs, pts, obs, bucket=128,
+                              engine="kernel").predict(xte)
+    finally:
+        config.update("ftype", old)
+    assert m64.shape == (300, 3) and c64.shape == (300, 3, 3)
+    np.testing.assert_allclose(m64, ml, rtol=1e-8, atol=1e-9)
+    np.testing.assert_allclose(c64, cl, rtol=1e-8, atol=1e-7)
+    # f32 against f64: at the 50,000-point sky the mean is 1.0e-6 off and
+    # the covariance 1.9e-7 of the prior diagonal (H100); this smaller sky
+    # has wider neighbourhoods, so the limits sit well above that
+    prior = 2 / ls**2
+    assert np.abs(m32 - ml).max() <= 1e-3 * np.abs(ml).max()
+    assert np.abs(c32 - cl).max() <= 1e-4 * prior

@@ -54,3 +54,68 @@ def test_pivot_floor_on_singular_lanes():
     L_j = jl.cholesky_bl(jnp.asarray(K))
     assert torch.isfinite(L_t).all()
     np.testing.assert_allclose(L_t.numpy(), np.asarray(L_j), rtol=1e-10, atol=1e-12)
+
+
+@pytest.fixture(scope="module")
+def multiout(rng):
+    B, I, n, O = 10, 3, 6, 3
+    m = I * n
+    A = rng.standard_normal((B, m, 2 * m))
+    Kin = (A @ A.transpose(0, 2, 1) / (2 * m) + 0.5 * np.eye(m)).reshape(
+        B, I, n, I, n
+    )
+    return (Kin, rng.standard_normal((B, I, n, O)), np.eye(O) * 1.3 + 0.1,
+            rng.standard_normal((B, I, n)))
+
+
+def test_multiout_frontend_bl(multiout):
+    Kin, Kc, _, y = multiout
+    got = tl.multiout_frontend_bl(*(torch.as_tensor(t) for t in (Kin, Kc, y)))
+    want = jl.multiout_frontend_bl(*(jnp.asarray(t) for t in (Kin, Kc, y)))
+    for g, w, shape in zip(got, want, ((18, 18, 10), (18, 3, 10), (18, 10))):
+        assert g.shape == shape
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+def test_multiout_serve_matches_jax(multiout):
+    Kin, Kc, Kout, y = multiout
+    T, J = torch.as_tensor, jnp.asarray
+    m_t, c_t = tl.multiout_serve_mean_and_variance(T(Kin), T(Kc), T(Kout), T(y))
+    m_j, c_j = jl.multiout_serve_mean_and_variance(J(Kin), J(Kc), J(Kout), J(y))
+    assert m_t.shape == (10, 3) and c_t.shape == (10, 3, 3)
+    np.testing.assert_allclose(m_t.numpy(), np.asarray(m_j), rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(c_t.numpy(), np.asarray(c_j), rtol=1e-10, atol=1e-12)
+    # the batch-last function itself, with a prior handed over in f32
+    bl_t = tl.multiout_frontend_bl(T(Kin), T(Kc), T(y))
+    bl_j = jl.multiout_frontend_bl(J(Kin), J(Kc), J(y))
+    m_t, c_t = tl.serve_mean_and_variance_multiout_bl(
+        bl_t[0], bl_t[1], T(Kout).float(), bl_t[2]
+    )
+    m_j, c_j = jl.serve_mean_and_variance_multiout_bl(
+        bl_j[0], bl_j[1], J(Kout), bl_j[2]
+    )
+    assert m_t.shape == (3, 10) and c_t.shape == (3, 3, 10)
+    assert c_t.dtype == torch.float64
+    np.testing.assert_allclose(m_t.numpy(), np.asarray(m_j), rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(c_t.numpy(), np.asarray(c_j), rtol=1e-7, atol=1e-7)
+
+
+def test_multiout_gradient_flows_through_the_floored_factor(multiout):
+    """The shear lanes objective differentiates through this solver."""
+    Kin, Kc, Kout, y = multiout
+    s = torch.tensor(1.0, dtype=torch.float64, requires_grad=True)
+    mean, cov = tl.multiout_serve_mean_and_variance(
+        torch.as_tensor(Kin) * s, torch.as_tensor(Kc), torch.as_tensor(Kout),
+        torch.as_tensor(y),
+    )
+    (mean.sum() + cov.sum()).backward()
+
+    def f(v):
+        m, c = tl.multiout_serve_mean_and_variance(
+            torch.as_tensor(Kin) * v, torch.as_tensor(Kc),
+            torch.as_tensor(Kout), torch.as_tensor(y),
+        )
+        return float(m.sum() + c.sum())
+
+    fd = (f(1 + 1e-6) - f(1 - 1e-6)) / 2e-6
+    np.testing.assert_allclose(float(s.grad), fd, rtol=1e-6)

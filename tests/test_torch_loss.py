@@ -89,9 +89,42 @@ def test_loss_functors_match_jax(data):
         )
 
 
-def test_full_covariance_lool_not_ported(data):
+def test_full_covariance_lool_not_ported(data, rng):
+    """The full-covariance branch of lool, refused until the shear slice, is
+    ported: residual^T C^{-1} residual + log det C over (b, r, r) blocks,
+    value and gradients against the JAX package."""
     pred, targ, _ = data
-    cov = torch.eye(2, dtype=torch.float64).expand(40, 2, 2)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        tl.lool_fn_unscaled(torch.as_tensor(pred), torch.as_tensor(targ),
-                            cov[:, :, :, None])
+    A = rng.standard_normal((40, 2, 2))
+    cov = A @ A.transpose(0, 2, 1) + 0.5 * np.eye(2)
+
+    def jfn(p, c):
+        return jl.lool_fn_unscaled(p, jnp.asarray(targ), c)
+
+    v_ref, (gp_ref, gc_ref) = jax.value_and_grad(jfn, argnums=(0, 1))(
+        jnp.asarray(pred), jnp.asarray(cov)
+    )
+    p = torch.tensor(pred, requires_grad=True)
+    c = torch.tensor(cov, requires_grad=True)
+    v = tl.lool_fn_unscaled(p, torch.as_tensor(targ), c)
+    v.backward()
+    np.testing.assert_allclose(float(v.detach()), float(v_ref), rtol=1e-12)
+    np.testing.assert_allclose(p.grad.numpy(), np.asarray(gp_ref), rtol=1e-10)
+    np.testing.assert_allclose(c.grad.numpy(), np.asarray(gc_ref),
+                               rtol=1e-9, atol=1e-12)
+    # the scaled form multiplies the blocks
+    np.testing.assert_allclose(
+        float(tl.lool_fn(torch.as_tensor(pred), torch.as_tensor(targ),
+                         torch.as_tensor(cov), 0.7)),
+        float(jl.lool_fn(jnp.asarray(pred), jnp.asarray(targ),
+                         jnp.asarray(cov), 0.7)),
+        rtol=1e-12,
+    )
+    # by hand on one point
+    res = pred[0] - targ[0]
+    want = res @ np.linalg.solve(cov[0], res) + np.log(np.linalg.det(cov[0]))
+    np.testing.assert_allclose(
+        float(tl.lool_fn_unscaled(torch.as_tensor(pred[:1]),
+                                  torch.as_tensor(targ[:1]),
+                                  torch.as_tensor(cov[:1]))),
+        want, rtol=1e-12,
+    )

@@ -128,3 +128,46 @@ def test_train_tensors_and_opt_surface_match_jax(data):
             np.asarray(jm.get_opt_var_fn()(Kin_j, Kc_j, **proposal)),
             **close,
         )
+
+
+@pytest.mark.parametrize("family", ["33", "23"])
+def test_shear_posteriors_match_jax(data, family):
+    """A 5-D Kin routes posterior_mean_and_variance through the batch-last
+    floored block Cholesky with kernel.Kout() and the scale; the separate
+    mean and variance functors go through the block layouts of
+    ops/solve.py.  tests/test_serve.py's shear tolerance."""
+    from _torch_models import carried_shear, jax_shear_model
+
+    x, _, xq, nn = data
+    y = np.random.default_rng(4).standard_normal((80, 3))
+    obs = y if family == "33" else y[:, 1:]
+    ls = 0.2
+    jm = jax_shear_model(family, ls=ls, noise=1e-3 * 2 / ls**2, scale=1.7)
+    tm = carried_shear(jm)
+    T, J = torch.as_tensor, jnp.asarray
+    bi = np.arange(15)
+    cw_t, pw_t, nt_t = tm.make_predict_tensors(T(bi), T(nn), T(xq), T(x), T(obs))
+    cw_j, pw_j, nt_j = jm.make_predict_tensors(J(bi), J(nn), J(xq), J(x), J(obs))
+    assert pw_t.shape == (15, 8, 8, 2) and cw_t.shape == (15, 8, 2)
+    np.testing.assert_allclose(pw_t.numpy(), np.asarray(pw_j), rtol=0, atol=0)
+    nt_t, nt_j = nt_t.transpose(-2, -1), jnp.swapaxes(nt_j, -2, -1)
+    Kin_t, Kc_t = tm.kernel(pw_t), tm.kernel(cw_t)
+    Kin_j, Kc_j = jm.kernel(pw_j), jm.kernel(cw_j)
+    close = dict(rtol=1e-8, atol=1e-10)
+    m_t, c_t = tm.posterior_mean_and_variance(Kin_t, Kc_t, nt_t)
+    m_j, c_j = jm.posterior_mean_and_variance(Kin_j, Kc_j, nt_j)
+    assert m_t.shape == (15, 3) and c_t.shape == (15, 3, 3)
+    np.testing.assert_allclose(m_t.numpy(), np.asarray(m_j), **close)
+    np.testing.assert_allclose(c_t.numpy(), np.asarray(c_j), **close)
+    np.testing.assert_allclose(
+        tm.posterior_mean(Kin_t, Kc_t, nt_t).numpy(),
+        np.asarray(jm.posterior_mean(Kin_j, Kc_j, nt_j)), **close,
+    )
+    np.testing.assert_allclose(
+        tm.posterior_variance(Kin_t, Kc_t).numpy(),
+        np.asarray(jm.posterior_variance(Kin_j, Kc_j)), **close,
+    )
+    # the functor chain and the fused path agree with each other
+    np.testing.assert_allclose(
+        tm.posterior_variance(Kin_t, Kc_t).numpy(), c_t.numpy(), **close
+    )

@@ -114,6 +114,9 @@ def test_library_name_tracks_headers(tmp_path, monkeypatch):
     for name in ("fused_predict", "fused_train"):
         assert _build.CSRC / "matern_nu.cuh" in _build.source_files(name)
     assert _build.source_files("knn") == [_build.CSRC / "knn.cu"]
+    assert _build.source_files("multiout_solve") == [
+        _build.CSRC / "multiout_solve.cu"
+    ]
     assert str(_build.CSRC) in _build.NVCC_FLAGS
 
 
@@ -138,7 +141,7 @@ def test_launch_counters_reset():
     _build.reset_launches()
     assert set(_build.launches) == {
         "fused_predict_coords", "fused_predict", "knn_candidates",
-        "knn_candidates_pruned", "fused_train_stats",
+        "knn_candidates_pruned", "fused_train_stats", "multiout_solve",
     }
     assert all(v == 0 for v in _build.launches.values())
 
@@ -147,3 +150,44 @@ def test_check_passes_success_code():
     _build.check(0, "knn", "knn_candidates")  # no library needed for 0
     assert _build.ptr(None).value is None
     assert isinstance(_build.ptr(torch.zeros(2)), ctypes.c_void_p)
+
+
+def test_every_kernel_source_is_built_and_counted():
+    """One library per hand-written source, one launch counter per
+    ``__global__`` entry a wrapper launches."""
+    assert _build.SOURCES == (
+        "fused_predict", "knn", "fused_train", "multiout_solve"
+    )
+    on_disk = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
+    assert on_disk == sorted(_build.SOURCES)
+    text = (_build.CSRC / "multiout_solve.cu").read_text()
+    assert "__global__" in text and "pivot_floor" in text
+    for symbol in ("multiout_solve_f32", "multiout_solve_f64"):
+        assert f"int {symbol}(" in text
+    # no library stands in for the elimination
+    for library in ("cusolver", "cublas", "cutlass"):
+        assert library not in text.lower()
+
+
+@pytest.mark.parametrize(
+    "module",
+    ["ops.shear", "gp.noise.shear", "gp.kernels.experimental",
+     "gp.kernels.experimental.shear", "gpu.multiout_solve",
+     "optimize.shear_objective"],
+)
+def test_shear_modules_import_without_jax(module):
+    """The shear slice's modules import in a fresh interpreter that has
+    neither jax nor the JAX package loaded afterwards."""
+    import subprocess
+    import sys
+
+    code = (
+        f"import sys, muygpys_torch.{module}\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'muygpys_tpu')]\n"
+        "assert not bad, bad"
+    )
+    subprocess.run(
+        [sys.executable, "-c", code], check=True, cwd=str(ROOT),
+        env={**os.environ, "PYTHONPATH": str(ROOT)},
+    )

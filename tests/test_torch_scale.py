@@ -34,6 +34,29 @@ def test_analytic_scale_optim_matches_jax(data, rng, r):
     )
 
 
+def test_analytic_scale_optim_block_layout_matches_jax(rng):
+    """The 5-D flatten of the shear layout: (b, i, n, i, n) blocks and
+    (b, i, n) targets, normalized by b * n."""
+    b, i, n = 6, 3, 4
+    m = i * n
+    A = rng.standard_normal((b, m, m))
+    K = (A @ A.transpose(0, 2, 1) + m * np.eye(m)).reshape(b, i, n, i, n)
+    y = rng.standard_normal((b, i, n))
+    got = float(ts.analytic_scale_optim(torch.as_tensor(K), torch.as_tensor(y)))
+    np.testing.assert_allclose(
+        got, float(js.analytic_scale_optim(jnp.asarray(K), jnp.asarray(y))),
+        rtol=1e-12,
+    )
+    flat = K.reshape(b, m, m)
+    want = sum(
+        y[k].reshape(m) @ np.linalg.solve(flat[k], y[k].reshape(m))
+        for k in range(b)
+    ) / (b * n)
+    np.testing.assert_allclose(got, want, rtol=1e-10)
+    with pytest.raises(ValueError, match="unsupported Kin shape"):
+        ts.analytic_scale_optim(torch.zeros((2, 3, 4, 5)), torch.zeros((2, 3)))
+
+
 @pytest.mark.parametrize("iterations", [1, 3])
 def test_optimize_scale_matches_jax(data, iterations):
     from muygpys_tpu.gp.hyperparameter import AnalyticScale as JaxAnalytic

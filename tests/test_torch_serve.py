@@ -10,7 +10,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_models import carried, jax_model
+from _torch_models import carried, carried_shear, jax_model, jax_shear_model
 
 from muygpys_tpu.neighbors import NN_Wrapper as JaxNN
 from muygpys_tpu.serve import FastServer as JaxServer
@@ -203,9 +203,122 @@ def test_server_errors(data):
         )
 
 
+@pytest.fixture(scope="module")
+def shear_data():
+    """tests/test_serve.py's shear problem: 250 sky points, three smooth
+    components, nn = 8, the nugget relative to the prior diagonal 2/ls^2."""
+    rng = np.random.default_rng(5)
+    pts = rng.uniform(size=(250, 2))
+    phase = pts @ (2 * np.pi * np.array([3.0, 5.0]))
+    targets = np.stack(
+        [np.sin(phase), 0.4 * np.cos(phase), 0.3 * np.sin(2 * phase)], axis=1
+    )
+    return pts, targets, rng.uniform(size=(70, 2))  # two buckets, one padded
+
+
+SHEAR_LS = 0.08
+SHEAR_NOISE = 1e-3 * 2.0 / SHEAR_LS**4
+
+
+@pytest.mark.parametrize("engine", ["lanes", "kernel"])
+@pytest.mark.parametrize("family", ["33", "23"])
+def test_shear_server_matches_jax(shear_data, family, engine):
+    """Both shear engines on device="cpu" against the JAX FastServer (lanes,
+    and pallas in interpret mode), at tests/test_serve.py's rtol 1e-8 / atol
+    1e-10: mean (count, 3), full covariance (count, 3, 3)."""
+    pts, targets, xte = shear_data
+    obs = targets if family == "33" else targets[:, 1:]
+    jm = jax_shear_model(family, ls=SHEAR_LS, noise=SHEAR_NOISE, scale=1.7)
+    ref = JaxServer(
+        jm, JaxNN(pts, 8, nn_method="exact"), pts, obs, bucket=40,
+        engine="pallas" if engine == "kernel" else "lanes",
+    )
+    port = FastServer(
+        carried_shear(jm), NN_Wrapper(pts, 8, device="cpu"), pts, obs,
+        bucket=40, engine=engine, device="cpu",
+    )
+    _build.reset_launches()
+    mean, cov = port.predict(xte)
+    assert sum(_build.launches.values()) == 0
+    m0, c0 = ref.predict(xte)
+    assert mean.shape == (70, 3) and cov.shape == (70, 3, 3)
+    assert mean.dtype == np.float64
+    np.testing.assert_allclose(mean, np.asarray(m0), rtol=1e-8, atol=1e-10)
+    np.testing.assert_allclose(cov, np.asarray(c0), rtol=1e-8, atol=1e-10)
+    # a posterior covariance: symmetric, positive diagonal under the prior's
+    np.testing.assert_allclose(cov, cov.transpose(0, 2, 1), rtol=1e-9, atol=1e-9)
+    diag = np.diagonal(cov, axis1=1, axis2=2)
+    assert (diag > 0).all()
+    assert (diag < 1.7 * np.array([2.0, 1.0, 1.0]) / SHEAR_LS**2).all()
+
+
+def test_shear_engines_agree(shear_data):
+    """The kernel engine (K5's plain version here) and the lanes engine give
+    the same numbers: the floored elimination and the floored Cholesky are
+    one arithmetic."""
+    pts, targets, xte = shear_data
+    tm = carried_shear(jax_shear_model("33", ls=SHEAR_LS, noise=SHEAR_NOISE))
+    nbrs = NN_Wrapper(pts, 8, device="cpu")
+    outs = [
+        FastServer(tm, nbrs, pts, targets, bucket=40, engine=engine,
+                   device="cpu").predict(xte[:40])
+        for engine in ("kernel", "lanes")
+    ]
+    np.testing.assert_allclose(outs[0][0], outs[1][0], rtol=1e-10, atol=1e-12)
+    np.testing.assert_allclose(outs[0][1], outs[1][1], rtol=1e-10, atol=1e-12)
+
+
+def test_shear_server_errors(shear_data):
+    """The four refusals of the JAX server and the observed-component
+    check."""
+    pts, targets, _ = shear_data
+    tm = carried_shear(jax_shear_model("33", ls=SHEAR_LS, noise=SHEAR_NOISE))
+    nbrs = NN_Wrapper(pts, 8, device="cpu")
+    for engine in ("fused", "reference"):
+        with pytest.raises(ValueError, match="shear models serve via"):
+            FastServer(tm, nbrs, pts, targets, engine=engine, device="cpu")
+    with pytest.raises(ValueError, match="unknown engine"):
+        FastServer(tm, nbrs, pts, targets, engine="pallas", device="cpu")
+    with pytest.raises(ValueError, match="measurement noise"):
+        FastServer(tm, nbrs, pts, targets, measurement_noise=np.ones(250),
+                   device="cpu")
+    with pytest.raises(ValueError, match="shards queries"):
+        FastServer(tm, nbrs, pts, targets, shard="train", device="cpu")
+    with pytest.raises(ValueError, match="unknown shard mode"):
+        FastServer(tm, nbrs, pts, targets, shard="rows", device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported yet"):
+        FastServer(tm, nbrs, pts, targets, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="observes 3 components"):
+        FastServer(tm, nbrs, pts, targets[:, 1:], device="cpu")
+    two = carried_shear(jax_shear_model("23", ls=SHEAR_LS, noise=SHEAR_NOISE))
+    with pytest.raises(ValueError, match="observes 2 components"):
+        FastServer(two, nbrs, pts, targets, engine="kernel", device="cpu")
+
+
+def test_server_refuses_unknown_kernels(data):
+    from muygpys_torch.gp.deformation import Isotropy, l2
+    from muygpys_torch.gp.hyperparameter import Parameter
+    from muygpys_torch.gp.kernels import KernelFn
+    from muygpys_torch.gp.muygps import MuyGPS
+
+    class Other(KernelFn):
+        def _make(self):
+            self._make_base()
+
+    xtr, ytr, _, _ = data
+    model = MuyGPS(kernel=Other(Isotropy(l2, length_scale=Parameter(1.0))))
+    with pytest.raises(ValueError, match="Matern/RBF/Shear"):
+        FastServer(model, NN_Wrapper(xtr, NN, device="cpu"), xtr, ytr,
+                   device="cpu")
+
+
 def test_server_defaults_to_cuda(data, monkeypatch):
     xtr, ytr, _, _ = data
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     tm = carried(jax_model())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         FastServer(tm, NN_Wrapper(xtr, NN, device="cpu"), xtr, ytr)
+    shear = carried_shear(jax_shear_model("33"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        FastServer(shear, NN_Wrapper(xtr, NN, device="cpu"), xtr,
+                   np.zeros((2048, 3)), engine="kernel")
