@@ -9,8 +9,8 @@ Phases (any failure raises and the script exits non-zero):
 
 1. card: the card's name and power limit (nvidia-smi);
 2. build: compile every CUDA kernel of the serving and training paths (one
-   nvcc per source, started together), report the seconds and each
-   kernel's registers and spills;
+   nvcc per source, started together), report the seconds and the
+   registers and spills of each kernel, design and instantiation;
 3. K1 (fused coords solve) against its plain PyTorch version on the card at
    the serving shape (n=30, d=2, r=1, B=8192) for every closed form, RBF on
    F2 and a heteroscedastic case, in f32 and f64;
@@ -28,7 +28,10 @@ Phases (any failure raises and the script exits non-zero):
    version at the training shape (n=30, B=2048) on real neighbourhoods of
    the 50k set: every closed form, RBF on F2, noise free on and off,
    heteroscedastic, anisotropic (d=2) and r=2, in f32 and f64, each row
-   against its own limit;
+   against its own limit, through the register design; one n=40 case
+   through the shared-memory design; the design each case took; the
+   headline timed through both designs and through the library yardstick
+   (torch.linalg.cholesky + cholesky_solve + einsum);
 7. training end to end at the training headline (the same 50k points with
    a smooth target field plus N(0, 0.1^2) noise, a LOO batch of 2048 from
    sample_batch, Matern 3/2, free length scale and noise, lool, f32):
@@ -47,7 +50,8 @@ Phases (any failure raises and the script exits non-zero):
    isotropic and anisotropic, at the headline's length scale (every entry
    on K4's series branch) and at one near the neighbour spacing (entries on
    both branches), each row group (the d/dnu rows included) against its own
-   limit;
+   limit, through the register design (the free-nu headline also timed
+   through the shared-memory design);
 10. the distance-tensor workflow: make_predict_tensors -> fused_predict_bl
    (K1b) on the first request; in f32 held against the f64 plain version on
    the same distance tensors, in f64 against the f64 reference engine;
@@ -63,9 +67,12 @@ Phases (any failure raises and the script exits non-zero):
 13. K5 (the fused multi-output block solve of the lensing shear family)
    against its plain version on real shear blocks at the shear serving
    shape (B=2048, nn=30: m=90 for the 3-in/3-out kernel, m=60 for
-   2-in/3-out), f32 and f64, through both entries (batch-last and
-   frontend), plus a batch with one block made singular by duplicated rows;
-   the library yardstick (torch.linalg.cholesky + solve_triangular) and the
+   2-in/3-out) through the register design (m=60 in f64 through the
+   shared-memory design) and at nn=8 (m=24, B=1000) through the
+   shared-memory design, f32 and f64, through both entries (batch-last and
+   frontend); a batch with one block made singular by duplicated rows
+   through each design; m=90 timed through the shared-memory design too,
+   in f32 and f64; the library yardstick (torch.linalg.cholesky + solve_triangular) and the
    lanes engine's eager block Cholesky, timed once;
 14. shear serving end to end: the 50,000-point sky of
    scripts/shear_sky_demo.py (ShearKernel, ls 0.05, ShearNoise33 at 1e-3 of
@@ -80,13 +87,16 @@ Phases (any failure raises and the script exits non-zero):
    evaluation and gradient of the batched layout against the lanes layout
    in f64; the trained model served through K5;
 16. the kernels line: one JSON object with every kernel's launches on its
-   path, error against its plain version, times and bound;
+   path, error against its plain version, times and bound; for K2 and K5
+   each design's launches over the run (both must have run) and registers;
 17. the last line: {"ok": true, "device": {...}}.
 
-Kernel times are CUDA-event medians over back-to-back launches; wall times
-are medians of single runs.  Bounds use the H100 SXM data-sheet peaks
-(3.35 TB/s HBM, 67 TFLOP/s fp32 outside the tensor cores; fp64 counted at
-the same rate, so an f64 bound is optimistic).
+Kernel times are CUDA-event medians over back-to-back launches (time_ms);
+for K2 and K5 also the kernel's own device time, each call queued behind
+a device-side sleep (device_ms), which time_ms exceeds where a call's host
+work outlasts the kernel; wall times are medians of single runs.  Bounds use the H100 SXM
+data-sheet peaks (3.35 TB/s HBM, 67 TFLOP/s fp32 outside the tensor cores;
+fp64 counted at the same rate, so an f64 bound is optimistic).
 """
 
 from __future__ import annotations
@@ -271,6 +281,57 @@ def time_ms(fn, reps=20, warmup=3, trials=5):
         times.append(start.elapsed_time(end) / reps)
     times.sort()
     return times[len(times) // 2]
+
+
+def device_ms(torch, fn, reps=11):
+    """Median device time in milliseconds of the work one ``fn()`` queues,
+    whatever the host spends preparing it: each call is queued behind a
+    device-side sleep that outlasts the host's Python work, so the events
+    around it bracket the device's work alone.  ``time_ms`` counts the host
+    instead wherever one call's Python work outlasts the kernel."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(2_000_000)  # ~1 ms of device time
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def ptxas_report(text):
+    """Registers and spill bytes of each kernel in an ``nvcc -Xptxas -v``
+    log, keyed by the kernel's name and template arguments (f = float, d =
+    double, then the compile-time sizes): e.g. ``fused_train_stats_regs_kernel
+    f 1`` is the register design of K2 in f32 for one right-hand side."""
+    import re
+
+    out, kernel = {}, None
+    for line in text.splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            found = re.search(r"\d+([a-z_]+?_kernel)I([fd])((?:Li\d+E)*)",
+                              entry.group(1))
+            kernel = (" ".join([found.group(1), found.group(2)]
+                               + re.findall(r"Li(\d+)E", found.group(3)))
+                      if found else entry.group(1)[:60])
+            out[kernel] = {}
+            continue
+        if kernel is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+        if spill:
+            out[kernel]["spill_bytes"] = int(spill.group(1)) + int(spill.group(2))
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs:
+            out[kernel]["registers"] = int(regs.group(1))
+    return out
 
 
 def k4_ops(counts, nt, need_dt=False, need_dnu=False):
@@ -567,10 +628,73 @@ def k2_check_rows(out, ref, names, limits, worst, tname):
     return top, names[ratios.index(top)], over
 
 
+def k2_library(torch, pw, cw, y, params):
+    """K2's rows at the training headline (Matern 3/2, isotropic, noise
+    free) through library calls on K formed elementwise:
+    torch.linalg.cholesky + torch.cholesky_solve + einsum, batch first.  A
+    yardstick of speed (no pivot floor); the port never calls it."""
+    ls, noise, noise0 = (float(v) for v in params)
+    n = pw.shape[0]
+    s3 = math.sqrt(3.0)
+
+    def k_and_g(u):
+        e = torch.exp(-s3 * u)
+        return (1.0 + s3 * u) * e, (3.0 / ls) * u * u * e
+
+    def rows():
+        K, G = k_and_g(pw.permute(2, 0, 1) / ls)  # (B, n, n)
+        kc, gc = k_and_g(cw.T / ls)  # (B, n)
+        Y = y.permute(2, 0, 1)  # (B, n, r)
+        eye = torch.eye(n, dtype=pw.dtype, device=pw.device)
+        L = torch.linalg.cholesky(K + noise * eye)
+        X = torch.cholesky_solve(torch.cat([kc[..., None], Y], 2), L)
+        a, b = X[..., 0], X[..., 1:]
+        b0 = torch.cholesky_solve(Y, torch.linalg.cholesky(K + noise0 * eye))
+        Ga = torch.einsum("bij,bj->bi", G, a)
+        return torch.cat([
+            torch.einsum("bn,bnr->rb", kc, b),
+            (1.0 - torch.einsum("bn,bn->b", kc, a))[None],
+            torch.einsum("bnr,bnr->b", Y, b0)[None],
+            torch.einsum("bn,bnr->rb", gc - Ga, b),
+            (-2.0 * (gc * a).sum(1) + (Ga * a).sum(1))[None],
+            -torch.einsum("bir,bij,bjr->b", b0, G, b0)[None],
+            -torch.einsum("bn,bnr->rb", a, b),
+            (a * a).sum(1)[None],
+        ])
+
+    return rows
+
+
+# launches of each K2 and K5 design in the checks against the plain versions
+# (designs_ran adds them up), by "<kernel>/<design>"
+CHECK_LAUNCHES: dict = {}
+
+
+def designs_ran(counter, launch):
+    """Run ``launch``; return its result and the designs of ``counter``
+    ("fused_train_stats" or "multiout_solve") it launched, read from the
+    per-design launch counts, and add those launches to CHECK_LAUNCHES."""
+    from muygpys_torch.gpu import _build
+
+    before = dict(_build.launches)
+    result = launch()
+    ran = set()
+    for d in ("registers", "shared"):
+        key = f"{counter}/{d}"
+        if _build.launches[key] > before[key]:
+            ran.add(d)
+            CHECK_LAUNCHES[key] = (CHECK_LAUNCHES.get(key, 0)
+                                   + _build.launches[key] - before[key])
+    return result, ran
+
+
 def phase_k2(torch, train_d, y_d, bi, bnn):
     """K2 against its plain version on real neighbourhoods of the 50k set,
-    each row against its own limit; returns the kernels-line numbers of
-    the training headline case (f32, isotropic Matern 3/2, noise free)."""
+    each row against its own limit, through the design the launcher takes
+    (the register design at n = 30; one n = 40 case through the
+    shared-memory design); returns the kernels-line numbers of the training
+    headline case (f32, isotropic Matern 3/2, noise free)."""
+    from muygpys_torch.gpu import fused_train as K2
     from muygpys_torch.gpu.fused_train import (
         fused_train_stats_bl,
         fused_train_stats_bl_plain,
@@ -578,36 +702,51 @@ def phase_k2(torch, train_d, y_d, bi, bnn):
 
     bi = torch.as_tensor(bi, device="cuda")
     bnn = torch.as_tensor(bnn, device="cuda")
-    nbrs = train_d[bnn]  # (B, n, 2)
-    diff_p = (nbrs[:, :, None, :] - nbrs[:, None, :, :]).permute(1, 2, 3, 0)
-    diff_c = (train_d[bi][:, None, :] - nbrs).permute(1, 2, 0)
-    f2_p, f2_c = (diff_p**2).sum(2), (diff_c**2).sum(1)
-    y1 = y_d[bnn].permute(1, 2, 0)  # (n, 1, B) smooth field
-    y2 = torch.cat([y1, torch.cos(3.0 * y1)], dim=1)  # r = 2
-    n, B = y1.shape[0], y1.shape[2]
+    # 40 nearest neighbours of the same batch points (themselves excluded)
+    # for the case past the register design's 32 rows
+    dist = torch.cdist(train_d[bi], train_d)
+    dist[torch.arange(len(bi), device="cuda"), bi] = math.inf
+    bnn40 = dist.topk(40, dim=1, largest=False).indices
+    del dist
+
+    def tensors(nbr_idx):
+        nbrs = train_d[nbr_idx]  # (B, n, 2)
+        diff_p = (nbrs[:, :, None, :] - nbrs[:, None, :, :]).permute(1, 2, 3, 0)
+        diff_c = (train_d[bi][:, None, :] - nbrs).permute(1, 2, 0)
+        y1 = y_d[nbr_idx].permute(1, 2, 0)  # (n, 1, B) smooth field
+        return diff_p, diff_c, y1
+
+    sets = {30: tensors(bnn), 40: tensors(bnn40)}
+    n, B = sets[30][2].shape[0], sets[30][2].shape[2]
     gen = torch.Generator(device="cuda").manual_seed(5)
     noise_nn = torch.rand((n, B), generator=gen, device="cuda") * 1e-2 + 1e-4
-    # (smoothness, metric_power, noise_free, r, anisotropic, heteroscedastic)
+    # (smoothness, metric_power, noise_free, r, anisotropic, heteroscedastic,
+    # neighbours)
     cases = [
-        (0.5, 1, False, 1, False, False),
-        (1.5, 1, True, 1, False, False),  # the training headline
-        (1.5, 1, False, 1, False, False),
-        (2.5, 1, True, 1, False, False),
-        (math.inf, 1, False, 1, False, False),
-        ("rbf", 2, True, 1, False, False),
-        (1.5, 1, False, 1, False, True),
-        (1.5, 1, True, 1, True, False),
-        (2.5, 1, True, 2, False, False),
+        (0.5, 1, False, 1, False, False, 30),
+        (1.5, 1, True, 1, False, False, 30),  # the training headline
+        (1.5, 1, False, 1, False, False, 30),
+        (2.5, 1, True, 1, False, False, 30),
+        (math.inf, 1, False, 1, False, False, 30),
+        ("rbf", 2, True, 1, False, False, 30),
+        (1.5, 1, False, 1, False, True, 30),
+        (1.5, 1, True, 1, True, False, 30),
+        (2.5, 1, True, 2, False, False, 30),
+        (1.5, 1, True, 1, False, False, 40),  # the shared-memory design
     ]
     row = None
     worst = {}
+    designs = {}
     for dtype in (torch.float32, torch.float64):
         tname = str(dtype)[6:]
         limits = K2_REL[tname]
         assert max(limits.values()) <= 0.1, (
             "a K2 limit must stay under a tenth of its row"
         )
-        for nu, power, noise_free, r, aniso, hetero in cases:
+        for nu, power, noise_free, r, aniso, hetero, nn in cases:
+            diff_p, diff_c, y1 = sets[nn]
+            f2_p, f2_c = (diff_p**2).sum(2), (diff_c**2).sum(1)
+            y2 = torch.cat([y1, torch.cos(3.0 * y1)], dim=1)  # r = 2
             if aniso:
                 pw, cw, d_feat, ls = diff_p, diff_c, 2, [LS, 0.7]
             else:
@@ -624,8 +763,11 @@ def phase_k2(torch, train_d, y_d, bi, bnn):
             nn_arg = noise_nn.to(dtype) if hetero else None
             kw = dict(smoothness=nu, metric_power=power,
                       noise_free=noise_free, d_feat=d_feat)
-            out = fused_train_stats_bl(*args, noise_nn=nn_arg, **kw)
+            out, ran = designs_ran("fused_train_stats", lambda: (
+                fused_train_stats_bl(*args, noise_nn=nn_arg, **kw)))
             torch.cuda.synchronize()
+            design = "registers" if nn <= 32 else "shared"
+            assert ran == {design}, ran
             ref = fused_train_stats_bl_plain(*args, noise_nn=nn_arg, **kw)
             assert torch.isfinite(out).all(), "K2 gave a non-finite row"
             names = k2_row_names(
@@ -634,34 +776,70 @@ def phase_k2(torch, train_d, y_d, bi, bnn):
             top, top_row, over = k2_check_rows(
                 out, ref, names, limits, worst, tname
             )
-            log(f"K2 {tname} nu={nu} power={power} noise_free={noise_free} "
-                f"r={r} aniso={aniso} hetero={hetero}: largest error as a "
-                f"share of its limit {top:.3f} (row {top_row})")
+            label = (f"{tname} nu={nu} power={power} noise_free={noise_free} "
+                     f"r={r} aniso={aniso} hetero={hetero} n={nn}")
+            designs[label] = design
+            log(f"K2 {label} ({design} design): largest error as a share of "
+                f"its limit {top:.3f} (row {top_row})")
             assert not over, f"K2 disagrees with its plain version: {over}"
             headline = (dtype == torch.float32 and nu == NU and noise_free
-                        and not aniso and r == 1)
+                        and not aniso and r == 1 and nn == NN)
             if headline:
                 ms = time_ms(lambda: fused_train_stats_bl(
                     *args, noise_nn=nn_arg, **kw))
+                code = K2._smoothness_code(nu, None, power, False)
+
+                def kept():
+                    return K2._launch(
+                        *args, nn_arg, None, code, power, noise_free, False,
+                        d_feat, design="shared")
+
+                kept_ms = time_ms(kept)
+                dev_ms = device_ms(torch, lambda: fused_train_stats_bl(
+                    *args, noise_nn=nn_arg, **kw))
+                kept_dev_ms = device_ms(torch, kept)
+                # the wrapper's host work a call: the host clock over 20
+                # calls queued without waiting, median of 5
+                host = []
+                for _ in range(5):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(20):
+                        fused_train_stats_bl(*args, noise_nn=nn_arg, **kw)
+                    host.append((time.perf_counter() - t0) * 50.0)
+                torch.cuda.synchronize()
+                host_ms = sorted(host)[2]
                 plain_ms = time_ms(lambda: fused_train_stats_bl_plain(
                     *args, noise_nn=nn_arg, **kw), reps=3, trials=3)
+                library = k2_library(torch, *args)
+                lib_rows = library()
+                lib_ms = time_ms(library, reps=5, trials=3)
+                lib_off = float(((lib_rows - out).abs().amax(1)
+                                 / ref.abs().amax(1)).max())
                 C = out.shape[0]
                 # pw is symmetric, as k2_ops_per_point counts it: the n(n+1)/2
                 # rows i >= j suffice, each a contiguous run of B values
                 nbytes = ((n * (n + 1) // 2 + n + n * r + C) * B + 3) * 4
                 ops = k2_ops_per_point(n, 0, r, True) * B
-                byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-                op_ms = ops / FP32_FLOPS * 1e3
-                row = dict(
-                    max_abs_err=float((out - ref).abs().max()), ms=ms,
-                    plain_ms=plain_ms, bound_ms=max(byte_ms, op_ms),
-                    bound_by="bytes" if byte_ms > op_ms else "operations",
-                    library_ms=None,
+                row = bound_row(
+                    nbytes, ops, max_abs_err=float((out - ref).abs().max()),
+                    ms=ms, plain_ms=plain_ms, kept_design_ms=kept_ms,
+                    device_ms=dev_ms, kept_design_device_ms=kept_dev_ms,
+                    wrapper_host_ms=host_ms,
                 )
-                log(f"K2 f32 time: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
-                    f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
-                    f"{nbytes} B, {ops} flop)")
+                row["library_ms"] = lib_ms
+                log(f"K2 f32 time: register design {ms:.4f} ms ({dev_ms:.4f} "
+                    f"ms on the device alone; the wrapper's host work "
+                    f"{host_ms:.4f} ms a call), shared-memory design "
+                    f"{kept_ms:.4f} ms ({kept_dev_ms:.4f}), plain "
+                    f"{plain_ms:.4f} ms, "
+                    f"library (torch.linalg.cholesky + cholesky_solve + "
+                    f"einsum, no pivot floor) {lib_ms:.4f} ms, off the kernel "
+                    f"by {lib_off:.3e} of the largest row value; bound "
+                    f"{row['bound_ms']:.4f} ms ({row['bound_by']}; {nbytes} "
+                    f"B, {ops} flop)")
     log("K2 worst error/magnitude by row: " + json.dumps(worst))
+    log("K2 design by case: " + json.dumps(designs))
     return row
 
 
@@ -894,6 +1072,7 @@ def phase_k2_gen(torch, train_d, y_d, bi, bnn):
     neighbourhoods, fixed and free nu, isotropic and anisotropic; returns
     the kernels-line row of the free-smoothness training headline (f32,
     isotropic, noise free, nu = 1.2)."""
+    from muygpys_torch.gpu import fused_train as K2
     from muygpys_torch.gpu.fused_train import (
         fused_train_stats_bl,
         fused_train_stats_bl_plain,
@@ -952,8 +1131,11 @@ def phase_k2_gen(torch, train_d, y_d, bi, bnn):
             args = [t.to(dtype).contiguous() for t in (pw, cw, y1)] + [params]
             kw = dict(gen_coeffs=co, smoothness="gen", noise_free=noise_free,
                       smoothness_free=free, d_feat=d_feat)
-            out = fused_train_stats_bl(*args, **kw)
+            out, ran = designs_ran(
+                "fused_train_stats", lambda: fused_train_stats_bl(*args, **kw))
             torch.cuda.synchronize()
+            design = "registers"
+            assert ran == {design}, ran
             ref = fused_train_stats_bl_plain(*args, **kw)
             assert torch.isfinite(out).all(), "K2 gen gave a non-finite row"
             names = k2_row_names(r, ["ls0", "ls1"] if aniso else ["ls"], free)
@@ -965,7 +1147,8 @@ def phase_k2_gen(torch, train_d, y_d, bi, bnn):
                 co[0].to(dtype) * (l2_p.to(dtype) / ls0)
             )
             log(f"K2 gen {tname} nu={nu} free={free} noise_free={noise_free} "
-                f"aniso={aniso} ls={ls0}: largest error as a share of its "
+                f"aniso={aniso} ls={ls0} ({design} design): largest error as "
+                f"a share of its "
                 f"limit {top:.3f} (row {top_row}); pairwise entries by "
                 f"branch (zero, series, tail) {branches}")
             assert not over, f"K2 gen disagrees with its plain version: {over}"
@@ -976,6 +1159,12 @@ def phase_k2_gen(torch, train_d, y_d, bi, bnn):
             if (dtype == torch.float32 and nu == NU_GEN and free
                     and not aniso and ls0 == LS):
                 ms = time_ms(lambda: fused_train_stats_bl(*args, **kw))
+                code = K2._smoothness_code("gen", co, 1, True)
+                kept_ms = time_ms(lambda: K2._launch(
+                    *args, None, co, code, 1, noise_free, True, d_feat,
+                    design="shared"))
+                dev_ms = device_ms(torch, lambda: fused_train_stats_bl(
+                    *args, **kw))
                 plain_ms = time_ms(lambda: fused_train_stats_bl_plain(
                     *args, **kw), reps=3, trials=3)
                 iu = torch.triu_indices(n, n, device="cuda")
@@ -992,10 +1181,13 @@ def phase_k2_gen(torch, train_d, y_d, bi, bnn):
                 ops = k2_ops_per_point(n, 0, r, True, eval_ops, True) * B
                 row = bound_row(
                     nbytes, ops, max_abs_err=float((out - ref).abs().max()),
-                    ms=ms, plain_ms=plain_ms,
+                    ms=ms, plain_ms=plain_ms, kept_design_ms=kept_ms,
+                    device_ms=dev_ms,
                     k4_branches=dict(zip(("zero", "small", "tail"), counts)),
                 )
-                log(f"K2 gen f32 time: kernel {ms:.4f} ms, plain "
+                log(f"K2 gen f32 time: register design {ms:.4f} ms "
+                    f"({dev_ms:.4f} ms on the device alone), "
+                    f"shared-memory design {kept_ms:.4f} ms, plain "
                     f"{plain_ms:.4f} ms, bound {row['bound_ms']:.4f} ms "
                     f"({row['bound_by']}; {nbytes} B, {ops:.0f} flop; "
                     f"entries by branch {counts})")
@@ -1377,11 +1569,67 @@ def k5_flops_per_query(m, o):
     return elimination + 2 * m * (o + o * o) + m
 
 
+def k5_singular_batch(torch, np, n):
+    """K5 on a batch with one block made singular by duplicated rows (m =
+    3 n: 24, and 60 in f64, go through the shared-memory design, 60 in f32
+    through the register design): the other blocks absolutely, the singular block relative to
+    its own (huge) values."""
+    from muygpys_torch.gpu import multiout_solve as K5
+    from muygpys_torch.ops.lanes_solver import multiout_frontend_bl
+
+    rng = np.random.default_rng(3)
+    B, I, O = 64, 3, 3
+    m = I * n
+    A = rng.standard_normal((B, m, 2 * m))
+    flat = A @ A.transpose(0, 2, 1) / (2 * m) + 0.5 * np.eye(m)
+    flat[3, 5, :] = flat[3, 4, :]
+    flat[3, :, 5] = flat[3, :, 4]
+    Kc_np = rng.standard_normal((B, I, n, O))
+    y_np = rng.standard_normal((B, I, n))
+    ok = [b for b in range(B) if b != 3]
+    for dtype in (torch.float32, torch.float64):
+        tname = str(dtype)[6:]
+        Kin = torch.as_tensor(flat.reshape(B, I, n, I, n), dtype=dtype, device="cuda")
+        Kc = torch.as_tensor(Kc_np, dtype=dtype, device="cuda")
+        y = torch.as_tensor(y_np, dtype=dtype, device="cuda")
+        Kout = torch.eye(O, dtype=dtype, device="cuda") * 1.3 + 0.1
+        (mean, cov), ran = designs_ran(
+            "multiout_solve", lambda: K5.multiout_serve_cuda(Kin, Kc, Kout, y))
+        torch.cuda.synchronize()
+        design = ("registers" if (m, dtype) == (60, torch.float32)
+                  else "shared")
+        assert ran == {design}, ran
+        bl = multiout_frontend_bl(Kin, Kc, y)
+        mean_p, cov_p = K5.fused_multiout_solve_bl_plain(bl[0], bl[1], Kout, bl[2])
+        mean_p, cov_p = mean_p.T, cov_p.permute(2, 0, 1)
+        assert torch.isfinite(mean).all() and torch.isfinite(cov).all(), (
+            "K5 gave a non-finite output on the singular batch"
+        )
+        ordinary = K5_SINGULAR_OTHERS[tname]
+        err_ok = max(float((mean[ok] - mean_p[ok]).abs().max()),
+                     float((cov[ok] - cov_p[ok]).abs().max()))
+        big = float(mean_p[3].abs().max())
+        rel_m = float((mean[3] - mean_p[3]).abs().max()) / big
+        rel_c = float((cov[3] - cov_p[3]).abs().max()) / float(cov_p[3].abs().max())
+        log(f"K5 {tname} singular batch (m={m}, B={B}, {design} design): "
+            f"the other blocks "
+            f"max_abs_err={err_ok:.3e} (tol {ordinary:.0e}); the singular "
+            f"block, |mean| up to {big:.3e}: relative error mean {rel_m:.3e} "
+            f"cov {rel_c:.3e} (tol {K5_SINGULAR_REL[tname]:.0e})")
+        assert big > 1e3, "the pivot floor did not act on the singular block"
+        assert err_ok <= ordinary, "K5 disagrees beside the singular block"
+        assert max(rel_m, rel_c) <= K5_SINGULAR_REL[tname], (
+            "K5 disagrees with its plain version on the singular block"
+        )
+
+
 def phase_k5(torch):
     """K5 against its plain version on real shear blocks at the shear
-    serving shape, both entries, f32 and f64, m = 90 and m = 60; a batch
-    with a singular block; returns the kernels-line row (f32, m = 90, the
-    frontend entry the serving path uses)."""
+    serving shape, both entries, f32 and f64: m = 90, and m = 60 in f32,
+    through the register design, m = 60 in f64 and m = 24 (nn = 8,
+    tests/test_torch_cuda.py's shape) through the shared-memory design; a batch with a singular block through
+    each design; returns the kernels-line row (f32, m = 90, the frontend
+    entry the serving path uses)."""
     import numpy as np
 
     from muygpys_torch.gpu import multiout_solve as K5
@@ -1396,24 +1644,33 @@ def phase_k5(torch):
     q = rng.uniform(size=(SHEAR_BATCH, 2))
     nf = q[:, None, :] + 0.03 * rng.standard_normal((SHEAR_BATCH, SHEAR_NN, 2))
     y3 = rng.standard_normal((SHEAR_BATCH, 3, SHEAR_NN))
-    row = None
-    for family, I in (("33", 3), ("23", 2)):
+    row, f64 = None, {}
+    for family, I, nn, count in (("33", 3, SHEAR_NN, SHEAR_BATCH),
+                                 ("23", 2, SHEAR_NN, SHEAR_BATCH),
+                                 ("33", 3, 8, 1000)):
         model = shear_model(family)
         for dtype in (torch.float32, torch.float64):
             tname = str(dtype)[6:]
-            q_d = torch.as_tensor(q, dtype=dtype, device="cuda")
-            nf_d = torch.as_tensor(nf, dtype=dtype, device="cuda")
-            y = torch.as_tensor(y3[:, 3 - I:], dtype=dtype, device="cuda")
+            q_d = torch.as_tensor(q[:count], dtype=dtype, device="cuda")
+            nf_d = torch.as_tensor(nf[:count, :nn], dtype=dtype, device="cuda")
+            y = torch.as_tensor(y3[:count, 3 - I:, :nn], dtype=dtype,
+                                device="cuda")
             pw = nf_d[:, :, None, :] - nf_d[:, None, :, :]
             cw = q_d[:, None, :] - nf_d
             Kin = model.noise.perturb(model.kernel(pw)).contiguous()
             Kc = model.kernel(cw).contiguous()
             Kout = model.kernel.Kout().to(dtype=dtype, device="cuda")
-            B, m, o = Kin.shape[0], I * SHEAR_NN, Kc.shape[-1]
+            B, m, o = Kin.shape[0], I * nn, Kc.shape[-1]
             bl = [t.contiguous() for t in multiout_frontend_bl(Kin, Kc, y)]
-            mean_f, cov_f = K5.multiout_serve_cuda(Kin, Kc, Kout, y)
-            mean_b, cov_b = K5.fused_multiout_solve_bl(bl[0], bl[1], Kout, bl[2])
+            (mean_f, cov_f), ran_f = designs_ran(
+                "multiout_solve", lambda: K5.multiout_serve_cuda(Kin, Kc, Kout, y))
+            (mean_b, cov_b), ran_b = designs_ran(
+                "multiout_solve",
+                lambda: K5.fused_multiout_solve_bl(bl[0], bl[1], Kout, bl[2]))
             torch.cuda.synchronize()
+            design = ("registers" if m == 90 or (m, dtype) == (60, torch.float32)
+                      else "shared")
+            assert ran_f == ran_b == {design}, (ran_f, ran_b)
             mean_p, cov_p = K5.fused_multiout_solve_bl_plain(
                 bl[0], bl[1], Kout, bl[2]
             )
@@ -1425,7 +1682,8 @@ def phase_k5(torch):
             err_c = float((cov_b - cov_p).abs().max())
             tol_m, tol_c = K5_TOL[tname]
             diag = cov_p.diagonal(dim1=0, dim2=1)
-            log(f"K5 {tname} m={m} o={o} B={B}: mean max_abs_err={err_m:.3e} "
+            log(f"K5 {tname} m={m} o={o} B={B} ({design} design): mean "
+                f"max_abs_err={err_m:.3e} "
                 f"(tol {tol_m:.0e}; |mean| median "
                 f"{float(mean_p.abs().median()):.3e}), cov max_abs_err="
                 f"{err_c:.3e} (tol {tol_c:.0e}; posterior variance min "
@@ -1436,6 +1694,18 @@ def phase_k5(torch):
             assert tol_c <= 0.1 * float(diag.min()), "covariance gate too loose"
             assert err_m <= tol_m, f"K5 mean disagrees with its plain version: {err_m}"
             assert err_c <= tol_c, f"K5 cov disagrees with its plain version: {err_c}"
+            if m in (60, 90) and dtype == torch.float64:
+                # f64 from the frontend layout: m = 90 through both designs
+                # (the register design is compiled there), m = 60 through
+                # the shared-memory design the launcher takes
+                frontend = (Kin.reshape(B, m, m), Kc.reshape(B, m, o),
+                            y.reshape(B, m), m, o, B, False)
+                f64[m] = {d: time_ms(lambda: K5._launch(*frontend, design=d))
+                          for d in (("registers", "shared") if m == 90
+                                    else ("shared",))}
+                log(f"K5 f64 m={m} time from the frontend layout: "
+                    + ", ".join(f"{d} design {t:.4f} ms"
+                                for d, t in f64[m].items()))
             if dtype == torch.float32:
                 ms = time_ms(lambda: K5.multiout_serve_cuda(Kin, Kc, Kout, y))
                 bl_ms = time_ms(lambda: K5.fused_multiout_solve_bl(
@@ -1443,11 +1713,23 @@ def phase_k5(torch):
                 nbytes = (m * m + m * o + m + o + o * o) * 4 * B
                 ops = k5_flops_per_query(m, o) * B
                 numbers = bound_row(nbytes, ops, ms=ms)
+                kept = ""
+                if m == 90:
+                    frontend = (Kin.reshape(B, m, m), Kc.reshape(B, m, o),
+                                y.reshape(B, m), m, o, B, False)
+                    numbers["kept_design_ms"] = time_ms(
+                        lambda: K5._launch(*frontend, design="shared"))
+                    # the kernel alone (the entry also forms Kout - S)
+                    numbers["device_ms"] = device_ms(
+                        torch, lambda: K5._launch(*frontend))
+                    kept = (f" ({numbers['device_ms']:.4f} ms on the device "
+                            f"alone); the shared-memory design "
+                            f"{numbers['kept_design_ms']:.4f} ms")
                 log(f"K5 f32 m={m} time: kernel {ms:.4f} ms from the frontend "
-                    f"layout, {bl_ms:.4f} ms from the batch-last layout; "
+                    f"layout, {bl_ms:.4f} ms from the batch-last layout{kept}; "
                     f"bound {numbers['bound_ms']:.4f} ms "
                     f"({numbers['bound_by']}; {nbytes} B, {ops} flop)")
-            if dtype == torch.float32 and family == "33":
+            if dtype == torch.float32 and m == 90:
                 plain_ms = time_ms(lambda: K5.fused_multiout_solve_bl_plain(
                     bl[0], bl[1], Kout, bl[2]), reps=2, trials=3, warmup=1)
                 flat, rhs = Kin.reshape(B, m, m), torch.cat(
@@ -1481,49 +1763,18 @@ def phase_k5(torch):
                     f"{float((lib_cov - cov_f).abs().max()):.3e}; the lanes "
                     f"engine's eager block Cholesky {lanes_ms:.1f} ms (one "
                     "call, host clock)")
-            if dtype == torch.float32 and family == "23":
+            if dtype == torch.float32 and m == 60:
                 row["m60_ms"], row["m60_batch_last_ms"] = ms, bl_ms
+            if dtype == torch.float32 and m == 24:
+                row["m24_shared_design_ms"] = ms
+    row["f64_ms"] = f64[90]["registers"]
+    row["f64_shared_design_ms"] = f64[90]["shared"]
+    row["m60_f64_shared_design_ms"] = f64[60]["shared"]
 
-    # a batch with one block made singular by duplicated rows
-    rng = np.random.default_rng(3)
-    B, I, n, O = 64, 3, 8, 3
-    m = I * n
-    A = rng.standard_normal((B, m, 2 * m))
-    flat = A @ A.transpose(0, 2, 1) / (2 * m) + 0.5 * np.eye(m)
-    flat[3, 5, :] = flat[3, 4, :]
-    flat[3, :, 5] = flat[3, :, 4]
-    Kc_np = rng.standard_normal((B, I, n, O))
-    y_np = rng.standard_normal((B, I, n))
-    ok = [b for b in range(B) if b != 3]
-    for dtype in (torch.float32, torch.float64):
-        tname = str(dtype)[6:]
-        Kin = torch.as_tensor(flat.reshape(B, I, n, I, n), dtype=dtype, device="cuda")
-        Kc = torch.as_tensor(Kc_np, dtype=dtype, device="cuda")
-        y = torch.as_tensor(y_np, dtype=dtype, device="cuda")
-        Kout = torch.eye(O, dtype=dtype, device="cuda") * 1.3 + 0.1
-        mean, cov = K5.multiout_serve_cuda(Kin, Kc, Kout, y)
-        torch.cuda.synchronize()
-        bl = multiout_frontend_bl(Kin, Kc, y)
-        mean_p, cov_p = K5.fused_multiout_solve_bl_plain(bl[0], bl[1], Kout, bl[2])
-        mean_p, cov_p = mean_p.T, cov_p.permute(2, 0, 1)
-        assert torch.isfinite(mean).all() and torch.isfinite(cov).all(), (
-            "K5 gave a non-finite output on the singular batch"
-        )
-        ordinary = K5_SINGULAR_OTHERS[tname]
-        err_ok = max(float((mean[ok] - mean_p[ok]).abs().max()),
-                     float((cov[ok] - cov_p[ok]).abs().max()))
-        big = float(mean_p[3].abs().max())
-        rel_m = float((mean[3] - mean_p[3]).abs().max()) / big
-        rel_c = float((cov[3] - cov_p[3]).abs().max()) / float(cov_p[3].abs().max())
-        log(f"K5 {tname} singular batch (m={m}, B={B}): the other blocks "
-            f"max_abs_err={err_ok:.3e} (tol {ordinary:.0e}); the singular "
-            f"block, |mean| up to {big:.3e}: relative error mean {rel_m:.3e} "
-            f"cov {rel_c:.3e} (tol {K5_SINGULAR_REL[tname]:.0e})")
-        assert big > 1e3, "the pivot floor did not act on the singular block"
-        assert err_ok <= ordinary, "K5 disagrees beside the singular block"
-        assert max(rel_m, rel_c) <= K5_SINGULAR_REL[tname], (
-            "K5 disagrees with its plain version on the singular block"
-        )
+    # a batch with one block made singular by duplicated rows, through each
+    # design
+    for n in (8, 20):
+        k5_singular_batch(torch, np, n)
     return row
 
 
@@ -1762,11 +2013,12 @@ def main() -> int:
     seconds = _build.build()
     log(f"build: {time.perf_counter() - t0:.1f} s "
         + json.dumps({k: round(v, 1) for k, v in seconds.items()}))
+    ptxas = {}
     for name in _build.SOURCES:
         report = _build.library_path(name).with_suffix(".log").read_text()
-        for line in report.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  {name}: {line.strip()}")
+        ptxas.update(ptxas_report(report))
+    for kernel, numbers in ptxas.items():
+        log(f"  {kernel}: {numbers}")
 
     # headline data: uniform 2-D field, seed 1; white-noise serving
     # targets, and for training a smooth field with N(0, 0.1^2) noise
@@ -1908,6 +2160,8 @@ def main() -> int:
     )
     launches_by_path["train"] = train_numbers.pop("launches")
     assert launches_by_path["train"]["fused_train_stats"] > 0
+    assert (launches_by_path["train"]["fused_train_stats/registers"]
+            == launches_by_path["train"]["fused_train_stats"])
     log("train: " + json.dumps(train_numbers))
 
     # 8. serving the trained model (variances scale with sigma^2, and so
@@ -2032,6 +2286,8 @@ def main() -> int:
         shear_requests,
     )
     launches_by_path["shear"] = shear_e2e["launches"]
+    assert (launches_by_path["shear"]["multiout_solve/registers"]
+            == launches_by_path["shear"]["multiout_solve"] > 0)
     shear_trace = device_trace(
         torch, lambda: [shear_server.predict(r) for r in shear_requests]
     )
@@ -2098,6 +2354,20 @@ def main() -> int:
             "muygpys_tpu/pallas/multiout_solve.py:122", "shear",
         ),
     }
+    # K2 and K5: each design's launches in the checks against the plain
+    # versions (phases 6, 9 and 13; the register designs also run on the
+    # main paths, the shared-memory designs only there), and each
+    # instantiation's registers and spills
+    for counter, kernel in (("fused_train_stats", "fused_train_stats"),
+                            ("multiout_solve", "multiout")):
+        designs = {d: CHECK_LAUNCHES.get(f"{counter}/{d}", 0)
+                   for d in ("registers", "shared")}
+        assert min(designs.values()) > 0, f"a {counter} design never ran"
+        for name in rows:
+            if name.split("[")[0] == counter:
+                rows[name]["design_launches_in_checks"] = designs
+                rows[name]["ptxas"] = {k: v for k, v in ptxas.items()
+                                       if k.startswith(kernel)}
     kernels = []
     for name, (source, replaces, path) in meta.items():
         counter = name.split("[")[0]

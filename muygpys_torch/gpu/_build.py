@@ -40,14 +40,20 @@ NVCC_FLAGS = (
 )
 
 # launches per kernel, counted by the wrappers where they launch (plain ints;
-# ``reset_launches`` zeroes them before a run whose path is to be shown)
+# ``reset_launches`` zeroes them before a run whose path is to be shown).
+# K2 and K5 have two designs each: "<kernel>/<design>" counts the launches of
+# one design, "<kernel>" those of both
 launches: Dict[str, int] = {
     "fused_predict_coords": 0,
     "fused_predict": 0,
     "knn_candidates": 0,
     "knn_candidates_pruned": 0,
     "fused_train_stats": 0,
+    "fused_train_stats/registers": 0,
+    "fused_train_stats/shared": 0,
     "multiout_solve": 0,
+    "multiout_solve/registers": 0,
+    "multiout_solve/shared": 0,
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -57,6 +63,13 @@ _fns: Dict[tuple, object] = {}
 def reset_launches() -> None:
     for name in launches:
         launches[name] = 0
+
+
+def count(*names: str) -> None:
+    """Add one launch to each named count: a wrapper calls it where it
+    launches its kernel, and nowhere else."""
+    for name in names:
+        launches[name] += 1
 
 
 def _nvcc() -> str:

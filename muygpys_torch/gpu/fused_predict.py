@@ -142,7 +142,7 @@ def _launch(name, dtype, argtypes, *args):
         _build.function("fused_predict", symbol, argtypes)(*args),
         "fused_predict", name,
     )
-    _build.launches[name] += 1
+    _build.count(name)
 
 
 def _gen_on_device(gen_coeffs, dtype, dev):

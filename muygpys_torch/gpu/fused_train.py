@@ -28,11 +28,18 @@ General smoothness rides the traced-nu surrogate K4
 coefficient vector is a runtime input, so the smoothness changes between
 optimizer steps without a rebuild.  ``train_tile_cap`` is a TPU VMEM rule
 with no counterpart here: the launcher sizes a block from its shared memory.
+
+K2 has two hand-written designs (``csrc/fused_train.cu``), chosen by shape
+(:func:`train_design`): the register design for ``n <= 32`` and ``r <= 4``
+(each point's rows in registers, right-looking elimination), the
+shared-memory design for the rest; a shape whose one point does not fit a
+block's shared memory in either is refused.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -49,7 +56,55 @@ from muygpys_torch.ops.lanes_solver import (
 _SQRT3 = 1.7320508075688772
 _SQRT5 = 2.23606797749979
 
-_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+
+#: shared memory one block can use on an H100 (bytes)
+MAX_SHARED_BYTES = 232448
+#: the register design's compile-time bounds: one lane per row, and the
+#: right-hand-side counts it is compiled for
+REGS_MAX_N = 32
+_REGS_RHS = (1, 2, 4)
+
+
+def train_shared_bytes(design, n, r, d_feat, smoothness_free, dtype, ncoef=0):
+    """Shared memory of a one-point block of ``design`` ("registers" or
+    "shared"), as ``csrc/fused_train.cu`` counts it: the point's elements
+    (``regs_point_elems`` or ``point_elems``) plus the block's length-scale
+    coefficients and the staged K4 vector."""
+    size = dtype.itemsize
+    dd = d_feat if d_feat else 1
+    ld = n | 1
+    if design == "registers":
+        R = next(c for c in _REGS_RHS if c >= r)
+        vw = 16 // size
+        rb = 32 + (1 + R + vw - 1) // vw * vw
+        elems = (2 * rb + (1 + 2 * R) * 32 + n * 33 + dd * n * ld + dd * n
+                 + R * n + n)
+        elems = (elems + 3) // 4 * 4
+    else:
+        nu = int(smoothness_free)
+        elems = n * ld * (dd + 1 + nu) + n * (3 + dd + 1 + 2 * r + nu)
+    return size * (elems + 2 * dd + ncoef)
+
+
+@functools.lru_cache(maxsize=None)
+def train_design(n, r, d_feat, smoothness_free, dtype, ncoef=0) -> str:
+    """The K2 design the launcher takes for a shape: "registers" when
+    ``n <= 32``, ``r <= 4`` and one point fits a block, else "shared" when
+    one point fits; raises ``ValueError`` when neither takes it (cached: a
+    training run asks once per evaluation for the same shape)."""
+    args = (n, r, d_feat, smoothness_free, dtype, ncoef)
+    if (n <= REGS_MAX_N and r <= _REGS_RHS[-1]
+            and train_shared_bytes("registers", *args) <= MAX_SHARED_BYTES):
+        return "registers"
+    need = train_shared_bytes("shared", *args)
+    if need > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"fused_train_stats: one point (n={n}, r={r}, d_feat={d_feat}) "
+            f"takes {need} bytes of shared memory in {dtype}, over the "
+            f"{MAX_SHARED_BYTES} a block can use"
+        )
+    return "shared"
 
 
 def _smoothness_code(
@@ -228,8 +283,8 @@ def fused_train_stats_bl(
     and requires the l2 metric.  Hyperparameters and coefficients are
     runtime values: one build serves every optimizer step.
 
-    Runs on ``device`` (default ``"cuda"``): K2 there, the plain version
-    for ``device="cpu"``.
+    Runs on ``device`` (default ``"cuda"``): K2 there (the design of
+    :func:`train_design`), the plain version for ``device="cpu"``.
     """
     dev = config.device(device)
     code = _smoothness_code(
@@ -241,9 +296,9 @@ def fused_train_stats_bl(
         )
     pw = torch.as_tensor(pw, device=dev)
     dtype = pw.dtype
-    cw, y, params = (
-        torch.as_tensor(t, dtype=dtype, device=dev) for t in (cw, y, params)
-    )
+    cw = torch.as_tensor(cw, dtype=dtype, device=dev)
+    y = torch.as_tensor(y, dtype=dtype, device=dev)
+    params = torch.as_tensor(params, dtype=dtype, device=dev)
     if noise_nn is not None:
         noise_nn = torch.as_tensor(noise_nn, dtype=dtype, device=dev)
     n, B = pw.shape[0], pw.shape[-1]
@@ -252,10 +307,10 @@ def fused_train_stats_bl(
     want_pw = (n, n, d_feat, B) if d_feat else (n, n, B)
     want_cw = (n, d_feat, B) if d_feat else (n, B)
     if (
-        tuple(pw.shape) != want_pw or tuple(cw.shape) != want_cw
-        or tuple(y.shape) != (n, r, B) or r < 1
-        or tuple(params.shape) != (d_eff + 2,)
-        or (noise_nn is not None and tuple(noise_nn.shape) != (n, B))
+        pw.shape != want_pw or cw.shape != want_cw
+        or y.shape != (n, r, B) or r < 1
+        or params.shape != (d_eff + 2,)
+        or (noise_nn is not None and noise_nn.shape != (n, B))
     ):
         raise ValueError(
             f"fused_train_stats_bl shapes (d_feat={d_feat}): pw "
@@ -267,34 +322,57 @@ def fused_train_stats_bl(
             pw, cw, y, params, noise_nn, gen_coeffs, smoothness,
             metric_power, noise_free, smoothness_free, d_feat,
         )
-    if dtype not in (torch.float32, torch.float64):
+    return _launch(
+        pw, cw, y, params, noise_nn, gen_coeffs, code, metric_power,
+        noise_free, smoothness_free, d_feat,
+    )
+
+
+def _launch(
+    pw, cw, y, params, noise_nn, gen_coeffs, code, metric_power, noise_free,
+    smoothness_free, d_feat, design=None,
+):
+    """One K2 launch on CUDA tensors of checked shapes: the design of
+    :func:`train_design`, or ``design`` where a caller compares the two
+    (the kernel refuses a register launch outside its bounds).  Every
+    objective evaluation of a training run comes through here, so it keeps
+    its Python work short: the kernel is ~0.05 ms on an H100."""
+    dtype = pw.dtype
+    if dtype is not torch.float32 and dtype is not torch.float64:
         raise ValueError(f"fused_train_stats_bl takes f32 or f64, not {dtype}")
-    ins = [t.contiguous() for t in (pw, cw, y, params)]
-    noise_nn = None if noise_nn is None else noise_nn.contiguous()
+    n, B = pw.shape[0], pw.shape[-1]
+    r = y.shape[1]
     gen = None
     if gen_coeffs is not None:
-        gen = torch.as_tensor(
-            gen_coeffs, dtype=dtype, device=dev
-        ).contiguous()
-    rows = (r + 2) + d_eff * (r + 2) + (r + 1)
-    if smoothness_free:
-        rows += r + 2
-    out = torch.empty((rows, B), dtype=dtype, device=dev)
-    symbol = (
-        "fused_train_stats_f32" if dtype == torch.float32
-        else "fused_train_stats_f64"
+        gen = torch.as_tensor(gen_coeffs, dtype=dtype, device=pw.device)
+        gen = gen.contiguous()
+    ncoef = 0 if gen is None else gen.numel()
+    if design is None:
+        design = train_design(n, r, d_feat, smoothness_free, dtype, ncoef)
+    pw, cw, y, params = (pw.contiguous(), cw.contiguous(), y.contiguous(),
+                         params.contiguous())
+    rows = (r + 2) * (2 + (d_feat or 1) + bool(smoothness_free)) - 1
+    out = torch.empty((rows, B), dtype=dtype, device=pw.device)
+    fn = _build.function(
+        "fused_train", _SYMBOLS[dtype is torch.float64], _ARGTYPES
     )
-    fn = _build.function("fused_train", symbol, _ARGTYPES)
     rc = fn(
-        *(_build.ptr(t) for t in ins), _build.ptr(noise_nn), _build.ptr(gen),
-        _build.ptr(out), n, d_feat, r, B, code, metric_power,
-        int(noise_free), int(smoothness_free),
-        0 if gen is None else gen.numel(), train_tail_terms(dtype),
-        _build.stream(dev),
+        pw.data_ptr(), cw.data_ptr(), y.data_ptr(), params.data_ptr(),
+        None if noise_nn is None else noise_nn.contiguous().data_ptr(),
+        None if gen is None else gen.data_ptr(), out.data_ptr(),
+        n, d_feat, r, B, code, metric_power, int(noise_free),
+        int(smoothness_free), ncoef, train_tail_terms(dtype),
+        int(design == "registers"),
+        torch.cuda.current_stream(pw.device).cuda_stream,
     )
     _build.check(rc, "fused_train", "fused_train_stats")
-    _build.launches["fused_train_stats"] += 1
+    _build.count(*_COUNTS[design])
     return out
+
+
+_SYMBOLS = ("fused_train_stats_f32", "fused_train_stats_f64")
+_COUNTS = {d: ("fused_train_stats", f"fused_train_stats/{d}")
+           for d in ("registers", "shared")}
 
 
 def _epilogue(

@@ -132,9 +132,7 @@ def knn_candidates(
         _build.stream(q.device),
     )
     _build.check(rc, "knn", "knn_candidates")
-    _build.launches[
-        "knn_candidates_pruned" if pruned else "knn_candidates"
-    ] += 1
+    _build.count("knn_candidates_pruned" if pruned else "knn_candidates")
     return s1, s2
 
 

@@ -5,12 +5,14 @@ Counterpart of :mod:`muygpys_tpu.pallas.multiout_solve`.  The lensing shear
 family conditions each query on a flattened observation block of
 ``m = I * nn`` rows and predicts ``o`` outputs with their full covariance.
 The kernel (``csrc/multiout_solve.cu``) eliminates the augmented
-``[Kin | Kcross | y]`` of one query in shared memory with the relative
-Gill-Murray pivot floor of :func:`muygpys_torch.ops.lanes_solver.cholesky_bl`
-and reads off ``mean = zc^T zy`` and ``S = zc^T zc``; ``cov = Kout - S`` is
-formed here.
+``[Kin | Kcross | y]`` of one query with the relative Gill-Murray pivot floor
+of :func:`muygpys_torch.ops.lanes_solver.cholesky_bl` and reads off
+``mean = zc^T zy`` and ``S = zc^T zc``; ``cov = Kout - S`` is formed here.
+It has two hand-written designs, chosen by shape (:func:`multiout_design`):
+the matrix in registers for the compiled shear shapes (:data:`REGISTER_SHAPES`),
+in shared memory for any other shape that fits.
 
-Two entries share the one kernel, which takes strides: the batch-last
+Two entries share each design, which takes strides: the batch-last
 contract of the JAX package (:func:`fused_multiout_solve_bl`) and the
 frontend layout the serving path holds (:func:`multiout_serve_cuda`), passed
 as it is, without the transpose the batch-last layout would cost.
@@ -19,6 +21,7 @@ as it is, without the transpose the batch-last layout would cost.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -27,18 +30,45 @@ from muygpys_torch import config
 from muygpys_torch.gpu import _build
 from muygpys_torch.ops.lanes_solver import multiout_frontend_bl
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
 
 #: shared memory one block can use on an H100 (bytes)
 MAX_SHARED_BYTES = 232448
+#: the (m, o) the register design is compiled for, by dtype: the shear blocks
+#: of 3-in/3-out (m = 90) and 2-in/3-out (m = 60) at nn = 30.  In f64 at
+#: m = 60 the shared-memory design was as fast on an H100 (PERF.md,
+#: Findings), so only m = 90 is compiled there
+REGISTER_SHAPES = {
+    torch.float32: ((90, 3), (60, 3)),
+    torch.float64: ((90, 3),),
+}
 
 
 def multiout_shared_bytes(m: int, o: int, dtype) -> int:
-    """Shared memory of one query's block: the augmented ``m x (m + o + 1)``
-    matrix and the ``m`` pivot scales.  The launcher's rule: one query per
-    block, and a shape over :data:`MAX_SHARED_BYTES` is refused."""
-    size = torch.empty((), dtype=dtype).element_size()
-    return size * (m * (m + o + 1) + m)
+    """Shared memory of one query's block in the shared-memory design: the
+    augmented ``m x (m + o + 1)`` matrix and the ``m`` pivot scales.  The
+    launcher's rule: one query per block, and a shape over
+    :data:`MAX_SHARED_BYTES` is refused."""
+    return dtype.itemsize * (m * (m + o + 1) + m)
+
+
+@functools.lru_cache(maxsize=None)
+def multiout_design(m: int, o: int, dtype) -> str:
+    """The K5 design the launcher takes: "registers" for a shape compiled
+    in ``dtype`` (:data:`REGISTER_SHAPES`), else "shared" when one query
+    fits a block's shared memory; raises ``ValueError`` otherwise."""
+    if dtype not in REGISTER_SHAPES:
+        raise ValueError(f"fused_multiout_solve takes f32 or f64, not {dtype}")
+    if (m, o) in REGISTER_SHAPES[dtype]:
+        return "registers"
+    need = multiout_shared_bytes(m, o, dtype)
+    if need > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"fused_multiout_solve: one query's augmented {m} x {m + o + 1} "
+            f"matrix takes {need} bytes of shared memory in {dtype}, over "
+            f"the {MAX_SHARED_BYTES} a block can use"
+        )
+    return "shared"
 
 
 def fused_multiout_solve_bl_plain(
@@ -80,19 +110,14 @@ def fused_multiout_solve_bl_plain(
     return mean, Kout[:, :, None] - S
 
 
-def _launch(Kin, Kcross, y, m, o, B, batch_last):
-    """One K5 launch on contiguous CUDA tensors in either layout; returns
-    ``(mean, S)`` in the same layout."""
+def _launch(Kin, Kcross, y, m, o, B, batch_last, design=None):
+    """One K5 launch on CUDA tensors in either layout: the design of
+    :func:`multiout_design`, or ``design`` where a caller compares the two
+    (the kernel refuses a register launch of a shape it was not compiled
+    for); returns ``(mean, S)`` in the same layout."""
     dtype, dev = Kin.dtype, Kin.device
-    if dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"fused_multiout_solve takes f32 or f64, not {dtype}")
-    need = multiout_shared_bytes(m, o, dtype)
-    if need > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"fused_multiout_solve: one query's augmented {m} x {m + o + 1} "
-            f"matrix takes {need} bytes of shared memory in {dtype}, over "
-            f"the {MAX_SHARED_BYTES} a block can use"
-        )
+    chosen = multiout_design(m, o, dtype)  # refuses what neither design takes
+    design = design or chosen
     Kin, Kcross, y = Kin.contiguous(), Kcross.contiguous(), y.contiguous()
     shape = ((o, B), (o, o, B)) if batch_last else ((B, o), (B, o, o))
     mean = torch.empty(shape[0], dtype=dtype, device=dev)
@@ -102,11 +127,11 @@ def _launch(Kin, Kcross, y, m, o, B, batch_last):
         _build.function("multiout_solve", symbol, _ARGTYPES)(
             _build.ptr(Kin), _build.ptr(Kcross), _build.ptr(y),
             _build.ptr(mean), _build.ptr(S), m, o, B, int(batch_last),
-            _build.stream(dev),
+            int(design == "registers"), _build.stream(dev),
         ),
         "multiout_solve", "multiout_solve",
     )
-    _build.launches["multiout_solve"] += 1
+    _build.count("multiout_solve", f"multiout_solve/{design}")
     return mean, S
 
 

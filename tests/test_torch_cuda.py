@@ -200,15 +200,25 @@ def k2_row_errors(out, ref, r):
     return res
 
 
+# the shapes K2 runs at: every case at n = 30 (the register design), and
+# the headline and anisotropic r = 2 cases on both sides of the 32 <-> 33
+# boundary between the register and the shared-memory design
+K2_SHAPES = [(c, 30) for c in K2_CASES] + [
+    (K2_CASES[1], n) for n in (8, 32, 33, 40)
+] + [(K2_CASES[4], n) for n in (8, 32, 33, 40)]
+
+
+def k2_expected_design(n, r):
+    return "registers" if n <= 32 and r <= 4 else "shared"
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize(
-    "case,n",
-    [(c, 30) for c in K2_CASES] + [(K2_CASES[1], 40), (K2_CASES[4], 40)],
-    ids=[f"{c}-n{n}" for c, n in
-         [(c, 30) for c in K2_CASES] + [(K2_CASES[1], 40), (K2_CASES[4], 40)]],
+    "case,n", K2_SHAPES, ids=[f"{c}-n{n}" for c, n in K2_SHAPES],
 )
 def test_k2_kernel_matches_plain(case, n, dtype):
-    """n = 40 gives a warp more rows than lanes and, in f64, a block of
+    """Each shape through the design the launcher takes for it (counted
+    apart); n = 40 gives a warp more rows than lanes and, in f64, a block of
     fewer than 8 points."""
     _need_card()
     from muygpys_torch.gpu.fused_train import (
@@ -239,12 +249,12 @@ def test_k2_kernel_matches_plain(case, n, dtype):
             for t in (pw, cw, y, params, noise_nn)]
     kw = dict(smoothness=smoothness, metric_power=power,
               noise_free=noise_free, d_feat=d_feat)
-    from muygpys_torch.gpu import _build
-
-    before = _build.launches["fused_train_stats"]
+    design = f"fused_train_stats/{k2_expected_design(n, r)}"
+    before = dict(_build.launches)
     out = fused_train_stats_bl(*args, **kw)
     torch.cuda.synchronize()
-    assert _build.launches["fused_train_stats"] == before + 1
+    assert _build.launches["fused_train_stats"] == before["fused_train_stats"] + 1
+    assert _build.launches[design] == before[design] + 1
     ref = fused_train_stats_bl_plain(*args, **kw)
     assert torch.isfinite(out).all()
     # f64: both orders exact to ~1e-16 x the conditioning (<~1e4 here);
@@ -252,6 +262,37 @@ def test_k2_kernel_matches_plain(case, n, dtype):
     rel = 1e-9 if dtype == torch.float64 else 1e-2
     for i, (err, mag) in enumerate(k2_row_errors(out, ref, r)):
         assert err <= rel * mag, f"row {i}: error {err} against {mag}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_k2_both_designs_agree_and_registers_refuse_n33(dtype):
+    """At n = 30 the shared-memory design, forced, gives the register
+    design's rows; the register kernel refuses n = 33 (past one lane per
+    row) with a CUDA error, never a plain fall-back."""
+    _need_card()
+    from muygpys_torch.gpu import fused_train as K2
+
+    g = torch.Generator(device="cuda").manual_seed(6)
+    B = 300
+    for n in (30, 33):
+        pts = torch.rand((n, 2, B), dtype=torch.float64, device="cuda", generator=g)
+        pw = ((pts[:, None] - pts[None]) ** 2).sum(2).sqrt().to(dtype)
+        cw = ((pts - pts[:1]) ** 2).sum(1).sqrt().to(dtype) + 0.01
+        y = torch.randn((n, 2, B), dtype=torch.float64, device="cuda",
+                        generator=g).to(dtype)
+        params = torch.tensor([0.4, 2e-2, 1e-2], dtype=dtype, device="cuda")
+        launch = lambda design: K2._launch(  # noqa: E731
+            pw, cw, y, params, None, None, 1, 1, True, False, 0, design
+        )
+        if n == 33:
+            with pytest.raises(RuntimeError, match="CUDA error"):
+                launch("registers")
+            continue
+        regs, shared = launch("registers"), launch("shared")
+        torch.cuda.synchronize()
+        rel = 1e-9 if dtype == torch.float64 else 1e-2
+        for i, (err, mag) in enumerate(k2_row_errors(regs, shared, 2)):
+            assert err <= rel * mag, f"row {i}: error {err} against {mag}"
 
 
 # (nu, free nu, noise_free, r, d_feat, heteroscedastic)
@@ -266,9 +307,12 @@ K2_GEN_CASES = [
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize(
-    "case,n", [(c, 30) for c in K2_GEN_CASES] + [(K2_GEN_CASES[3], 40)],
+    "case,n",
+    [(c, 30) for c in K2_GEN_CASES] + [(K2_GEN_CASES[1], 32),
+                                       (K2_GEN_CASES[3], 40)],
     ids=[f"{c}-n{n}" for c, n in
-         [(c, 30) for c in K2_GEN_CASES] + [(K2_GEN_CASES[3], 40)]],
+         [(c, 30) for c in K2_GEN_CASES] + [(K2_GEN_CASES[1], 32),
+                                            (K2_GEN_CASES[3], 40)]],
 )
 def test_k2_gen_kernel_matches_plain(case, n, dtype):
     """K2 under "gen", fixed and free nu: every row, the d/dnu group
@@ -302,10 +346,12 @@ def test_k2_gen_kernel_matches_plain(case, n, dtype):
     kw = dict(gen_coeffs=_gen_coeffs(nu, dtype, train=True, need_dnu=free),
               smoothness="gen", noise_free=noise_free, smoothness_free=free,
               d_feat=d_feat)
-    before = _build.launches["fused_train_stats"]
+    design = f"fused_train_stats/{k2_expected_design(n, r)}"
+    before = dict(_build.launches)
     out = fused_train_stats_bl(*args, **kw)
     torch.cuda.synchronize()
-    assert _build.launches["fused_train_stats"] == before + 1
+    assert _build.launches["fused_train_stats"] == before["fused_train_stats"] + 1
+    assert _build.launches[design] == before[design] + 1
     ref = fused_train_stats_bl_plain(*args, **kw)
     G = d_feat if d_feat else 1
     assert out.shape[0] == (r + 2) + G * (r + 2) + (r + 1) + (r + 2) * free
@@ -440,19 +486,28 @@ K5_REL = {torch.float64: (1e-11, 1e-12), torch.float32: (1e-4, 1e-5)}
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-@pytest.mark.parametrize("I,n,B", [(3, 30, 257), (2, 30, 64), (3, 8, 1000)])
+@pytest.mark.parametrize(
+    "I,n,B", [(3, 30, 257), (2, 30, 64), (3, 20, 65), (3, 8, 1000)]
+)
 def test_k5_kernel_matches_plain_in_both_layouts(I, n, B, dtype):
+    """m = 90, and m = 60 (3 x 20 and 2 x 30) in f32, through the register
+    design; m = 60 in f64 and m = 24 through the shared-memory design, as
+    the launcher picks them."""
     _need_card()
     from muygpys_torch.gpu import multiout_solve as K5
     from muygpys_torch.ops.lanes_solver import multiout_frontend_bl
 
     Kin, Kc, Kout, y = _shear_blocks(B, I, n, dtype)
-    before = _build.launches["multiout_solve"]
+    design = "multiout_solve/" + K5.multiout_design(I * n, 3, dtype)
+    registers = I * n == 90 or (I * n == 60 and dtype == torch.float32)
+    assert design.endswith("registers" if registers else "shared")
+    before = dict(_build.launches)
     mean_f, cov_f = K5.multiout_serve_cuda(Kin, Kc, Kout, y)
     Kin_bl, Kc_bl, y_bl = multiout_frontend_bl(Kin, Kc, y)
     mean_b, cov_b = K5.fused_multiout_solve_bl(Kin_bl, Kc_bl, Kout, y_bl)
     torch.cuda.synchronize()
-    assert _build.launches["multiout_solve"] == before + 2
+    assert _build.launches["multiout_solve"] == before["multiout_solve"] + 2
+    assert _build.launches[design] == before[design] + 2
     mean_p, cov_p = K5.fused_multiout_solve_bl_plain(Kin_bl, Kc_bl, Kout, y_bl)
     assert mean_f.shape == (B, 3) and cov_f.shape == (B, 3, 3)
     assert mean_b.shape == (3, B) and cov_b.shape == (3, 3, B)
@@ -467,16 +522,19 @@ def test_k5_kernel_matches_plain_in_both_layouts(I, n, B, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_k5_singular_block_stays_finite(dtype):
-    """A block made singular by duplicated rows: every output finite, the
-    other blocks at the ordinary limit, the singular one close to the plain
-    version's (huge) numbers."""
+@pytest.mark.parametrize("n", [8, 20])
+def test_k5_singular_block_stays_finite(n, dtype):
+    """A block made singular by duplicated rows, through the shared-memory
+    design (m = 24; m = 60 in f64) and the register design (m = 60 in f32):
+    every output finite,
+    the other blocks at the ordinary limit, the singular one close to the
+    plain version's (huge) numbers."""
     _need_card()
     from muygpys_torch.gpu import multiout_solve as K5
     from muygpys_torch.ops.lanes_solver import multiout_frontend_bl
 
     rng = np.random.default_rng(3)
-    B, I, n, O = 16, 3, 8, 3
+    B, I, O = 16, 3, 3
     m = I * n
     A = rng.standard_normal((B, m, 2 * m))
     flat = A @ A.transpose(0, 2, 1) / (2 * m) + 0.5 * np.eye(m)
@@ -506,6 +564,30 @@ def test_k5_singular_block_stays_finite(dtype):
     rel = 1e-11 if dtype == torch.float64 else 1e-5
     assert float((mean[3] - mean_p[3]).abs().max()) <= rel * float(mean_p[3].abs().max())
     assert float((cov[3] - cov_p[3]).abs().max()) <= rel * float(cov_p[3].abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_k5_both_designs_agree_at_m90(dtype):
+    """The shared-memory design, forced at a register shape, agrees with
+    the register design (the same arithmetic in another order); the
+    register kernel refuses a shape it was not compiled for."""
+    _need_card()
+    from muygpys_torch.gpu import multiout_solve as K5
+
+    Kin, Kc, Kout, y = _shear_blocks(129, 3, 30, dtype, seed=4)
+    B, m = Kin.shape[0], 90
+    args = (Kin.reshape(B, m, m), Kc.reshape(B, m, 3), y.reshape(B, m),
+            m, 3, B, False)
+    mr, Sr = K5._launch(*args, design="registers")
+    ms, Ss = K5._launch(*args, design="shared")
+    torch.cuda.synchronize()
+    rel_m, rel_c = K5_REL[dtype]
+    assert float((mr - ms).abs().max()) <= rel_m * float(ms.abs().max())
+    assert float((Sr - Ss).abs().max()) <= rel_c * float(Kout.diagonal().max())
+    small = _shear_blocks(4, 3, 8, dtype)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        K5._launch(small[0].reshape(4, 24, 24), small[1].reshape(4, 24, 3),
+                   small[3].reshape(4, 24), 24, 3, 4, False, design="registers")
 
 
 def test_k5_launcher_refuses_what_does_not_fit():

@@ -12,6 +12,7 @@ import torch
 from muygpys_tpu.pallas.fused_train import fused_train_stats_bl as jax_k2
 from muygpys_tpu.pallas.matern_nu import matern_nu_coeffs as jax_coeffs
 from muygpys_torch.gpu import _build
+from muygpys_torch.gpu import fused_train as K2
 from muygpys_torch.gpu.fused_train import (
     fused_train_stats_bl,
     fused_train_stats_bl_plain,
@@ -201,3 +202,67 @@ def test_wrapper_defaults_to_cuda(monkeypatch):
     pw, cw, y, params, _ = k2_inputs(0, 0, 1, 1, False, False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         fused_train_stats_bl(pw, cw, y, params)
+
+
+@pytest.mark.parametrize(
+    "n,r,d_feat,free,dtype,want",
+    [
+        (8, 1, 0, False, torch.float32, "registers"),
+        (30, 1, 0, False, torch.float32, "registers"),  # the training headline
+        (30, 2, 2, True, torch.float64, "registers"),
+        (32, 4, 0, False, torch.float64, "registers"),
+        (33, 1, 0, False, torch.float32, "shared"),  # past one lane per row
+        (40, 2, 2, True, torch.float64, "shared"),
+        (12, 5, 0, False, torch.float32, "shared"),  # past the compiled r
+    ],
+)
+def test_launcher_design_rule(n, r, d_feat, free, dtype, want):
+    """Which K2 design serves a shape: registers for n <= 32 and r <= 4,
+    shared memory otherwise, each only where one point fits a block."""
+    ncoef = 207 if free else 0
+    assert K2.train_design(n, r, d_feat, free, dtype, ncoef) == want
+
+
+def test_launcher_budgets_and_refusal():
+    """The shared-memory counts of both designs, as csrc/fused_train.cu
+    counts them, and the refusal of a shape neither takes, before any
+    build or launch (a meta tensor stands in for a CUDA one)."""
+    # register design at the headline: two pivot rows of 32 + 4, the
+    # vectors a | b | b0, K at stride 33, the slab at stride 31, cw, y, the
+    # nugget, rounded up to 4 elements; plus 1/ls and -c/ls
+    elems = 2 * 36 + 3 * 32 + 30 * 33 + 30 * 31 + 3 * 30
+    assert elems % 4 == 2
+    assert K2.train_shared_bytes(
+        "registers", 30, 1, 0, False, torch.float32
+    ) == 4 * (elems + 2 + 2)
+    # shared design: D and M (n x 31 each), kd, nugget, column, gc, s, s0
+    assert K2.train_shared_bytes(
+        "shared", 30, 1, 0, False, torch.float32
+    ) == 4 * (30 * 31 * 2 + 30 * 7 + 2)
+    # f64 rows pad to 16 bytes (two values): 2174 elements, rounded to 2176
+    elems = 2 * 34 + 3 * 32 + 30 * 33 + 30 * 31 + 3 * 30
+    assert K2.train_shared_bytes(
+        "registers", 30, 1, 0, False, torch.float64
+    ) == 8 * (elems + 2 + 2)
+    for design in ("registers", "shared"):
+        assert K2.train_shared_bytes(
+            design, 30, 1, 0, False, torch.float32, 207
+        ) - K2.train_shared_bytes(
+            design, 30, 1, 0, False, torch.float32
+        ) == 4 * 207
+    with pytest.raises(ValueError, match="shared memory"):
+        K2.train_design(120, 1, 3, True, torch.float64, 207)
+    n, B = 120, 2
+    meta = dict(device="meta", dtype=torch.float64)
+    with pytest.raises(ValueError, match="shared memory"):
+        K2._launch(
+            torch.empty((n, n, 3, B), **meta), torch.empty((n, 3, B), **meta),
+            torch.empty((n, 1, B), **meta), torch.empty((5,), **meta), None,
+            None, 1, 1, False, False, 3,
+        )
+    with pytest.raises(ValueError, match="f32 or f64"):
+        K2._launch(
+            torch.empty((n, n, B), device="meta", dtype=torch.float16),
+            None, torch.empty((n, 1, B), device="meta"), None, None, None,
+            1, 1, False, False, 0,
+        )

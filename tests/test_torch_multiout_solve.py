@@ -175,3 +175,33 @@ def test_shared_memory_rule():
                    torch.empty((2, 239), device="meta"), 239, 3, 2, False)
     with pytest.raises(ValueError, match="f32 or f64"):
         K5._launch(Kin.half(), None, None, 239, 3, 2, False)
+
+
+@pytest.mark.parametrize(
+    "m,o,dtype,want",
+    [
+        (90, 3, torch.float32, "registers"),  # shear 3-in/3-out, nn = 30
+        (90, 3, torch.float64, "registers"),
+        (60, 3, torch.float32, "registers"),  # 2-in/3-out, nn = 30
+        (60, 3, torch.float64, "shared"),  # as fast there in f64
+        (24, 3, torch.float32, "shared"),  # tests/test_torch_cuda.py's nn = 8
+        (90, 2, torch.float32, "shared"),  # not a compiled o
+        (238, 3, torch.float32, "shared"),
+        (167, 3, torch.float64, "shared"),
+    ],
+)
+def test_launcher_design_rule(m, o, dtype, want):
+    """Which K5 design serves a shape: registers for the shear shapes
+    compiled in that dtype, shared memory for any other that fits."""
+    assert K5.multiout_design(m, o, dtype) == want
+
+
+def test_launcher_refuses_what_neither_design_takes():
+    for m, dtype in ((239, torch.float32), (168, torch.float64)):
+        with pytest.raises(ValueError, match="shared memory"):
+            K5.multiout_design(m, 3, dtype)
+    with pytest.raises(ValueError, match="f32 or f64"):
+        K5.multiout_design(90, 3, torch.float16)
+    assert {k: set(v) for k, v in K5.REGISTER_SHAPES.items()} == {
+        torch.float32: {(90, 3), (60, 3)}, torch.float64: {(90, 3)},
+    }
