@@ -12,6 +12,9 @@ process per side in the order other, this, this, other.  A process builds
 its checkout's kernels, sets up the chip_smoke.py headlines and measures,
 ``--reps`` times each after a warm-up:
 
+- fused serving (phase 5's headline: the 50,000-point field Morton-sorted,
+  Matern 3/2, ``FastServer(engine="fused", bucket=8192)``, three requests
+  of 8192, 8192 and 5000): predictions per second between CUDA events;
 - fixed-smoothness training (phase 7's headline: the 50,000-point field, a
   LOO batch of 2048, Matern 3/2, free length scale and noise, f32):
   objective evaluations per second of ``Fused_L_BFGS_B_optimize`` (the
@@ -76,8 +79,9 @@ def probe(root: str, reps: int) -> dict:
     # chip_smoke.py's headline data: the same draws in the same order
     rng = np.random.default_rng(1)
     train = rng.uniform(size=(cs.TRAIN, cs.D)).astype(np.float32)
-    rng.standard_normal((cs.TRAIN, 1))  # the serving targets
-    rng.uniform(size=(cs.QUERIES + 8192 + 5000, cs.D))  # the queries
+    targets = rng.standard_normal((cs.TRAIN, 1)).astype(np.float32)
+    queries = rng.uniform(size=(cs.QUERIES + 8192 + 5000, cs.D)).astype(
+        np.float32)
     y_train = (
         np.sin(2 * np.pi * train[:, 0]) * np.cos(2 * np.pi * train[:, 1])
         + 0.1 * rng.standard_normal(cs.TRAIN)
@@ -104,6 +108,19 @@ def probe(root: str, reps: int) -> dict:
         evals = 1 + int(re.search(r"\bnfev:\s*(\d+)", report.getvalue())[1])
         train_rates.append(evals / seconds)
 
+    from muygpys_torch.convert import muygps_from_arrays
+
+    fused = FastServer(
+        muygps_from_arrays(length_scale=cs.LS, noise=cs.NOISE, scale=1.0,
+                           smoothness=cs.NU),
+        nbrs, train, targets, bucket=cs.QUERIES, engine="fused",
+    )
+    fused_requests = [queries[:cs.QUERIES], queries[cs.QUERIES:cs.QUERIES + 8192],
+                      queries[cs.QUERIES + 8192:]]
+    fused.predict(fused_requests[2])  # warm-up
+    fused_rates = [cs.serve(torch, fused, fused_requests)[2]
+                   for _ in range(reps)]
+
     sky, sky_targets, requests = cs.shear_sky(np)
     server = FastServer(cs.shear_model(), NN_Wrapper(sky, cs.SHEAR_NN), sky,
                         sky_targets, bucket=cs.SHEAR_BATCH, engine="kernel")
@@ -111,6 +128,8 @@ def probe(root: str, reps: int) -> dict:
     shear_rates = [cs.serve(torch, server, requests)[2] for _ in range(reps)]
     return dict(
         root=root,
+        fused_preds_per_s=fused_rates,
+        fused_median=statistics.median(fused_rates),
         train_evals_per_s=train_rates[1:],
         train_median=statistics.median(train_rates[1:]),
         shear_preds_per_s=shear_rates,
@@ -154,6 +173,9 @@ def main() -> int:
     print(json.dumps({
         side: dict(
             root=sides[side],
+            fused_preds_per_s=statistics.median(
+                r["fused_median"] for r in runs),
+            fused_by_process=[r["fused_median"] for r in runs],
             train_evals_per_s=statistics.median(
                 r["train_median"] for r in runs),
             shear_preds_per_s=statistics.median(

@@ -13,17 +13,28 @@ Phases (any failure raises and the script exits non-zero):
    registers and spills of each kernel, design and instantiation;
 3. K1 (fused coords solve) against its plain PyTorch version on the card at
    the serving shape (n=30, d=2, r=1, B=8192) for every closed form, RBF on
-   F2 and a heteroscedastic case, in f32 and f64;
-4. K3 (packed-key KNN candidates), unpruned and pruned, against its plain
-   version at 50,000 x 8192, d=2, plus the cdist + topk yardstick;
+   F2 and a heteroscedastic case, in f32 and f64, through the design the
+   launcher takes (registers); at the headline both designs (registers and
+   the kept shared-memory design) checked and timed, queued and alone on
+   the device, beside the library yardstick (torch.linalg.cholesky +
+   cholesky_solve on K formed elementwise);
+4. K3 (packed-key KNN candidates) against its plain version: unpruned at
+   50,000 x 8192, at the main path's unpruned shape (the 1/16 subsample,
+   8192 x 4096), pruned, and pruned at NN_Wrapper's 1024 bins, d=2, through
+   the fused design (the merge inside the kernel: distances bit-equal,
+   index sets on >= 0.999 of slots) and the kept design plus its torch.topk
+   merge (key state bit-equal), each timed, with the cdist + topk
+   yardstick;
 5. serving end to end: FastServer(engine="fused") at the headline
    configuration (50k Morton-sorted training points, d=2, nn=30, bucket
    8192, Matern 3/2, ls 0.5, noise 1e-3, f32) answers three requests, one
    not a multiple of the bucket; the same with engine="kernel" over an
    exact NN_Wrapper; both held against the f64 reference engine on the same
-   exact neighbours (mean and variance each against its own limit); a
+   exact neighbours (mean and variance each against its own limit); the
+   fused requests launch only the new designs of K3 and K1; a
    torch.profiler trace of the fused requests gives device time by kernel
-   and the idle share;
+   and the idle share; NN_Wrapper(nn_method="kernel") against the exact
+   index on the first request;
 6. K2 (fused LOO statistics and analytic derivatives) against its plain
    version at the training shape (n=30, B=2048) on real neighbourhoods of
    the 50k set: every closed form, RBF on F2, noise free on and off,
@@ -44,7 +55,7 @@ Phases (any failure raises and the script exits non-zero):
 9. general smoothness, K4 (the traced-nu surrogate, csrc/matern_nu.cuh)
    inside K1, K1b and K2: K1 under "gen" against its plain version at the
    serving shape for nu in {0.31, 1.2, 2.0 (the clamp zone), 4.8}, f32 and
-   f64; K4 alone against scipy.special.kv through the f64 and f32 kernels on
+   f64, nu = 1.2 through both designs and timed; K4 alone against scipy.special.kv through the f64 and f32 kernels on
    a t grid; K1b (the solve from distances) against its plain version,
    closed form, RBF and gen; K2 under "gen", a fixed and a free nu,
    isotropic and anisotropic, at the headline's length scale (every entry
@@ -87,14 +98,15 @@ Phases (any failure raises and the script exits non-zero):
    evaluation and gradient of the batched layout against the lanes layout
    in f64; the trained model served through K5;
 16. the kernels line: one JSON object with every kernel's launches on its
-   path, error against its plain version, times and bound; for K2 and K5
+   path and each design's launches there, error against its plain version,
+   times (for K1 and K3 also the kept design's) and bound; for K2 and K5
    each design's launches over the run (both must have run) and registers;
 17. the last line: {"ok": true, "device": {...}}.
 
 Kernel times are CUDA-event medians over back-to-back launches (time_ms);
-for K2 and K5 also the kernel's own device time, each call queued behind
-a device-side sleep (device_ms), which time_ms exceeds where a call's host
-work outlasts the kernel; wall times are medians of single runs.  Bounds use the H100 SXM
+for K1, K2, K3 and K5 also the kernel's own device time, each call queued
+behind a device-side sleep (device_ms), which time_ms exceeds where a
+call's host work outlasts the kernel; wall times are medians of single runs.  Bounds use the H100 SXM
 data-sheet peaks (3.35 TB/s HBM, 67 TFLOP/s fp32 outside the tensor cores;
 fp64 counted at the same rate, so an f64 bound is optimistic).
 """
@@ -308,17 +320,21 @@ def ptxas_report(text):
     """Registers and spill bytes of each kernel in an ``nvcc -Xptxas -v``
     log, keyed by the kernel's name and template arguments (f = float, d =
     double, then the compile-time sizes): e.g. ``fused_train_stats_regs_kernel
-    f 1`` is the register design of K2 in f32 for one right-hand side."""
+    f 1`` is the register design of K2 in f32 for one right-hand side,
+    ``knn_select_kernel 2 2`` the fused K3 design at 2 features and 512
+    bins."""
     import re
 
     out, kernel = {}, None
     for line in text.splitlines():
         entry = re.search(r"Compiling entry function '([^']+)'", line)
         if entry:
-            found = re.search(r"\d+([a-z_]+?_kernel)I([fd])((?:Li\d+E)*)",
-                              entry.group(1))
-            kernel = (" ".join([found.group(1), found.group(2)]
-                               + re.findall(r"Li(\d+)E", found.group(3)))
+            found = re.search(
+                r"\d+([a-z_]+?_kernel)(?:I([fd])?((?:Li\d+E)*))?",
+                entry.group(1))
+            kernel = (" ".join([found.group(1), found.group(2) or ""]
+                               + re.findall(r"Li(\d+)E", found.group(3) or ""))
+                      .replace("  ", " ").strip()
                       if found else entry.group(1)[:60])
             out[kernel] = {}
             continue
@@ -390,6 +406,7 @@ def phase_k1(torch, knn_inputs):
         (0.5, 1, False), (1.5, 1, False), (2.5, 1, False),
         (math.inf, 1, False), ("rbf", 2, False), (1.5, 1, True),
     ]
+    designs = None
     # (mean, variance) limits.  f64: both sides exact to ~1e-16 x the
     # neighborhood conditioning (<= ~1e5 at noise 1e-3); f32: the floors
     # above
@@ -418,99 +435,200 @@ def phase_k1(torch, knn_inputs):
             assert tol_v <= 0.1 * v_min, "variance gate too loose to see a wrong var"
             assert err_m <= tol_m, f"K1 mean disagrees with its plain version: {err_m}"
             assert err_v <= tol_v, f"K1 var disagrees with its plain version: {err_v}"
+            if nu == NU and not hetero:
+                designs = k1_designs(torch, args, nu, (mp, vp), (tol_m, tol_v))
             if dtype == torch.float32 and nu == NU and not hetero:
-                ms = time_ms(lambda: fused_predict_coords_bl(*args, **kw))
                 plain_ms = time_ms(
                     lambda: fused_predict_coords_bl_plain(*args, **kw),
                     reps=3, trials=3,
                 )
+                library_ms = time_ms(k1_library(torch, *args[:4]), reps=5,
+                                     trials=3)
                 nbytes = (n * d + d + n * r + r + 1) * 4 * B + (d + 1) * 4
                 ops = k1_ops_per_query(n, d, r) * B
-                byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-                op_ms = ops / FP32_FLOPS * 1e3
-                row = dict(
-                    max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    bound_ms=max(byte_ms, op_ms),
-                    bound_by="bytes" if byte_ms > op_ms else "operations",
-                    library_ms=None,
-                )
-                log(f"K1 f32 time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                    f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}; "
-                    f"{nbytes} B, {ops} flop)")
+                row = k1_row(designs, nbytes, ops, max_abs_err=err,
+                             plain_ms=plain_ms, library_ms=library_ms)
+                log(f"K1 f32 time: {row['design']} design {row['ms']:.4f} ms "
+                    f"(device {row['device_ms']:.4f}), kept design "
+                    f"{row['kept_ms']:.4f} ms (device "
+                    f"{row['kept_device_ms']:.4f}), plain {plain_ms:.4f} ms, "
+                    f"library {library_ms:.4f} ms, bound "
+                    f"{row['bound_ms']:.4f} ms ({row['bound_by']}; {nbytes} "
+                    f"B, {ops} flop)")
     return row
 
 
+def k1_designs(torch, args, smoothness, plain, tol):
+    """Both K1 designs at one shape through the private launcher, each held
+    against the plain version's (mean, var) under ``tol`` and timed (queued
+    wrapper calls, and the kernel alone); returns their numbers by design."""
+    from muygpys_torch.gpu import fused_predict as F
+    from muygpys_torch.gpu import matern_nu as _nu
+
+    nf, q, y, params, noise_nn = args[:5]
+    gen = args[5] if len(args) > 5 else None
+    code = _nu.check_smoothness("K1", smoothness, gen, 1, _nu._LEN_VAL)
+    gen = None if gen is None else gen[:_nu._LEN_VAL].contiguous()
+    out = {}
+    for design in ("registers", "shared"):
+        def call():
+            return F._launch(nf, q, y, params, noise_nn, gen, code, 1,
+                             smoothness, design=design)
+
+        m, v = call()
+        torch.cuda.synchronize()
+        err_m = float((m - plain[0]).abs().max())
+        err_v = float((v - plain[1]).abs().max())
+        log(f"K1 {design} design {str(nf.dtype)[6:]} nu={smoothness}: mean "
+            f"{err_m:.3e} (tol {tol[0]:.0e}), var {err_v:.3e} (tol "
+            f"{tol[1]:.0e})")
+        assert err_m <= tol[0] and err_v <= tol[1], f"K1 {design} disagrees"
+        out[design] = dict(ms=time_ms(call), device_ms=device_ms(torch, call))
+    return out
+
+
+def k1_row(designs, nbytes, ops, **numbers):
+    """A kernels-line row of K1: the times of the design the launcher picks
+    at the headline, the kept design's beside them; the register design is
+    picked only where its kernel time is below the kept design's."""
+    import torch
+
+    from muygpys_torch.gpu.fused_predict import k1_design
+
+    chosen = k1_design(30, 1, torch.float32, 1.5)
+    other = "shared" if chosen == "registers" else "registers"
+    assert designs["registers"]["device_ms"] < designs["shared"]["device_ms"], (
+        f"the register design is not faster at the headline: {designs}")
+    return bound_row(
+        nbytes, ops, design=chosen, ms=designs[chosen]["ms"],
+        device_ms=designs[chosen]["device_ms"],
+        kept_ms=designs[other]["ms"], kept_device_ms=designs[other]["device_ms"],
+        **numbers,
+    )
+
+
+def k1_library(torch, nf, q, y, params):
+    """K1's (mean, var) at the serving headline (Matern 3/2, isotropic)
+    through library calls on K formed elementwise: torch.linalg.cholesky +
+    torch.cholesky_solve + einsum, batch first.  A yardstick of speed; the
+    port never calls it."""
+    ls, noise = float(params[0]), float(params[-1])
+    n = nf.shape[0]
+    s3 = math.sqrt(3.0)
+    eye = torch.eye(n, dtype=nf.dtype, device=nf.device)
+
+    def run():
+        x = nf.permute(2, 0, 1) / ls  # (B, n, d)
+        qq = q.T[:, None, :] / ls
+        up = (x[:, :, None, :] - x[:, None, :, :]).pow(2).sum(-1).sqrt()
+        uc = (x - qq).pow(2).sum(-1).sqrt()
+        K = (1.0 + s3 * up) * torch.exp(-s3 * up) + noise * eye
+        kc = (1.0 + s3 * uc) * torch.exp(-s3 * uc)
+        L = torch.linalg.cholesky(K)
+        Z = torch.cholesky_solve(torch.cat([kc[..., None], y.permute(2, 0, 1)], 2), L)
+        mean = torch.einsum("bn,bnr->rb", kc, Z[..., 1:])
+        return mean, 1.0 - (kc * Z[..., 0]).sum(1)
+
+    return run
+
+
 def phase_k3(torch, train_sorted, queries, cand_count):
+    """K3 against its plain version at the fused path's shapes: the
+    unpruned search over the 50k set, the main path's unpruned search (the
+    1/16 subsample, 8192 x 4096, Morton-sorted queries), the pruned search,
+    and the pruned search at NN_Wrapper's 1024 bins.  Each through the
+    design the launcher takes (fused: the merge in the kernel) and the kept
+    design with its _merge_decode, each timed; the kept design's key state
+    against its mirror bit for bit.  Returns the kernels-line rows."""
     from muygpys_torch.gpu import knn as K
 
-    rows = {}
-    lib_ms = time_ms(
-        lambda: torch.topk(
-            torch.cdist(queries, train_sorted), cand_count, dim=1,
-            largest=False,
-        ),
-        reps=3, trials=3,
+    index = K.build_index(train_sorted, pruned=True)
+    pruned = K.prepare_pruned(None, queries, cand_count, train_index=index)
+    wide_k = NN + 32  # NN_Wrapper's over-fetch
+    cases = (
+        ("knn_candidates", K.prepare(train_sorted, queries, cand_count),
+         cand_count, train_sorted),
+        ("knn_candidates[subsample]",
+         K.prepare(None, pruned.q, cand_count, train_index=index.sub),
+         cand_count, train_sorted[::16]),
+        ("knn_candidates_pruned", pruned, cand_count, train_sorted),
+        ("knn_candidates_pruned[bins1024]",
+         K.prepare_pruned(train_sorted, queries, wide_k, bins=1024), wide_k,
+         train_sorted),
     )
-    log(f"K3 yardstick torch.cdist + torch.topk: {lib_ms:.4f} ms")
-    for name, prep in (
-        ("knn_candidates", K.prepare(train_sorted, queries, cand_count)),
-        ("knn_candidates_pruned",
-         K.prepare_pruned(train_sorted, queries, cand_count)),
-    ):
+    rows = {}
+    for name, prep, k, train_used in cases:
+        design = K.knn_design(prep.q.shape[1], k, prep.bins)
+        assert design == "fused", f"{name} takes the {design} design"
+        ik, dk = K.knn_select(prep, k)
+        torch.cuda.synchronize()
+        ip, dp = K.knn_select_plain(prep, k)
+        # the fused design selects exactly the k smallest keys, in ascending
+        # order: the distances are the plain version's bits; equal keys may
+        # come out in another order, so index sets are compared
+        same_idx = float(
+            (torch.sort(ik, 1).values == torch.sort(ip, 1).values)
+            .float().mean()
+        )
+        bit_equal = bool(torch.equal(dk, dp))
+        finite = torch.isfinite(dp)
+        err = float((dk - dp)[finite].abs().max())
         s1k, s2k = prep.candidates()
         torch.cuda.synchronize()
         s1p, s2p = K.knn_candidates_plain(
             prep.q, prep.qsq, prep.tT, prep.tsq, prep.bins, prep.train_tile,
             prep.query_tile, prep.chunk_mask, prep.lb, prep.ub,
         )
-        equal = float(((s1k == s1p) & (s2k == s2p)).float().mean())
-        ik, dk = K._merge_decode(s1k, s2k, cand_count, prep)
-        ip, dp = K._merge_decode(s1p, s2p, cand_count, prep)
-        same_idx = float(
-            (torch.sort(ik, 1).values == torch.sort(ip, 1).values)
-            .float().mean()
+        keys_equal = float(((s1k == s1p) & (s2k == s2p)).float().mean())
+        log(f"K3 {name} ({prep.q.shape[0]} x {prep.tT.shape[1]}, bins "
+            f"{prep.bins}, k {k}): fused d2 bit-equal {bit_equal}, index "
+            f"slots agree {same_idx:.6f}, max_abs_err {err:.3e}; kept "
+            f"design's s1/s2 equal on {keys_equal:.6f} of slots")
+        assert bit_equal and same_idx >= 0.999, f"K3 {name} disagrees"
+        assert keys_equal == 1.0, f"K3 {name} kept design disagrees"
+
+        def fused():
+            return K.knn_select(prep, k)
+
+        def kept():
+            return K.knn_select(prep, k, design="keys")
+
+        times = dict(
+            ms=time_ms(fused), device_ms=device_ms(torch, fused),
+            kept_ms=time_ms(kept), kept_device_ms=device_ms(torch, kept),
         )
-        finite = torch.isfinite(dk) & torch.isfinite(dp)
-        err = float((dk - dp)[finite].abs().max())
-        log(f"K3 {name}: s1/s2 equal on {equal:.6f} of slots, index slots "
-            f"agree {same_idx:.6f}, max_abs_err (decoded d2) {err:.3e}")
-        # the kernel repeats the plain version's rounding order: keys are
-        # bitwise equal, else candidate sets must agree on >= 99.9% of slots
-        assert equal == 1.0 or same_idx >= 0.999, f"K3 {name} disagrees"
-        ms = time_ms(prep.candidates)
-        plain_ms = time_ms(
-            lambda: K.knn_candidates_plain(
-                prep.q, prep.qsq, prep.tT, prep.tsq, prep.bins,
-                prep.train_tile, prep.query_tile, prep.chunk_mask,
-                prep.lb, prep.ub,
-            ),
+        plain_ms = time_ms(lambda: K.knn_select_plain(prep, k), reps=3,
+                           trials=3)
+        q_real = queries if "subsample" not in name else prep.q
+        library_ms = time_ms(
+            lambda: torch.topk(torch.cdist(q_real, train_used), k, dim=1,
+                               largest=False),
             reps=3, trials=3,
         )
         q_count, feat = prep.q.shape
         t_count = prep.tT.shape[1]
         if prep.lb is None:
-            pairs = q_count * t_count
-            extra = 0
+            pairs, extra = q_count * t_count, 0
         else:
             run = (prep.lb <= prep.ub[:, None]).sum().item()
             pairs = run * prep.query_tile * prep.train_tile
             extra = (prep.lb.numel() + prep.ub.numel()) * 4
-        nbytes = (
-            (q_count * (feat + 1) + t_count * (feat + 1)) * 4
-            + 2 * q_count * prep.bins * 4 + extra
+        # each input read once, the (idx int64, d2 f32) result written once
+        nbytes = ((q_count + t_count) * (feat + 1) * 4 + extra
+                  + q_count * k * 12)
+        rows[name] = bound_row(
+            nbytes, pairs * (2 * feat + 3), design=design, max_abs_err=err,
+            plain_ms=plain_ms, library_ms=library_ms, **times,
         )
-        ops = pairs * (2 * feat + 3)
-        byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        op_ms = ops / FP32_FLOPS * 1e3
-        rows[name] = dict(
-            max_abs_err=err, ms=ms, plain_ms=plain_ms,
-            bound_ms=max(byte_ms, op_ms),
-            bound_by="bytes" if byte_ms > op_ms else "operations",
-            library_ms=lib_ms,
-        )
-        log(f"K3 {name} time: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-            f"bound {rows[name]['bound_ms']:.4f} ms ({rows[name]['bound_by']};"
-            f" {pairs} pairs visited of {q_count * t_count})")
+        log(f"K3 {name} time: fused {times['ms']:.4f} ms (device "
+            f"{times['device_ms']:.4f}), kept design + merge "
+            f"{times['kept_ms']:.4f} ms (device {times['kept_device_ms']:.4f})"
+            f", plain {plain_ms:.4f} ms, cdist + topk {library_ms:.4f} ms, "
+            f"bound {rows[name]['bound_ms']:.4f} ms "
+            f"({rows[name]['bound_by']}; {pairs} pairs visited of "
+            f"{q_count * t_count})")
+        assert times["device_ms"] < times["kept_device_ms"], (
+            f"K3 {name}: the fused design is not faster than the kept one")
     return rows
 
 
@@ -849,9 +967,10 @@ def bound_row(nbytes, ops, **numbers):
     byte_ms = nbytes / HBM_BYTES_PER_S * 1e3
     op_ms = ops / FP32_FLOPS * 1e3
     return dict(
-        bound_ms=max(byte_ms, op_ms),
-        bound_by="bytes" if byte_ms > op_ms else "operations",
-        library_ms=None, **numbers,
+        dict(bound_ms=max(byte_ms, op_ms),
+             bound_by="bytes" if byte_ms > op_ms else "operations",
+             library_ms=None),
+        **numbers,
     )
 
 
@@ -871,6 +990,7 @@ def phase_k1_gen(torch, knn_inputs, closed_ms):
     from muygpys_torch.gpu.fused_predict import (
         fused_predict_coords_bl,
         fused_predict_coords_bl_plain,
+        k1_design,
         serve_tail_terms,
     )
 
@@ -902,9 +1022,10 @@ def phase_k1_gen(torch, knn_inputs, closed_ms):
             assert tol_v <= 0.1 * v_min, "variance gate too loose"
             assert err_m <= tol_m, f"K1 gen mean disagrees: {err_m}"
             assert err_v <= tol_v, f"K1 gen var disagrees: {err_v}"
+            if nu == NU_GEN:
+                designs = k1_designs(torch, args, "gen", (mp, vp), (tol_m, tol_v))
             if dtype == torch.float32 and nu == NU_GEN:
-                ms = time_ms(lambda: fused_predict_coords_bl(
-                    *args, smoothness="gen"))
+                ms = designs[k1_design(n, r, dtype, "gen")]["ms"]
                 plain_ms = time_ms(lambda: fused_predict_coords_bl_plain(
                     *args, smoothness="gen"), reps=3, trials=3)
                 # K4's work by branch over the entries the function needs:
@@ -921,12 +1042,15 @@ def phase_k1_gen(torch, knn_inputs, closed_ms):
                 # K4 has no launch of its own: the difference to the closed
                 # form over the n^2 + n elements a query evaluates
                 k4_ns = (ms - closed_ms) * 1e6 / ((n * n + n) * B)
-                row = bound_row(
-                    nbytes, ops, max_abs_err=max(err_m, err_v), ms=ms,
+                row = k1_row(
+                    designs, nbytes, ops, max_abs_err=max(err_m, err_v),
                     plain_ms=plain_ms, k4_ns_per_element=k4_ns,
                     k4_branches=dict(zip(("zero", "small", "tail"), counts)),
                 )
-                log(f"K1 gen f32 time: kernel {ms:.4f} ms (closed form "
+                log(f"K1 gen f32 time: {row['design']} design {ms:.4f} ms "
+                    f"(device {row['device_ms']:.4f}), kept design "
+                    f"{row['kept_ms']:.4f} ms (device "
+                    f"{row['kept_device_ms']:.4f}) (closed form "
                     f"{closed_ms:.4f} ms: K4 costs {k4_ns:.4f} ns per "
                     f"element), plain {plain_ms:.4f} ms, bound "
                     f"{row['bound_ms']:.4f} ms ({row['bound_by']}; {nbytes} "
@@ -2140,8 +2264,31 @@ def main() -> int:
     assert fused_launches["fused_predict_coords"] > 0
     assert fused_launches["knn_candidates"] > 0
     assert fused_launches["knn_candidates_pruned"] > 0
+    # the fused path goes through the new designs, and only through them
+    assert (fused_launches["knn_candidates/fused"]
+            == fused_launches["knn_candidates"]
+            + fused_launches["knn_candidates_pruned"] > 0)
+    assert (fused_launches["fused_predict_coords/registers"]
+            == fused_launches["fused_predict_coords"] > 0)
     assert launches_by_path["kernel"]["fused_predict_coords"] > 0
     log("e2e: " + json.dumps(e2e))
+
+    # NN_Wrapper's candidate search (1024 bins, pruned), its train side
+    # built once, against the exact index on the first request
+    nn_kernel = NN_Wrapper(train, NN, nn_method="kernel")
+    nn_kernel.get_nns(requests[2])  # warm-up
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    kernel_idx, _ = nn_kernel.get_nns(requests[0])
+    launches_by_path["nn_kernel"] = dict(_build.launches)
+    same_nn = (np.sort(kernel_idx, 1) == np.sort(exact_idx, 1)).all(1).mean()
+    log(f"NN_Wrapper(nn_method='kernel') neighbour sets equal the exact ones "
+        f"on {same_nn:.6f} of queries; launches "
+        f"{launches_by_path['nn_kernel']}")
+    assert same_nn >= 0.98
+    assert (launches_by_path["nn_kernel"]["knn_candidates/fused"]
+            == launches_by_path["nn_kernel"]["knn_candidates_pruned"]
+            + launches_by_path["nn_kernel"]["knn_candidates"] > 0)
 
     # 6. K2 on real neighbourhoods: a LOO batch of the training headline
     from muygpys_torch.optimize import sample_batch
@@ -2323,13 +2470,24 @@ def main() -> int:
             "muygpys_torch/gpu/csrc/fused_predict.cu",
             "muygpys_tpu/pallas/fused_predict.py:373", "fused",
         ),
+        # K3 unpruned at 8192 x 51,200 and at the main path's own shape
+        # (the 1/16 subsample inside the pruned search), both counted on
+        # the fused path; K3 pruned there and at NN_Wrapper's 1024 bins
         "knn_candidates": (
+            "muygpys_torch/gpu/csrc/knn.cu", "muygpys_tpu/pallas/knn.py:217",
+            "fused",
+        ),
+        "knn_candidates[subsample]": (
             "muygpys_torch/gpu/csrc/knn.cu", "muygpys_tpu/pallas/knn.py:217",
             "fused",
         ),
         "knn_candidates_pruned": (
             "muygpys_torch/gpu/csrc/knn.cu", "muygpys_tpu/pallas/knn.py:451",
             "fused",
+        ),
+        "knn_candidates_pruned[bins1024]": (
+            "muygpys_torch/gpu/csrc/knn.cu", "muygpys_tpu/pallas/knn.py:451",
+            "nn_kernel",
         ),
         "fused_train_stats": (
             "muygpys_torch/gpu/csrc/fused_train.cu",
@@ -2374,10 +2532,19 @@ def main() -> int:
         assert launches_by_path[path][counter] > 0, (
             f"{name} was not launched on its path"
         )
+        # launches of each design on the kernel's path (K3's two variants
+        # share "knn_candidates/<design>")
+        family = "knn_candidates" if counter.startswith("knn") else counter
+        designs_on_path = {
+            key.split("/")[1]: count
+            for key, count in launches_by_path[path].items()
+            if key.startswith(family + "/")
+        }
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches_by_path[path][counter],
             paths={p: c[counter] for p, c in launches_by_path.items()},
+            design_launches_on_path=designs_on_path,
             **rows[name],
         ))
     log(f"chip_smoke: every phase passed in "

@@ -12,7 +12,9 @@ Every C entry point takes device pointers, sizes and the CUDA stream
 (``torch.cuda.current_stream().cuda_stream``), launches without
 synchronising and returns ``cudaGetLastError()``; :func:`check` raises on a
 non-zero code, so a refused launch (too many threads, too much shared
-memory) is never silent.
+memory) is never silent.  The runtime launches, and sets kernel attributes,
+on the calling thread's current device, so every wrapper calls its entry
+point inside :func:`on_device` of the tensors' device.
 
 Nothing here runs at import: the CPU-only test machines have no ``nvcc``.
 """
@@ -41,13 +43,19 @@ NVCC_FLAGS = (
 
 # launches per kernel, counted by the wrappers where they launch (plain ints;
 # ``reset_launches`` zeroes them before a run whose path is to be shown).
-# K2 and K5 have two designs each: "<kernel>/<design>" counts the launches of
-# one design, "<kernel>" those of both
+# K1, K2, K3 and K5 have two designs each: "<kernel>/<design>" counts the
+# launches of one design, "<kernel>" those of both (K3: "knn_candidates" and
+# "knn_candidates_pruned" count its two variants, "knn_candidates/<design>"
+# the designs of both variants)
 launches: Dict[str, int] = {
     "fused_predict_coords": 0,
+    "fused_predict_coords/registers": 0,
+    "fused_predict_coords/shared": 0,
     "fused_predict": 0,
     "knn_candidates": 0,
     "knn_candidates_pruned": 0,
+    "knn_candidates/fused": 0,
+    "knn_candidates/keys": 0,
     "fused_train_stats": 0,
     "fused_train_stats/registers": 0,
     "fused_train_stats/shared": 0,
@@ -187,3 +195,13 @@ def stream(device) -> ctypes.c_void_p:
     import torch
 
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def on_device(device):
+    """Context that makes ``device`` the current CUDA device: a wrapper
+    calls its C entry point inside it, so the launch, and any kernel
+    attribute the entry point sets, goes to the device whose stream and
+    pointers it was given, whichever device the caller had current."""
+    import torch
+
+    return torch.cuda.device(device)

@@ -24,18 +24,40 @@
 // bound by operations and, at this size, by the latency of the n dependent
 // pivot steps.
 //
-// Design: one warp per query, lanes over the m = n + 1 + r columns of the
-// augmented matrix, which lives in shared memory row-major (lane c owns
-// column c, so a warp's row access hits consecutive banks).  Pivot step j
-// reads the pivot, scales row j, stages the scaled column below the pivot in
-// a per-warp vector, then each lane updates its own column with n-1-j
-// fused multiply-subtracts; only __syncwarp separates the steps.  A block
-// holds up to 8 queries (8 warps); the block's neighbor coordinates and
-// targets are loaded cooperatively with the query index fastest, so each
-// (row, 8 queries) read is one contiguous segment of the batch-last inputs.
-// The Pallas kernel instead ran the whole elimination as full-width vector
-// ops over a 512-query lane tile in VMEM; on Hopper that tile would not fit
-// the 227 KB of shared memory, and warps give the latency hiding.
+// Two designs of K1; the launcher's caller picks
+// (muygpys_torch/gpu/fused_predict.py:k1_design): the register design for
+// n <= 32 and r <= 4, the shared-memory design otherwise.
+//
+// The register design (fused_predict_coords_regs_kernel), K2's pattern: one
+// warp per query, up to 8 queries a block.  The block forms the reciprocal
+// length scales once, stages the K4 coefficients once under "gen", and
+// loads its queries' coordinates (scaled), targets and nuggets
+// cooperatively, query index fastest.  Each warp evaluates the lower
+// triangle of K once, its n(n+1)/2 pairs spread evenly over the lanes, and
+// mirrors every value into a per-warp copy (K is symmetric bit for bit:
+// (a - b)^2 = (b - a)^2); lane i then holds row i of K + nugget in 32
+// registers (n <= 32 a compile-time bound; identity padding past n) beside
+// its entries of [kc | y].  The elimination is right-looking and fully
+// unrolled, so every register index is static: at pivot j lane j publishes
+// its row through a double-buffered shared row (16-byte stores, broadcast
+// reads, one __syncwarp a step); every lane takes rsqrt of the pivot (no
+// pivot floor, as the TPU kernel and the plain version) and updates its
+// whole row and right-hand sides with independent fused multiply-adds.
+// mean = zc . zy and var = 1 - zc . zc are warp sums.
+//
+// The shared-memory design (fused_predict_coords_kernel): lanes over the
+// m = n + 1 + r columns of the augmented matrix, which lives in shared
+// memory row-major (lane c owns column c, so a warp's row access hits
+// consecutive banks).  Pivot step j reads the pivot, scales row j, stages
+// the scaled column below the pivot in a per-warp vector, then each lane
+// updates its own column with n-1-j fused multiply-subtracts; only
+// __syncwarp separates the steps.  A block holds up to 8 queries (8 warps);
+// the block's neighbor coordinates and targets are loaded cooperatively
+// with the query index fastest, so each (row, 8 queries) read is one
+// contiguous segment of the batch-last inputs.  The Pallas kernel instead
+// ran the whole elimination as full-width vector ops over a 512-query lane
+// tile in VMEM; on Hopper that tile would not fit the 227 KB of shared
+// memory, and warps give the latency hiding.
 //
 // K1b moves n^2 + n + n r + r + 1 values per query (~3.9 KB at n=30, f32:
 // ~9.6 us per 8192 queries at 3.35 TB/s) against the same ~11k multiply-adds:
@@ -215,6 +237,200 @@ __global__ void fused_predict_coords_kernel(
   solve_and_emit(work, lc, mean, var, n, r, b, B, lane);
 }
 
+// ---- the register design of K1 --------------------------------------------
+
+constexpr int kRows = 32;  // one lane per row
+constexpr int kLdK = 33;   // row stride of the mirrored K: odd, so a row and a column hit distinct banks
+
+__device__ __forceinline__ void st16(float* d, const float* s) {
+  *reinterpret_cast<float4*>(d) = make_float4(s[0], s[1], s[2], s[3]);
+}
+__device__ __forceinline__ void st16(double* d, const double* s) {
+  *reinterpret_cast<double2*>(d) = make_double2(s[0], s[1]);
+}
+__device__ __forceinline__ void ld16(float* d, const float* s) {
+  const float4 v = *reinterpret_cast<const float4*>(s);
+  d[0] = v.x, d[1] = v.y, d[2] = v.z, d[3] = v.w;
+}
+__device__ __forceinline__ void ld16(double* d, const double* s) {
+  const double2 v = *reinterpret_cast<const double2*>(s);
+  d[0] = v.x, d[1] = v.y;
+}
+
+// widths for value type T and R right-hand sides: NC = 1 + R columns
+// [kc | y], padded to XP for 16-byte moves; RB is one published row
+template <typename T, int R>
+struct RegShape {
+  static constexpr int VW = 16 / sizeof(T);
+  static constexpr int NC = 1 + R;
+  static constexpr int XP = (NC + VW - 1) / VW * VW;
+  static constexpr int RB = kRows + XP;
+};
+
+// blocks of 8 warps an SM the register design asks the compiler for: in f32
+// with one right-hand side 4 (a 64-register cap, which measured faster than
+// asking for 2 at the serving headline: chip_variants.py), else 2 in f32, 1
+// in f64
+template <typename T, int R>
+struct RegsMinBlocks {
+  static constexpr int value = sizeof(T) == 4 ? (R == 1 ? 4 : 2) : 1;
+};
+
+// shared-memory elements of one query: two published rows, the mirrored K
+// (row c of the copy, stride kLdK, is column c of K), the scaled coordinates, the scaled
+// query, the targets and the nuggets; a multiple of 4 so every query stays
+// 16-byte aligned
+__host__ __device__ __forceinline__ size_t coords_regs_elems(int n, int d, int R, int rb) {
+  const size_t e = (size_t)2 * rb + (size_t)n * kLdK + (size_t)n * d + d + (size_t)n * R + n;
+  return (e + 3) / 4 * 4;
+}
+
+template <typename T, int R>
+__global__ void __launch_bounds__(256, RegsMinBlocks<T, R>::value) fused_predict_coords_regs_kernel(
+    const T* __restrict__ nf,        // (n, d, B)
+    const T* __restrict__ q,         // (d, B)
+    const T* __restrict__ y,         // (n, r, B)
+    const T* __restrict__ params,    // (d + 1): ls_0..ls_{d-1}, noise
+    const T* __restrict__ noise_nn,  // (n, B) or null
+    const T* __restrict__ gen,       // K4 coefficients (>= LEN_VAL) or null
+    T* __restrict__ mean,            // (r, B)
+    T* __restrict__ var,             // (B,)
+    int n, int d, int r, int B, int code, int metric_power, int nt) {
+  using Shape = RegShape<T, R>;
+  constexpr int VW = Shape::VW, NC = Shape::NC, XP = Shape::XP, RB = Shape::RB;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int P = blockDim.x / 32;  // queries (warps) per block
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int b0 = blockIdx.x * P;
+  const size_t per = coords_regs_elems(n, d, R, RB);
+  // per-query carve-up (offsets in elements)
+  const size_t oK = 2 * RB, oX = oK + (size_t)n * kLdK, oQ = oX + (size_t)n * d,
+               oY = oQ + d, oN = oY + (size_t)n * R;
+
+  T* base = reinterpret_cast<T*>(smem_raw);
+  T* inv = base + P * per;  // [d] reciprocal length scales
+  T* co = inv + d;          // [LEN_VAL] K4 coefficients under gen
+  if (code == GEN) matern_nu::stage(co, gen, matern_nu::LEN_VAL, nt);
+  for (int f = threadIdx.x; f < d; f += blockDim.x) inv[f] = T(1) / params[f];
+  __syncthreads();
+  // cooperative, query-fastest loads of the block's slice of the inputs
+  for (int e = threadIdx.x; e < n * d * P; e += blockDim.x) {
+    const int w = e % P, row = e / P, b = b0 + w;  // row = i * d + f
+    base[w * per + oX + row] = b < B ? nf[(size_t)row * B + b] * inv[row % d] : T(0);
+  }
+  for (int e = threadIdx.x; e < d * P; e += blockDim.x) {
+    const int w = e % P, f = e / P, b = b0 + w;
+    base[w * per + oQ + f] = b < B ? q[(size_t)f * B + b] * inv[f] : T(0);
+  }
+  for (int e = threadIdx.x; e < n * r * P; e += blockDim.x) {
+    const int w = e % P, row = e / P, b = b0 + w;  // row = i * r + k
+    base[w * per + oY + row] = b < B ? y[(size_t)row * B + b] : T(0);
+  }
+  if (noise_nn != nullptr) {
+    for (int e = threadIdx.x; e < n * P; e += blockDim.x) {
+      const int w = e % P, i = e / P, b = b0 + w;
+      base[w * per + oN + i] = b < B ? noise_nn[(size_t)i * B + b] : T(0);
+    }
+  }
+  __syncthreads();
+
+  const int b = b0 + warp;
+  if (b >= B) return;  // no block-wide barrier below this point
+  T* sm = base + warp * per;
+  T* rows = sm;
+  T* Ks = sm + oK;
+  const T* xs = sm + oX;
+  const T* qs = sm + oQ;
+  const T noise = params[d];
+  auto nugget = [&](int i) { return noise_nn != nullptr ? sm[oN + i] : noise; };
+  auto value = [&](const T* xa, const T* xb) {
+    T acc = T(0);
+    for (int f = 0; f < d; ++f) {
+      const T diff = xa[f] - xb[f];
+      acc += diff * diff;
+    }
+    return kernel_value(metric_power == 1 ? sqrt_t(acc) : acc, code, co, nt);
+  };
+
+  // the lower triangle of K + nugget I, pair p = i (i + 1) / 2 + j (j <= i)
+  // on lane p % 32, mirrored: Ks[c * kLdK + i] = K(i, c)
+  {
+    int i = 0, j = lane;
+    while (j > i) j -= ++i;
+    while (i < n) {
+      T v = value(xs + i * d, xs + j * d);
+      if (i == j) v += nugget(i);
+      Ks[j * kLdK + i] = v;
+      Ks[i * kLdK + j] = v;
+      j += 32;
+      while (j > i) j -= ++i;
+    }
+  }
+  const bool live = lane < n;
+  T x[XP];
+#pragma unroll
+  for (int k = 0; k < XP; ++k) x[k] = T(0);
+  if (live) {
+    x[0] = value(xs + lane * d, qs);  // kc
+#pragma unroll
+    for (int k = 0; k < R; ++k)
+      if (k < r) x[1 + k] = sm[oY + lane * r + k];
+  }
+  __syncwarp();
+  T A[kRows];
+#pragma unroll
+  for (int c = 0; c < kRows; ++c) {
+    T v = c == lane ? T(1) : T(0);
+    if (c < n && live) v = Ks[c * kLdK + lane];
+    A[c] = v;
+  }
+
+  // right-looking elimination of [K | kc | y], one rsqrt per pivot
+#pragma unroll
+  for (int j = 0; j < kRows; ++j) {
+    if (j < n) {
+      T* buf = rows + (j & 1) * RB;  // double-buffered: one barrier a step
+      if (lane == j) {
+#pragma unroll
+        for (int c0 = j / VW * VW; c0 < kRows; c0 += VW) st16(buf + c0, A + c0);
+#pragma unroll
+        for (int k0 = 0; k0 < XP; k0 += VW) st16(buf + kRows + k0, x + k0);
+      }
+      __syncwarp();
+      const T pinv = rsqrt_t(buf[j]);
+      const bool below = lane > j;
+      const T l = below ? A[j] * pinv : T(0);
+      T z[XP];
+#pragma unroll
+      for (int k0 = 0; k0 < XP; k0 += VW) ld16(z + k0, buf + kRows + k0);
+#pragma unroll
+      for (int k = 0; k < NC; ++k) {
+        const T zj = z[k] * pinv;
+        x[k] = below ? x[k] - l * zj : (lane == j ? zj : x[k]);
+      }
+#pragma unroll
+      for (int c0 = (j + 1) / VW * VW; c0 < kRows; c0 += VW) {
+        T rr[VW];
+        ld16(rr, buf + c0);
+#pragma unroll
+        for (int e = 0; e < VW; ++e)
+          if (c0 + e > j) A[c0 + e] -= l * (rr[e] * pinv);
+      }
+    }
+  }
+
+  // mean = zc . zy, var = 1 - zc . zc (lanes past n hold zeros)
+  const T zz = warp_sum(x[0] * x[0]);
+  if (lane == 0) var[b] = T(1) - zz;
+#pragma unroll
+  for (int k = 0; k < R; ++k)
+    if (k < r) {
+      const T s = warp_sum(x[0] * x[1 + k]);
+      if (lane == 0) mean[(size_t)k * B + b] = s;
+    }
+}
+
 // K1b: the same posterior from distances.  pw (n, n, B) and cw (n, B) are
 // scaled by 1/ls (l2) or 1/ls^2 (F2); params = [ls, noise].
 template <typename T>
@@ -288,11 +504,43 @@ int queries_per_block(size_t per_query, size_t fixed, size_t* bytes) {
   return 0;
 }
 
+template <typename T, int R>
+int launch_coords_regs(const T* nf, const T* q, const T* y, const T* params, const T* noise_nn,
+                       const T* gen, T* mean, T* var, int n, int d, int r, int B, int code,
+                       int metric_power, int nt, void* stream) {
+  size_t bytes = 0;
+  const int tq = queries_per_block<T>(coords_regs_elems(n, d, R, RegShape<T, R>::RB),
+                                      (size_t)d + (code == GEN ? matern_nu::LEN_VAL : 0),
+                                      &bytes);
+  if (tq < 1) return (int)cudaErrorInvalidValue;
+  if (bytes > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(fused_predict_coords_regs_kernel<T, R>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int grid = (B + tq - 1) / tq;
+  fused_predict_coords_regs_kernel<T, R><<<grid, 32 * tq, bytes, (cudaStream_t)stream>>>(
+      nf, q, y, params, noise_nn, gen, mean, var, n, d, r, B, code, metric_power, nt);
+  return (int)cudaGetLastError();
+}
+
+// design 1: the register design (n <= 32, r <= 4; R = 1, 2 or 4 right-hand
+// sides compiled); design 0: the shared-memory design
 template <typename T>
 int launch_coords(const T* nf, const T* q, const T* y, const T* params, const T* noise_nn,
                   const T* gen, T* mean, T* var, int n, int d, int r, int B, int code,
-                  int metric_power, int nt, void* stream) {
+                  int metric_power, int nt, int design, void* stream) {
   if (B == 0) return 0;
+  if (design == 1) {
+    if (n < 1 || n > kRows || r < 1 || r > 4 || d < 1) return (int)cudaErrorInvalidValue;
+    auto go = r == 1   ? launch_coords_regs<T, 1>
+              : r == 2 ? launch_coords_regs<T, 2>
+                       : launch_coords_regs<T, 4>;
+    return go(nf, q, y, params, noise_nn, gen, mean, var, n, d, r, B, code, metric_power, nt,
+              stream);
+  }
+  if (design != 0) return (int)cudaErrorInvalidValue;
   const int m = n + 1 + r;
   size_t bytes = 0;
   const int tq = queries_per_block<T>((size_t)n * d + d + (size_t)n * m + n,
@@ -338,18 +586,18 @@ extern "C" {
 int fused_predict_coords_f32(const float* nf, const float* q, const float* y,
                              const float* params, const float* noise_nn, const float* gen,
                              float* mean, float* var, int n, int d, int r, int B, int code,
-                             int metric_power, int nt, void* stream) {
+                             int metric_power, int nt, int design, void* stream) {
   return launch_coords<float>(nf, q, y, params, noise_nn, gen, mean, var, n, d, r, B, code,
-                              metric_power, nt, stream);
+                              metric_power, nt, design, stream);
 }
 
 int fused_predict_coords_f64(const double* nf, const double* q, const double* y,
                              const double* params, const double* noise_nn,
                              const double* gen, double* mean, double* var, int n, int d,
-                             int r, int B, int code, int metric_power, int nt,
+                             int r, int B, int code, int metric_power, int nt, int design,
                              void* stream) {
   return launch_coords<double>(nf, q, y, params, noise_nn, gen, mean, var, n, d, r, B, code,
-                               metric_power, nt, stream);
+                               metric_power, nt, design, stream);
 }
 
 int fused_predict_f32(const float* pw, const float* cw, const float* y, const float* params,

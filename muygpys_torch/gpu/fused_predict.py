@@ -6,7 +6,9 @@ Counterpart of :mod:`muygpys_tpu.pallas.fused_predict`.
 (``csrc/fused_predict.cu``) computes per-feature length-scaled distances, the
 Matern/RBF kernel, the nugget, and eliminates the augmented ``[K | kc | y]``
 in place (no pivot floor, like the TPU kernel) to read off the posterior
-mean and variance.  :func:`fused_predict_bl` (K1b) does the same from
+mean and variance; it has two designs, picked by :func:`k1_design` (a warp
+per query eliminating in registers for ``n <= 32`` and ``r <= 4``, else in
+shared memory).  :func:`fused_predict_bl` (K1b) does the same from
 pre-assembled *distance* tensors.  Hyperparameters are runtime inputs, so
 one build serves every trained model; with ``smoothness="gen"`` so is the
 Matern smoothness, through a coefficient vector of
@@ -29,8 +31,11 @@ from muygpys_torch.gpu import matern_nu as _nu
 from muygpys_torch.ops import kernels as _k
 
 _COORDS_ARGTYPES = (
-    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 )
+#: the register design's bounds (``csrc/fused_predict.cu``)
+REGISTER_MAX_N = 32
+REGISTER_MAX_R = 4
 _DISTS_ARGTYPES = (
     [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 )
@@ -136,13 +141,53 @@ def fused_predict_bl_plain(
     return _solve_and_emit(K, kc, y)
 
 
-def _launch(name, dtype, argtypes, *args):
-    symbol = f"{name}_f32" if dtype == torch.float32 else f"{name}_f64"
-    _build.check(
-        _build.function("fused_predict", symbol, argtypes)(*args),
-        "fused_predict", name,
+def k1_design(n, r, dtype, smoothness=1.5) -> str:
+    """The K1 design a launch takes: ``"registers"`` (one lane per row of
+    the augmented matrix, eliminated in registers) for ``n <= 32`` and
+    ``r <= 4`` in f32 and f64, every closed form, RBF and ``"gen"``; else
+    ``"shared"`` (the matrix in shared memory)."""
+    if isinstance(smoothness, torch.Tensor) or (
+        smoothness not in _nu.SMOOTHNESS_CODES
+    ):
+        raise ValueError(f"k1_design: no kernel takes smoothness {smoothness!r}")
+    if (
+        dtype in (torch.float32, torch.float64)
+        and 1 <= n <= REGISTER_MAX_N and 1 <= r <= REGISTER_MAX_R
+    ):
+        return "registers"
+    return "shared"
+
+
+def _symbol(name, dtype):
+    return f"{name}_f32" if dtype == torch.float32 else f"{name}_f64"
+
+
+def _launch(nf, q, y, params, noise_nn, gen, code, metric_power,
+            smoothness=1.5, design=None):
+    """One K1 launch on contiguous CUDA tensors of checked shapes: the
+    design of :func:`k1_design`, or ``design`` where a caller compares the
+    two (the kernel refuses a register launch outside its bounds).
+    Returns mean ``(r, B)`` and var ``(B,)``."""
+    n, d, B = nf.shape
+    r = y.shape[1]
+    dtype, dev = nf.dtype, nf.device
+    design = design or k1_design(n, r, dtype, smoothness)
+    mean = torch.empty((r, B), dtype=dtype, device=dev)
+    var = torch.empty((B,), dtype=dtype, device=dev)
+    fn = _build.function(
+        "fused_predict", _symbol("fused_predict_coords", dtype),
+        _COORDS_ARGTYPES,
     )
-    _build.count(name)
+    with _build.on_device(dev):
+        rc = fn(
+            *(_build.ptr(t) for t in (nf, q, y, params, noise_nn, gen)),
+            _build.ptr(mean), _build.ptr(var), n, d, r, B, code,
+            metric_power, serve_tail_terms(dtype),
+            int(design == "registers"), _build.stream(dev),
+        )
+    _build.check(rc, "fused_predict", "fused_predict_coords")
+    _build.count("fused_predict_coords", f"fused_predict_coords/{design}")
+    return mean, var
 
 
 def _gen_on_device(gen_coeffs, dtype, dev):
@@ -170,8 +215,9 @@ def fused_predict_coords_bl(
     ``gen_coeffs`` (a runtime input: any smoothness, one build) and requires
     ``metric_power == 1``.  Unit prior variance.
 
-    Runs on ``device`` (default ``"cuda"``): the kernel there, the plain
-    version for ``device="cpu"``.  Returns mean ``(r, B)``, var ``(B,)``.
+    Runs on ``device`` (default ``"cuda"``): the kernel there (the design
+    of :func:`k1_design`), the plain version for ``device="cpu"``.  Returns
+    mean ``(r, B)``, var ``(B,)``.
     """
     dev = config.device(device)
     code = _nu.check_smoothness(
@@ -204,19 +250,12 @@ def fused_predict_coords_bl(
         )
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"fused_predict_coords_bl takes f32 or f64, not {dtype}")
-    ins = [t.contiguous() for t in (nf, q, y, params)]
+    nf, q, y, params = (t.contiguous() for t in (nf, q, y, params))
     noise_nn = None if noise_nn is None else noise_nn.contiguous()
-    mean = torch.empty((r, B), dtype=dtype, device=dev)
-    var = torch.empty((B,), dtype=dtype, device=dev)
-    gen = _gen_on_device(gen_coeffs, dtype, dev)
-    _launch(
-        "fused_predict_coords", dtype, _COORDS_ARGTYPES,
-        *(_build.ptr(t) for t in ins), _build.ptr(noise_nn), _build.ptr(gen),
-        _build.ptr(mean), _build.ptr(var),
-        n, d, r, B, code, metric_power, serve_tail_terms(dtype),
-        _build.stream(dev),
+    return _launch(
+        nf, q, y, params, noise_nn, _gen_on_device(gen_coeffs, dtype, dev),
+        code, metric_power, smoothness,
     )
-    return mean, var
 
 
 def fused_predict_bl(
@@ -265,10 +304,15 @@ def fused_predict_bl(
     mean = torch.empty((r, B), dtype=dtype, device=dev)
     var = torch.empty((B,), dtype=dtype, device=dev)
     gen = _gen_on_device(gen_coeffs, dtype, dev)
-    _launch(
-        "fused_predict", dtype, _DISTS_ARGTYPES,
-        *(_build.ptr(t) for t in ins), _build.ptr(gen), _build.ptr(mean),
-        _build.ptr(var), n, r, B, code, metric_power, serve_tail_terms(dtype),
-        _build.stream(dev),
+    fn = _build.function(
+        "fused_predict", _symbol("fused_predict", dtype), _DISTS_ARGTYPES
     )
+    with _build.on_device(dev):
+        rc = fn(
+            *(_build.ptr(t) for t in ins), _build.ptr(gen), _build.ptr(mean),
+            _build.ptr(var), n, r, B, code, metric_power,
+            serve_tail_terms(dtype), _build.stream(dev),
+        )
+    _build.check(rc, "fused_predict", "fused_predict")
+    _build.count("fused_predict")
     return mean, var

@@ -356,15 +356,15 @@ def _launch(
     fn = _build.function(
         "fused_train", _SYMBOLS[dtype is torch.float64], _ARGTYPES
     )
-    rc = fn(
-        pw.data_ptr(), cw.data_ptr(), y.data_ptr(), params.data_ptr(),
-        None if noise_nn is None else noise_nn.contiguous().data_ptr(),
-        None if gen is None else gen.data_ptr(), out.data_ptr(),
-        n, d_feat, r, B, code, metric_power, int(noise_free),
-        int(smoothness_free), ncoef, train_tail_terms(dtype),
-        int(design == "registers"),
-        torch.cuda.current_stream(pw.device).cuda_stream,
-    )
+    with _build.on_device(pw.device):
+        rc = fn(
+            pw.data_ptr(), cw.data_ptr(), y.data_ptr(), params.data_ptr(),
+            None if noise_nn is None else noise_nn.contiguous().data_ptr(),
+            None if gen is None else gen.data_ptr(), out.data_ptr(),
+            n, d_feat, r, B, code, metric_power, int(noise_free),
+            int(smoothness_free), ncoef, train_tail_terms(dtype),
+            int(design == "registers"), _build.stream(pw.device),
+        )
     _build.check(rc, "fused_train", "fused_train_stats")
     _build.count(*_COUNTS[design])
     return out

@@ -5,14 +5,26 @@ leaves the kernel: per query and residue bin ``col % bins`` it keeps the two
 smallest *packed keys* (f32 squared distance with its low ``chunk_bits``
 mantissa bits replaced by the column's chunk ``col // bins``), so the
 candidate's train index decodes algebraically from (merge position, key low
-bits).  The kernel (``csrc/knn.cu``) and its plain mirror
-:func:`knn_candidates_plain` produce the same ``s1``/``s2`` bits.
+bits).
 
-The glue around it is plain PyTorch, as it was plain XLA in the JAX
-package: padding, the train norms, the merge of the ``2 * bins`` surviving
-keys (an exact ``torch.topk``; JAX's ``approx_min_k`` is exact on the CPU,
-so CPU results match the JAX package), Morton sorting and the
-bounding-box pruning bounds.
+Two designs of the kernel (``csrc/knn.cu``), picked by :func:`knn_design`:
+
+- ``"fused"`` (``feat <= 4``, ``k <= 64``, ``bins`` in {256, 512, 1024}):
+  the kernel also merges each query's ``2 * bins`` keys exactly and decodes
+  them, and writes only ``(idx, d2)`` of shape ``(Q_pad, k)``;
+- ``"keys"`` (every other shape): the kernel writes the key state ``s1``,
+  ``s2`` ``(Q_pad, bins)`` (:func:`knn_candidates`; its plain mirror
+  :func:`knn_candidates_plain` gives the same bits) and the glue merges it
+  with an exact ``torch.topk`` (:func:`_merge_decode`; JAX's
+  ``approx_min_k`` is exact on the CPU, so CPU results match the JAX
+  package).
+
+:func:`knn_select` runs either; its plain version :func:`knn_select_plain`
+is the keys mirror followed by the merge.  The rest of the glue is plain
+PyTorch, as it was plain XLA in the JAX package: padding, norms, Morton
+sorting and the bounding-box pruning bounds.  The train side of it is built
+once per index (:func:`build_index`), so a request computes only its query
+side.
 
 Public counterparts: :func:`knn_cuda` ↔ ``knn_pallas``,
 :func:`knn_cuda_pruned` ↔ ``knn_pallas_pruned``; ``spatial_sort``,
@@ -36,13 +48,35 @@ from muygpys_torch.gpu import _build
 _INIT_KEY_BITS = 0x7F000000
 
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_SELECT_ARGTYPES = (
+    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+)
+
+#: the fused design's bounds (``csrc/knn.cu``): features, neighbours, bins
+FUSED_MAX_FEAT = 4
+FUSED_MAX_K = 64
+FUSED_BINS = (256, 512, 1024)
+#: queries a block of either design owns (one query tile holds them)
+_BLOCK_QUERIES = 8
+
+
+def knn_design(feat: int, k: int, bins: int) -> str:
+    """The K3 design a launch takes: ``"fused"`` (the merge inside the
+    kernel) for ``feat <= 4``, ``k <= 64`` and ``bins`` in {256, 512,
+    1024}, else ``"keys"`` (the key state, merged by ``torch.topk``)."""
+    if (
+        1 <= feat <= FUSED_MAX_FEAT and 1 <= k <= FUSED_MAX_K
+        and bins in FUSED_BINS
+    ):
+        return "fused"
+    return "keys"
 
 
 def knn_candidates_plain(
     q, qsq, tT, tsq, bins, train_tile, query_tile, chunk_mask,
     lb=None, ub=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain PyTorch version of the K3 kernel: the same operations in the
+    """Plain PyTorch version of the keys design: the same operations in the
     same rounding order, so ``s1``/``s2`` agree bit for bit."""
     q_count = q.shape[0]
     feat, t_count = tT.shape
@@ -76,11 +110,46 @@ def knn_candidates_plain(
     return s1, s2
 
 
+def _check_launch(q, qsq, tT, tsq, bins, train_tile, query_tile, lb, ub):
+    """Raise on what neither design takes: a device other than the CPU or a
+    card, types, contiguity, the tiling, the skip table's shape."""
+    if q.device.type != "cuda":
+        raise ValueError(f"knn_candidates runs on cpu or cuda, not {q.device}")
+    q_count, feat = q.shape
+    t_count = tT.shape[1]
+    tensors = {"q": q, "qsq": qsq, "tT": tT, "tsq": tsq}
+    if lb is not None:
+        tensors.update(lb=lb, ub=ub)
+    for name, t in tensors.items():
+        if t.device != q.device or t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32 on {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    nq, nt = q_count // query_tile, t_count // train_tile
+    if (
+        tT.shape[0] != feat or qsq.shape != (q_count,)
+        or tsq.shape != (t_count,)
+        or q_count % query_tile or query_tile % _BLOCK_QUERIES
+        or t_count % train_tile or train_tile % bins
+        or (bins > 256 and bins % 256)
+    ):
+        raise ValueError(
+            f"knn_candidates geometry: q {tuple(q.shape)}, tT "
+            f"{tuple(tT.shape)}, bins {bins}, train_tile {train_tile}, "
+            f"query_tile {query_tile}"
+        )
+    if lb is not None and (lb.shape != (nq, nt) or ub.shape != (nq,)):
+        raise ValueError(
+            f"skip table lb {tuple(lb.shape)} / ub {tuple(ub.shape)} does "
+            f"not match ({nq}, {nt})"
+        )
+
+
 def knn_candidates(
     q, qsq, tT, tsq, bins, train_tile, query_tile, chunk_mask,
     lb=None, ub=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K3 kernel wrapper: two smallest packed keys per (query, bin).
+    """The keys design's wrapper: two smallest packed keys per (query, bin).
 
     ``q (Q_pad, f)``, ``qsq (Q_pad,)``, ``tT (f, T_pad)``, ``tsq (T_pad,)``
     f32; optional skip table ``lb (nq, nt)``, ``ub (nq,)``.  Returns
@@ -92,48 +161,40 @@ def knn_candidates(
         return knn_candidates_plain(
             q, qsq, tT, tsq, bins, train_tile, query_tile, chunk_mask, lb, ub
         )
-    if q.device.type != "cuda":
-        raise ValueError(f"knn_candidates runs on cpu or cuda, not {q.device}")
+    _check_launch(q, qsq, tT, tsq, bins, train_tile, query_tile, lb, ub)
     q_count, feat = q.shape
-    t_count = tT.shape[1]
-    tensors = {"q": q, "qsq": qsq, "tT": tT, "tsq": tsq}
-    if pruned:
-        tensors.update(lb=lb, ub=ub)
-    for name, t in tensors.items():
-        if t.device != q.device or t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32 on {q.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    nq, nt = q_count // query_tile, t_count // train_tile
-    if (
-        tT.shape[0] != feat or qsq.shape != (q_count,)
-        or tsq.shape != (t_count,)
-        or q_count % query_tile or query_tile % 8
-        or t_count % train_tile or train_tile % bins
-        or (bins > 256 and bins % 256)
-    ):
-        raise ValueError(
-            f"knn_candidates geometry: q {tuple(q.shape)}, tT "
-            f"{tuple(tT.shape)}, bins {bins}, train_tile {train_tile}, "
-            f"query_tile {query_tile}"
-        )
-    if pruned and (lb.shape != (nq, nt) or ub.shape != (nq,)):
-        raise ValueError(
-            f"skip table lb {tuple(lb.shape)} / ub {tuple(ub.shape)} does "
-            f"not match ({nq}, {nt})"
-        )
     s1 = torch.empty((q_count, bins), dtype=torch.int32, device=q.device)
     s2 = torch.empty_like(s1)
     fn = _build.function("knn", "knn_candidates", _ARGTYPES)
-    rc = fn(
-        _build.ptr(q), _build.ptr(qsq), _build.ptr(tT), _build.ptr(tsq),
-        _build.ptr(lb), _build.ptr(ub), _build.ptr(s1), _build.ptr(s2),
-        q_count, feat, t_count, bins, train_tile, query_tile, chunk_mask,
-        _build.stream(q.device),
-    )
+    with _build.on_device(q.device):
+        rc = fn(
+            _build.ptr(q), _build.ptr(qsq), _build.ptr(tT), _build.ptr(tsq),
+            _build.ptr(lb), _build.ptr(ub), _build.ptr(s1), _build.ptr(s2),
+            q_count, feat, tT.shape[1], bins, train_tile, query_tile,
+            chunk_mask, _build.stream(q.device),
+        )
     _build.check(rc, "knn", "knn_candidates")
-    _build.count("knn_candidates_pruned" if pruned else "knn_candidates")
+    _build.count(
+        "knn_candidates_pruned" if pruned else "knn_candidates",
+        "knn_candidates/keys",
+    )
     return s1, s2
+
+
+class TrainIndex(NamedTuple):
+    """The train side of a candidate search, built once per index
+    (:func:`build_index`): every request against the same train set and
+    geometry reuses it."""
+
+    tT: torch.Tensor  # (f, T_pad) f32, the padded train set transposed
+    tsq: torch.Tensor  # (T_pad,) norms; padded columns 1e30
+    tlo: Optional[torch.Tensor]  # (nt, f) train tile bounding boxes (pruned)
+    thi: Optional[torch.Tensor]
+    sub: Optional["TrainIndex"]  # the 1/subsample row subset's own (pruned)
+    bins: int
+    train_tile: int
+    chunk_mask: int
+    train_count: int
 
 
 class Prepared(NamedTuple):
@@ -155,6 +216,7 @@ class Prepared(NamedTuple):
     qperm: Optional[torch.Tensor]
 
     def candidates(self):
+        """The keys design's ``s1, s2`` (:func:`knn_candidates`)."""
         return knn_candidates(
             self.q, self.qsq, self.tT, self.tsq, self.bins,
             self.train_tile, self.query_tile, self.chunk_mask,
@@ -162,16 +224,71 @@ class Prepared(NamedTuple):
         )
 
 
-def _chunk_mask(train_count, nn_count, train_tile, bins) -> Tuple[int, int]:
-    """(padded train count, chunk mask) of the packed-key geometry."""
-    if train_tile % bins != 0:
-        raise ValueError(f"bins {bins} must divide train_tile {train_tile}")
+def knn_select_plain(prep: Prepared, k: int):
+    """Plain PyTorch version of :func:`knn_select`: the keys mirror, then
+    the exact merge and decode."""
+    return _merge_decode(
+        *knn_candidates_plain(
+            prep.q, prep.qsq, prep.tT, prep.tsq, prep.bins, prep.train_tile,
+            prep.query_tile, prep.chunk_mask, prep.lb, prep.ub,
+        ),
+        k, prep,
+    )
+
+
+def knn_select(prep: Prepared, k: int, design: Optional[str] = None):
+    """The ``k`` nearest candidates of every padded query: ``idx`` int64 and
+    ``d2`` f32, both ``(Q_pad, k)``, in ascending key order.
+
+    CPU tensors take :func:`knn_select_plain`.  On a card: the design of
+    :func:`knn_design`, or ``design`` where a caller compares the two (the
+    kernel refuses a fused launch outside its bounds); ``"keys"`` launches
+    :func:`knn_candidates` and merges with ``torch.topk``.  Keys equal to
+    each other may come out in another order than ``torch.topk``'s; the
+    distances are the same bits.
+    """
+    if prep.q.device.type == "cpu":
+        return knn_select_plain(prep, k)
+    feat = prep.q.shape[1]
+    design = design or knn_design(feat, k, prep.bins)
+    if design == "keys":
+        return _merge_decode(*prep.candidates(), k, prep)
+    q, qsq, tT, tsq, lb, ub = prep[:6]
+    _check_launch(q, qsq, tT, tsq, prep.bins, prep.train_tile,
+                  prep.query_tile, lb, ub)
+    q_count = q.shape[0]
+    idx = torch.empty((q_count, k), dtype=torch.int64, device=q.device)
+    d2 = torch.empty((q_count, k), dtype=torch.float32, device=q.device)
+    fn = _build.function("knn", "knn_select", _SELECT_ARGTYPES)
+    with _build.on_device(q.device):
+        rc = fn(
+            _build.ptr(q), _build.ptr(qsq), _build.ptr(tT), _build.ptr(tsq),
+            _build.ptr(lb), _build.ptr(ub), _build.ptr(idx), _build.ptr(d2),
+            q_count, feat, tT.shape[1], prep.bins, prep.train_tile,
+            prep.query_tile, prep.chunk_mask, k, prep.train_count,
+            _build.stream(q.device),
+        )
+    _build.check(rc, "knn", "knn_select")
+    _build.count(
+        "knn_candidates_pruned" if lb is not None else "knn_candidates",
+        "knn_candidates/fused",
+    )
+    return idx, d2
+
+
+def _check_count(nn_count, bins):
     if nn_count > 2 * bins:
         # the state holds exactly two candidates per residue bin
         raise ValueError(
             f"nn_count {nn_count} exceeds the 2*bins={2 * bins} candidates "
             "the kernel retains; raise bins or use an exact engine"
         )
+
+
+def _chunk_mask(train_count, train_tile, bins) -> Tuple[int, int]:
+    """(padded train count, chunk mask) of the packed-key geometry."""
+    if train_tile % bins != 0:
+        raise ValueError(f"bins {bins} must divide train_tile {train_tile}")
     t_padded = math.ceil(train_count / train_tile) * train_tile
     chunk_bits = max(1, math.ceil(math.log2(t_padded // bins)))
     if chunk_bits > 14:
@@ -198,39 +315,90 @@ def _edge_pad(x: torch.Tensor, rows: int) -> torch.Tensor:
     return torch.cat([x, x[-1:].expand(pad, -1)]) if pad else x
 
 
+def build_index(
+    train, train_tile=2048, bins=512, pruned=False, subsample=16
+) -> TrainIndex:
+    """The train side of the unpruned (:func:`knn_cuda`) or, with
+    ``pruned``, the pruned search (:func:`knn_cuda_pruned`; ``train``
+    Morton-sorted): the padded train set transposed, its norms and, when
+    pruned, the train tiles' bounding boxes and the ``1/subsample`` row
+    subset's own unpruned index (for the queries' upper bounds)."""
+    train = torch.as_tensor(train).to(torch.float32)
+    train_count = train.shape[0]
+    t_padded, mask = _chunk_mask(train_count, train_tile, bins)
+    if not pruned:
+        train_pad = torch.nn.functional.pad(
+            train, (0, 0, 0, t_padded - train_count)
+        )
+        return TrainIndex(
+            train_pad.T.contiguous(), _norms(train_pad, train_count),
+            None, None, None, bins, train_tile, mask, train_count,
+        )
+    # edge-pad (not zero-pad): padded rows must not widen the last tile's
+    # bounding box; the 1e30 sentinel norm still excludes them as columns
+    train_pad = _edge_pad(train, t_padded)
+    tlo, thi = _tile_bboxes(train_pad, train_tile)
+    return TrainIndex(
+        train_pad.T.contiguous(), _norms(train_pad, train_count), tlo, thi,
+        build_index(train[::subsample], train_tile, bins),
+        bins, train_tile, mask, train_count,
+    )
+
+
+def _index_for(train, train_index, train_tile, bins, pruned, subsample=16):
+    """``train_index`` after checking it was built for this geometry, or a
+    new one."""
+    if train_index is None:
+        return build_index(train, train_tile, bins, pruned, subsample)
+    if (
+        (train_index.bins, train_index.train_tile) != (bins, train_tile)
+        or (train_index.sub is not None) != pruned
+    ):
+        raise ValueError(
+            f"train_index was built for bins {train_index.bins}, train_tile "
+            f"{train_index.train_tile}, pruned {train_index.sub is not None}"
+            f"; this search asks for bins {bins}, train_tile {train_tile}, "
+            f"pruned {pruned}"
+        )
+    return train_index
+
+
+def _prepared(index: TrainIndex, q_pad, query_tile, query_count, lb=None,
+              ub=None, qperm=None) -> Prepared:
+    return Prepared(
+        q_pad.contiguous(), torch.sum(q_pad * q_pad, dim=-1), index.tT,
+        index.tsq, lb, ub, index.bins, index.train_tile, query_tile,
+        index.chunk_mask, index.train_count, query_count, qperm,
+    )
+
+
 def prepare(
-    train, queries, nn_count, query_tile=128, train_tile=2048, bins=512
+    train, queries, nn_count, query_tile=128, train_tile=2048, bins=512,
+    train_index: Optional[TrainIndex] = None,
 ) -> Prepared:
-    """Inputs of the unpruned search (:func:`knn_cuda`)."""
-    train = train.to(torch.float32)
+    """Inputs of the unpruned search (:func:`knn_cuda`); the train side
+    from ``train_index`` where given (``train`` is then not read)."""
+    _check_count(nn_count, bins)
+    index = _index_for(train, train_index, train_tile, bins, False)
     queries = queries.to(torch.float32)
-    train_count, query_count = train.shape[0], queries.shape[0]
-    t_padded, mask = _chunk_mask(train_count, nn_count, train_tile, bins)
-    train_pad = torch.nn.functional.pad(train, (0, 0, 0, t_padded - train_count))
+    query_count = queries.shape[0]
     q_padded = math.ceil(query_count / query_tile) * query_tile
     q_pad = torch.nn.functional.pad(queries, (0, 0, 0, q_padded - query_count))
-    return Prepared(
-        q_pad.contiguous(), torch.sum(q_pad * q_pad, dim=-1),
-        train_pad.T.contiguous(), _norms(train_pad, train_count),
-        None, None, bins, train_tile, query_tile, mask,
-        train_count, query_count, None,
-    )
+    return _prepared(index, q_pad, query_tile, query_count)
 
 
 def prepare_pruned(
     train, queries, nn_count, query_tile=128, train_tile=2048, bins=512,
-    subsample=16,
+    subsample=16, train_index: Optional[TrainIndex] = None,
 ) -> Prepared:
     """Inputs of the pruned search (:func:`knn_cuda_pruned`), including the
-    skip table; runs the unpruned kernel on a ``1/subsample`` row subset for
-    the upper bound, as ``muygpys_tpu.pallas.knn.knn_pallas_pruned`` does."""
-    train = train.to(torch.float32)
+    skip table; runs the unpruned kernel on the ``1/subsample`` row subset
+    for the upper bound, as ``muygpys_tpu.pallas.knn.knn_pallas_pruned``
+    does.  The train side comes from ``train_index`` where given."""
+    _check_count(nn_count, bins)
+    index = _index_for(train, train_index, train_tile, bins, True, subsample)
     queries = queries.to(torch.float32)
-    train_count, query_count = train.shape[0], queries.shape[0]
-    t_padded, mask = _chunk_mask(train_count, nn_count, train_tile, bins)
-    # edge-pad (not zero-pad): padded rows must not widen the last tile's
-    # bounding box; the 1e30 sentinel norm still excludes them as columns
-    train_pad = _edge_pad(train, t_padded)
+    query_count = queries.shape[0]
 
     # sort queries along the same curve so query tiles are compact too
     qperm = spatial_sort(queries)
@@ -240,10 +408,8 @@ def prepare_pruned(
     # per-query upper bound on the k-th neighbor distance: max candidate
     # distance on a row subsample (k-th NN of a subset >= k-th NN of the
     # set), inflated past the packed-key mantissa truncation
-    sub = prepare(
-        train[::subsample], q_pad, nn_count, query_tile, train_tile, bins
-    )
-    _, d2_sub = _merge_decode(*sub.candidates(), nn_count, sub)
+    sub = _prepared(index.sub, q_pad, query_tile, nq * query_tile)
+    _, d2_sub = knn_select(sub, min(nn_count, 2 * bins))
     d2_sub = torch.where(
         torch.isfinite(d2_sub), d2_sub, torch.full_like(d2_sub, 1e30)
     )
@@ -251,13 +417,10 @@ def prepare_pruned(
     ub = torch.amax(ub_row.reshape(nq, query_tile), dim=1)
 
     qlo, qhi = _tile_bboxes(q_pad, query_tile)
-    tlo, thi = _tile_bboxes(train_pad, train_tile)
-    lb = _bbox_lb2(qlo, qhi, tlo, thi)  # (nq, nt)
-    return Prepared(
-        q_pad.contiguous(), torch.sum(q_pad * q_pad, dim=-1),
-        train_pad.T.contiguous(), _norms(train_pad, train_count),
-        lb.contiguous(), ub.contiguous(), bins, train_tile, query_tile, mask,
-        train_count, query_count, qperm,
+    lb = _bbox_lb2(qlo, qhi, index.tlo, index.thi)  # (nq, nt)
+    return _prepared(
+        index, q_pad, query_tile, query_count, lb.contiguous(),
+        ub.contiguous(), qperm,
     )
 
 
@@ -281,27 +444,30 @@ def _merge_decode(s1, s2, nn_count, prep: Prepared):
 
 def knn_cuda(
     train, queries, nn_count, query_tile=128, train_tile=2048, bins=512,
-    device=None,
+    device=None, train_index: Optional[TrainIndex] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Candidate KNN ``(indices, sq_dists)`` of shape ``(Q, nn_count)``
     through the K3 kernel; counterpart of ``knn_pallas``.
 
     Candidates, not guaranteed-exact neighbors: distances carry the
     packed-key truncation (<= 2^(chunk_bits-23) relative).  Callers
-    over-fetch and re-rank exactly.  ``nn_count > 2 * bins`` raises.
+    over-fetch and re-rank exactly.  ``nn_count > 2 * bins`` raises.  A
+    ``train_index`` from :func:`build_index` (``pruned=False``) saves the
+    train side's work; ``train`` is then not read.
     """
     dev = config.device(device)
     prep = prepare(
-        torch.as_tensor(train, device=dev), torch.as_tensor(queries, device=dev),
-        nn_count, query_tile, train_tile, bins,
+        None if train_index is not None else torch.as_tensor(train, device=dev),
+        torch.as_tensor(queries, device=dev), nn_count, query_tile,
+        train_tile, bins, train_index,
     )
-    idx, d2 = _merge_decode(*prep.candidates(), nn_count, prep)
+    idx, d2 = knn_select(prep, min(nn_count, 2 * bins))
     return idx[: prep.query_count], d2[: prep.query_count]
 
 
 def knn_cuda_pruned(
     train, queries, nn_count, query_tile=128, train_tile=2048, bins=512,
-    subsample=16, device=None,
+    subsample=16, device=None, train_index: Optional[TrainIndex] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Spatially pruned candidate KNN; counterpart of ``knn_pallas_pruned``.
 
@@ -309,14 +475,16 @@ def knn_cuda_pruned(
     bounding boxes; queries are sorted internally and results mapped back.
     A (query tile, train tile) block is skipped only when its bounding-box
     lower bound exceeds the query tile's k-th-neighbor upper bound, so the
-    candidates equal the unpruned kernel's.
+    candidates equal the unpruned kernel's.  A ``train_index`` from
+    :func:`build_index` (``pruned=True``) saves the train side's work.
     """
     dev = config.device(device)
     prep = prepare_pruned(
-        torch.as_tensor(train, device=dev), torch.as_tensor(queries, device=dev),
-        nn_count, query_tile, train_tile, bins, subsample,
+        None if train_index is not None else torch.as_tensor(train, device=dev),
+        torch.as_tensor(queries, device=dev), nn_count, query_tile,
+        train_tile, bins, subsample, train_index,
     )
-    idx, d2 = _merge_decode(*prep.candidates(), nn_count, prep)
+    idx, d2 = knn_select(prep, min(nn_count, 2 * bins))
     qinv = torch.argsort(prep.qperm)
     return idx[: prep.query_count][qinv], d2[: prep.query_count][qinv]
 

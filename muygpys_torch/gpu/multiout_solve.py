@@ -123,14 +123,14 @@ def _launch(Kin, Kcross, y, m, o, B, batch_last, design=None):
     mean = torch.empty(shape[0], dtype=dtype, device=dev)
     S = torch.empty(shape[1], dtype=dtype, device=dev)
     symbol = "multiout_solve_f32" if dtype == torch.float32 else "multiout_solve_f64"
-    _build.check(
-        _build.function("multiout_solve", symbol, _ARGTYPES)(
+    fn = _build.function("multiout_solve", symbol, _ARGTYPES)
+    with _build.on_device(dev):
+        rc = fn(
             _build.ptr(Kin), _build.ptr(Kcross), _build.ptr(y),
             _build.ptr(mean), _build.ptr(S), m, o, B, int(batch_last),
             int(design == "registers"), _build.stream(dev),
-        ),
-        "multiout_solve", "multiout_solve",
-    )
+        )
+    _build.check(rc, "multiout_solve", "multiout_solve")
     _build.count("multiout_solve", f"multiout_solve/{design}")
     return mean, S
 

@@ -8,7 +8,8 @@ Counterpart of :class:`muygpys_tpu.neighbors.NN_Wrapper`.  Distances are
   candidate set, then an exact re-rank by direct differences;
 - ``"kernel"`` (JAX: ``"pallas"``): the K3 candidate kernel
   (:mod:`muygpys_torch.gpu.knn`, 1024 bins, Morton-sorted and pruned at
-  ``d <= 4``) followed by the same exact re-rank.
+  ``d <= 4``; its train side built once per index) followed by the same
+  exact re-rank.
 
 The host methods ``"sklearn"`` and ``"hnsw"`` are not ported yet.
 """
@@ -105,6 +106,13 @@ class NN_Wrapper:
         if self._spatial:
             self._perm_dev = _knn.spatial_sort(self._train_dev)
             self._train_sorted = self._train_dev[self._perm_dev]
+        # the candidate search's train side, built once per index
+        self._knn_index = None
+        if self.nn_method == "kernel" and self.train_count >= 2048:
+            self._knn_index = _knn.build_index(
+                self._train_sorted if self._spatial else self._train_dev,
+                bins=1024, pruned=self._spatial,
+            )
 
     def get_nns(self, test) -> Tuple[np.ndarray, np.ndarray]:
         """Neighbors of out-of-sample queries: ``(indices, sq_dists)``."""
@@ -127,19 +135,19 @@ class NN_Wrapper:
         # ranking once nearest distances approach that floor
         cand_count = min(nn_count + 32, self.train_count)
         queries = torch.as_tensor(test, device=self.device)
-        if self.nn_method == "kernel" and self.train_count >= 2048:
+        if self._knn_index is not None:
             # 1024 bins: the host KNN API favors recall over merge cost;
             # below 2*bins train rows the exact engine is used instead
             if self._spatial:
                 cand_s, _ = _knn.knn_cuda_pruned(
-                    self._train_sorted, queries, cand_count, bins=1024,
-                    device=self.device,
+                    None, queries, cand_count, bins=1024, device=self.device,
+                    train_index=self._knn_index,
                 )
                 cand_idx = self._perm_dev[cand_s]
             else:
                 cand_idx, _ = _knn.knn_cuda(
-                    self._train_dev, queries, cand_count, bins=1024,
-                    device=self.device,
+                    None, queries, cand_count, bins=1024, device=self.device,
+                    train_index=self._knn_index,
                 )
         else:
             cand_idx, _ = _brute_force_knn(self._train_dev, queries, cand_count)

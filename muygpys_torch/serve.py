@@ -52,7 +52,12 @@ from muygpys_torch.gp.kernels.matern import CLOSED_FORMS
 from muygpys_torch.gp.muygps import MuyGPS
 from muygpys_torch.gp.noise import HeteroscedasticNoise, HomoscedasticNoise
 from muygpys_torch.gpu.fused_predict import fused_predict_coords_bl
-from muygpys_torch.gpu.knn import knn_cuda, knn_cuda_pruned, spatial_sort
+from muygpys_torch.gpu.knn import (
+    build_index,
+    knn_cuda,
+    knn_cuda_pruned,
+    spatial_sort,
+)
 from muygpys_torch.gpu.matern_nu import NU_MAX, NU_MIN, matern_nu_coeffs_host
 from muygpys_torch.gpu.multiout_solve import multiout_serve_cuda
 from muygpys_torch.neighbors import NN_Wrapper, _brute_force_knn
@@ -353,11 +358,18 @@ class FastServer:
         )
         knn_kwargs = {} if self.rerank else {"bins": 256, "query_tile": 256}
         knn_fn = knn_cuda_pruned if spatial else knn_cuda
+        # the search's train side (padded transpose, norms, tile boxes, the
+        # subsample's own), built once: a request computes its query side
+        knn_index = (
+            build_index(train, bins=knn_kwargs.get("bins", 512), pruned=spatial)
+            if use_kernel else None
+        )
 
         def core(queries):
             if use_kernel:
                 cand, _ = knn_fn(
-                    train, queries, cand_count, device=self.device, **knn_kwargs
+                    None, queries, cand_count, device=self.device,
+                    train_index=knn_index, **knn_kwargs
                 )
             else:
                 cand, _ = _brute_force_knn(train, queries, cand_count)

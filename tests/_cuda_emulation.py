@@ -1,12 +1,15 @@
-"""The hand-written K2 and K5 CUDA sources run on the CPU, one thread per
-CUDA thread, for ``tests/test_torch_cuda_emulation.py``.
+"""The hand-written CUDA sources (K1/K1b, K2, K3 and K5) run on the CPU, one
+thread per CUDA thread, for ``tests/test_torch_cuda_emulation.py``.
 
 A machine without a card or ``nvcc`` cannot run ``muygpys_torch/gpu/csrc``.
-:func:`build` compiles ``fused_train.cu`` or ``multiout_solve.cu`` with the
-host's C++20 compiler against a small emulation of the CUDA subset they use:
-a ``std::thread`` per CUDA thread, ``std::barrier`` for ``__syncthreads`` and
-``__syncwarp``, an exchange slot for the warp shuffles, ``memcpy`` for the
-asynchronous copies, and shared memory filled with garbage before each
+:func:`build` compiles any of its four ``.cu`` sources with the host's C++20
+compiler against a small emulation of the CUDA subset they use: a
+``std::thread`` per CUDA thread, ``std::barrier`` for ``__syncthreads`` and
+``__syncwarp``, an exchange slot for the warp shuffles, ballots and
+reductions, ``memcpy`` for the asynchronous copies, plain loads for the
+read-only ones, IEEE single operations
+for the round-to-nearest intrinsics (compiled without contraction, so no
+fused multiply-add), and shared memory filled with garbage before each
 block.  The C entry points are then called through ``ctypes`` on CPU
 tensors.  Built with ThreadSanitizer (``tsan=True``) and run in a child
 process that preloads the sanitizer's runtime (:func:`race_report`), one
@@ -55,12 +58,27 @@ HEADER = r"""
 
 using std::fabs; using std::fma; using std::fmax; using std::max; using std::min;
 
-struct dim3e { int x = 0; };
+struct dim3e { int x = 0, y = 0; };
 inline thread_local dim3e threadIdx, blockIdx, blockDim;
+struct dim3 {
+  int x, y, z;
+  dim3(int a = 1, int b = 1, int c = 1) : x(a), y(b), z(c) {}
+};
 struct float4 { float x, y, z, w; };
 struct double2 { double x, y; };
+struct int2 { int x, y; };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 inline double2 make_double2(double a, double b) { return {a, b}; }
+inline int2 make_int2(int a, int b) { return {a, b}; }
+inline float rsqrtf(float x) { return 1.0f / std::sqrt(x); }
+inline double rsqrt(double x) { return 1.0 / std::sqrt(x); }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline int __float_as_int(float x) { int i; std::memcpy(&i, &x, 4); return i; }
+inline float __int_as_float(int i) { float x; std::memcpy(&x, &i, 4); return x; }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
+template <typename T> inline T __ldg(const T* p) { return *p; }
 inline float __fsqrt_rn(float x) { return std::sqrt(x); }
 inline double __dsqrt_rn(double x) { return std::sqrt(x); }
 inline float __frcp_rn(float x) { return 1.0f / x; }
@@ -93,6 +111,28 @@ template <typename T> inline T shfl_from(T v, int src) {
   return r;
 }
 template <typename T> inline T __shfl_sync(unsigned, T v, int src) { return shfl_from(v, src); }
+// every lane's value, in lane order, to every lane
+inline void warp_gather(double v, double* all) {
+  my_warp->bar.arrive_and_wait();
+  my_warp->slot[threadIdx.x % 32] = v;
+  my_warp->bar.arrive_and_wait();
+  std::memcpy(all, my_warp->slot, sizeof(my_warp->slot));
+  my_warp->bar.arrive_and_wait();
+}
+inline unsigned __ballot_sync(unsigned, int pred) {
+  double all[32];
+  warp_gather(pred ? 1.0 : 0.0, all);
+  unsigned m = 0;
+  for (int l = 0; l < 32; ++l) m |= (all[l] != 0.0 ? 1u : 0u) << l;
+  return m;
+}
+inline int __reduce_add_sync(unsigned, int v) {
+  double all[32];
+  warp_gather((double)v, all);
+  int s = 0;
+  for (int l = 0; l < 32; ++l) s += (int)all[l];
+  return s;
+}
 template <typename T> inline T __shfl_xor_sync(unsigned, T v, int m) {
   return shfl_from(v, (threadIdx.x % 32) ^ m);
 }
@@ -100,10 +140,15 @@ inline void __pipeline_memcpy_async(void* d, const void* s, size_t n) { std::mem
 inline void __pipeline_commit() {}
 inline void __pipeline_wait_prior(int) {}
 
-template <typename K, typename... A>
-void emu_launch(K kernel, int grid, int block, size_t bytes, A... args) {
+inline dim3 as_grid(int g) { return dim3(g); }
+inline dim3 as_grid(dim3 g) { return g; }
+
+template <typename K, typename G, typename... A>
+void emu_launch(K kernel, G grid_size, int block, size_t bytes, A... args) {
   std::vector<unsigned char> smem(bytes + 64);
-  for (int bx = 0; bx < grid; ++bx) {
+  const dim3 grid = as_grid(grid_size);
+  for (int by = 0; by < grid.y; ++by)
+  for (int bx = 0; bx < grid.x; ++bx) {
     std::fill(smem.begin(), smem.end(), 0xAB);  // garbage, as on the card
     emu_dyn_smem = smem.data();
     std::barrier<> bbar(block);
@@ -112,7 +157,7 @@ void emu_launch(K kernel, int grid, int block, size_t bytes, A... args) {
     std::vector<std::thread> ts;
     for (int t = 0; t < block; ++t)
       ts.emplace_back([&, t] {
-        threadIdx.x = t; blockIdx.x = bx; blockDim.x = block;
+        threadIdx.x = t; blockIdx.x = bx; blockIdx.y = by; blockDim.x = block;
         my_warp = warps[t / 32].get(); my_block = &bbar;
         kernel(args...);
       });
@@ -170,9 +215,9 @@ def build(name: str, out_dir: str, tsan: bool = False) -> str:
         f.write(text)
     lib = os.path.join(out_dir, f"lib{name}{'_tsan' if tsan else ''}.so")
     flags = ["-fsanitize=thread", "-g"] if tsan else []
-    subprocess.run(["g++", "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread",
-                    "-I", out_dir, *flags, "-o", lib, cpp], check=True,
-                   capture_output=True)
+    subprocess.run(["g++", "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC",
+                    "-shared", "-pthread", "-I", out_dir, *flags, "-o", lib,
+                    cpp], check=True, capture_output=True)
     return lib
 
 
@@ -296,13 +341,27 @@ def k5_run(lib, design, ins, m, o, B, batch_last):
 
 #: one small launch of each design, run under ThreadSanitizer
 RACE_LAUNCHES = ("k2-registers", "k2-shared", "k2-registers-free-nu",
-                 "k5-shared-24", "k5-registers-60", "k5-registers-90")
+                 "k5-shared-24", "k5-registers-60", "k5-registers-90",
+                 "k3-fused", "k3-fused-pruned", "k1-registers",
+                 "k1-registers-gen")
 
 
 def race_launch(out_dir: str, launch: str) -> None:
     """Run one launch of :data:`RACE_LAUNCHES` through the ThreadSanitizer
     builds in ``out_dir`` (in the child process :func:`race_report`
     starts)."""
+    if launch.startswith("k3"):
+        lib = ctypes.CDLL(os.path.join(out_dir, "libknn_tsan.so"))
+        prep = k3_problem(n_train=2048, n_query=16,
+                          pruned=launch.endswith("pruned"))
+        k3_select(lib, prep, 38)
+        return
+    if launch.startswith("k1"):
+        lib = ctypes.CDLL(os.path.join(out_dir, "libfused_predict_tsan.so"))
+        nu = "gen" if launch.endswith("gen") else 1.5
+        ins = k1_inputs(30, 2, 1, 9, torch.float32, hetero=True, nu=nu)
+        k1_run(lib, 1, *ins, nu, 1)
+        return
     if launch.startswith("k2"):
         from muygpys_torch.gpu.matern_nu import matern_nu_coeffs
 
@@ -342,3 +401,87 @@ def race_report(out_dir: str, launch: str):
     )
     return (res.returncode, res.stderr.count("WARNING: ThreadSanitizer"),
             res.stderr)
+
+
+def k3_problem(n_train=2048, n_query=24, d=2, pruned=False, bins=256, k=38,
+               seed=0, query_tile=8, train_tile=256):
+    """A K3 search prepared by the glue on the CPU: a uniform Morton-sorted
+    train set and queries clustered in one corner (so the pruned variant
+    skips tiles)."""
+    from muygpys_torch.gpu import knn as K
+
+    rng = np.random.default_rng(seed)
+    train = torch.as_tensor(rng.uniform(size=(n_train, d)).astype(np.float32))
+    train = train[K.spatial_sort(train)]
+    queries = torch.as_tensor(
+        (0.1 * rng.uniform(size=(n_query, d))).astype(np.float32))
+    prep = (K.prepare_pruned if pruned else K.prepare)(
+        train, queries, k, query_tile=query_tile, train_tile=train_tile,
+        bins=bins)
+    return prep
+
+
+def k3_select(lib, prep, k):
+    """One launch of the fused K3 design: ``(idx, d2)`` of ``(Q_pad, k)``."""
+    q_count, feat = prep.q.shape
+    idx = torch.full((q_count, k), -1, dtype=torch.int64)
+    d2 = torch.full((q_count, k), math.nan, dtype=torch.float32)
+    fn = lib.knn_select
+    fn.argtypes = [P] * 8 + [ctypes.c_int] * 9 + [P]
+    rc = fn(*(ptr(t) for t in (prep.q, prep.qsq, prep.tT, prep.tsq, prep.lb,
+                               prep.ub, idx, d2)),
+            q_count, feat, prep.tT.shape[1], prep.bins, prep.train_tile,
+            prep.query_tile, prep.chunk_mask, k, prep.train_count, None)
+    assert rc == 0, f"K3 launcher refused: {rc}"
+    return idx, d2
+
+
+def k3_keys(lib, prep):
+    """One launch of the kept K3 design: ``s1, s2`` of ``(Q_pad, bins)``."""
+    q_count, feat = prep.q.shape
+    s1 = torch.zeros((q_count, prep.bins), dtype=torch.int32)
+    s2 = torch.zeros_like(s1)
+    fn = lib.knn_candidates
+    fn.argtypes = [P] * 8 + [ctypes.c_int] * 7 + [P]
+    rc = fn(*(ptr(t) for t in (prep.q, prep.qsq, prep.tT, prep.tsq, prep.lb,
+                               prep.ub, s1, s2)),
+            q_count, feat, prep.tT.shape[1], prep.bins, prep.train_tile,
+            prep.query_tile, prep.chunk_mask, None)
+    assert rc == 0, f"K3 launcher refused: {rc}"
+    return s1, s2
+
+
+def k1_inputs(n, d, r, B, dtype, hetero=False, seed=0, nu=1.5):
+    """K1 inputs ``(nf, q, y, params, noise_nn, gen)`` on the CPU."""
+    from muygpys_torch.gpu.matern_nu import matern_nu_coeffs_host
+
+    g = torch.Generator().manual_seed(seed)
+    f64 = dict(dtype=torch.float64, generator=g)
+    nf = torch.rand((n, d, B), **f64).to(dtype)
+    q = torch.rand((d, B), **f64).to(dtype)
+    y = torch.randn((n, r, B), **f64).to(dtype)
+    params = torch.tensor([0.5, 0.7, 0.9][:d] + [1e-3], dtype=dtype)
+    noise_nn = (torch.rand((n, B), **f64) * 1e-2 + 1e-4).to(dtype) if hetero else None
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    gen = (torch.as_tensor(matern_nu_coeffs_host(1.2, np_dtype))
+           if nu == "gen" else None)
+    return nf, q, y, params, noise_nn, gen
+
+
+def k1_run(lib, design, nf, q, y, params, noise_nn, gen, nu, power):
+    """One K1 launch of ``design`` (1 registers, 0 shared memory)."""
+    from muygpys_torch.gpu import matern_nu as _nu
+    from muygpys_torch.gpu.fused_predict import serve_tail_terms
+
+    n, d, B = nf.shape
+    r = y.shape[1]
+    code = _nu.check_smoothness("k1", nu, gen, power, _nu._LEN_VAL)
+    mean = torch.full((r, B), math.nan, dtype=nf.dtype)
+    var = torch.full((B,), math.nan, dtype=nf.dtype)
+    fn = (lib.fused_predict_coords_f32 if nf.dtype == torch.float32
+          else lib.fused_predict_coords_f64)
+    fn.argtypes = [P] * 8 + [ctypes.c_int] * 8 + [P]
+    rc = fn(*(ptr(t) for t in (nf, q, y, params, noise_nn, gen, mean, var)),
+            n, d, r, B, code, power, serve_tail_terms(nf.dtype), design, None)
+    assert rc == 0, f"K1 launcher refused: {rc}"
+    return mean, var

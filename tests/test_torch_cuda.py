@@ -164,6 +164,122 @@ def test_k3_kernel_matches_plain_bitwise(pruned):
     assert torch.equal(s1, p1) and torch.equal(s2, p2)
 
 
+@pytest.mark.parametrize("pruned", [False, True])
+@pytest.mark.parametrize("bins,k", [(256, 30), (512, 38), (1024, 62)])
+def test_k3_fused_design_matches_plain(pruned, bins, k):
+    """The fused K3 design (the merge inside the kernel) against
+    knn_select_plain: distances bit-equal (both in ascending key order),
+    index sets equal on at least 0.999 of slots (ties between equal keys
+    may order differently); the launcher picks it and counts it."""
+    _need_card()
+    rng = np.random.default_rng(1)
+    train = torch.as_tensor(rng.uniform(size=(20000, 2)), dtype=torch.float32,
+                            device="cuda")
+    queries = torch.as_tensor(rng.uniform(size=(1000, 2)),
+                              dtype=torch.float32, device="cuda")
+    train = train[K.spatial_sort(train)].contiguous()
+    prep = (K.prepare_pruned if pruned else K.prepare)(
+        train, queries, k, bins=bins)
+    assert K.knn_design(2, k, bins) == "fused"
+    before = _build.launches["knn_candidates/fused"]
+    idx, d2 = K.knn_select(prep, k)
+    torch.cuda.synchronize()
+    assert _build.launches["knn_candidates/fused"] == before + 1
+    ip, dp = K.knn_select_plain(prep, k)
+    assert torch.equal(d2, dp)
+    same = (torch.sort(idx, 1).values == torch.sort(ip, 1).values)
+    assert float(same.float().mean()) >= 0.999
+    ik, dk = K.knn_select(prep, k, design="keys")
+    assert torch.equal(dk, dp)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("smoothness", [1.5, "gen"])
+def test_k1_both_designs_agree_and_registers_refuse_n33(smoothness, dtype):
+    """Both K1 designs against the plain version at n = 30; the register
+    design refuses n = 33 (the launcher then takes shared memory)."""
+    _need_card()
+    from muygpys_torch.gpu import fused_predict as F
+    from muygpys_torch.gpu import matern_nu as _nu
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    opts = dict(dtype=torch.float64, device="cuda", generator=g)
+    co = _gen_coeffs(1.2, dtype) if smoothness == "gen" else None
+    for n in (30, 33):
+        nf = (torch.rand((n, 2, 999), **opts) * 0.3).to(dtype)
+        q = (torch.rand((2, 999), **opts) * 0.3).to(dtype)
+        y = torch.randn((n, 1, 999), **opts).to(dtype)
+        params = torch.tensor([0.5, 0.7, 1e-3], dtype=dtype, device="cuda")
+        code = _nu.check_smoothness("k1", smoothness, co, 1, _nu._LEN_VAL)
+        gen = None if co is None else co[:_nu._LEN_VAL].contiguous()
+        mp, vp = F.fused_predict_coords_bl_plain(
+            nf, q, y, params, gen_coeffs=co, smoothness=smoothness)
+        tol_m, tol_v = K1_TOL[dtype]
+        for design in ("registers", "shared"):
+            if n == 33 and design == "registers":
+                with pytest.raises(RuntimeError, match="launch failed"):
+                    F._launch(nf, q, y, params, None, gen, code, 1,
+                              smoothness, design=design)
+                continue
+            m, v = F._launch(nf, q, y, params, None, gen, code, 1, smoothness,
+                             design=design)
+            torch.testing.assert_close(m, mp, rtol=0, atol=tol_m * 10)
+            torch.testing.assert_close(v, vp, rtol=0, atol=tol_v * 10)
+        assert F.k1_design(n, 1, dtype, smoothness) == (
+            "registers" if n <= 32 else "shared")
+
+
+def test_launchers_enter_the_tensors_device():
+    """With cuda:0 current, a server and a training run on cuda:1 launch
+    on cuda:1 (K3, K1, K2) and agree with the same work on cuda:0."""
+    _need_card()
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from muygpys_torch.convert import arrays_from_muygps, muygps_from_arrays
+    from muygpys_torch.neighbors import NN_Wrapper
+    from muygpys_torch.optimize import Fused_L_BFGS_B_optimize
+    from muygpys_torch.serve import FastServer
+
+    rng = np.random.default_rng(6)
+    train = rng.uniform(size=(5000, 2)).astype(np.float32)
+    targets = np.sin(6 * train[:, :1]).astype(np.float32)
+    queries = rng.uniform(size=(700, 2)).astype(np.float32)
+    model = muygps_from_arrays(0.3, noise=1e-3, smoothness=1.5)
+    B, n = 128, 20
+    pts = rng.uniform(size=(B, n, 2))
+    q = rng.uniform(size=(B, 2))
+    pw = np.sqrt(((pts[:, :, None] - pts[:, None]) ** 2).sum(-1))
+    cw = np.sqrt(((q[:, None] - pts) ** 2).sum(-1))
+    y = np.sin(3 * pts[..., 0])
+    t = np.sin(3 * q[:, 0])
+    out = {}
+    torch.cuda.set_device(0)
+    for dev in ("cuda:0", "cuda:1"):
+        _build.reset_launches()
+        nbrs = NN_Wrapper(train, 20, nn_method="kernel", device=dev)
+        server = FastServer(model, nbrs, train, targets, bucket=256,
+                            engine="fused", device=dev)
+        mean, var = server.predict(queries)
+        trained = Fused_L_BFGS_B_optimize(
+            muygps_from_arrays(
+                0.5, noise=1e-3, smoothness=1.5, scale="analytic",
+                length_scale_bounds=(0.01, 5.0), noise_bounds=(1e-6, 1.0),
+            ),
+            t, y, cw, pw, device=dev,
+        )
+        torch.cuda.synchronize(dev)
+        assert torch.cuda.current_device() == 0
+        for name in ("knn_candidates/fused", "fused_predict_coords",
+                     "fused_train_stats"):
+            assert _build.launches[name] > 0, name
+        out[dev] = (mean, var, arrays_from_muygps(trained)["length_scale"],
+                    nbrs.get_nns(queries)[0])
+    np.testing.assert_array_equal(out["cuda:0"][3], out["cuda:1"][3])
+    np.testing.assert_allclose(out["cuda:0"][0], out["cuda:1"][0], atol=1e-6)
+    np.testing.assert_allclose(out["cuda:0"][1], out["cuda:1"][1], atol=1e-7)
+    np.testing.assert_allclose(out["cuda:0"][2], out["cuda:1"][2], rtol=1e-5)
+
+
 def test_kernel_wrappers_check_inputs():
     _need_card()
     prep = K.prepare(

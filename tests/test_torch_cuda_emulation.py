@@ -1,10 +1,12 @@
-"""The hand-written K2 and K5 CUDA sources, run on the CPU one thread per
-CUDA thread (``_cuda_emulation``), against their plain PyTorch versions;
-and one launch of each design under ThreadSanitizer, which fails on a
-missing barrier.  Skipped where ``g++`` lacks C++20 ``<barrier>``."""
+"""The hand-written CUDA sources (K1, K2, K3 and K5), run on the CPU one
+thread per CUDA thread (``_cuda_emulation``), against their plain PyTorch
+versions; and one launch of each new design under ThreadSanitizer, which
+fails on a missing barrier.  Skipped where ``g++`` lacks C++20
+``<barrier>``."""
 
 import math
 
+import numpy as np
 import pytest
 import torch
 
@@ -14,6 +16,10 @@ import _cuda_emulation as emu
 K2_LIMIT = {torch.float64: 1e-9, torch.float32: 2e-2}
 #: the largest error over the output's magnitude, against the plain version
 K5_LIMIT = {torch.float64: 1e-9, torch.float32: 1e-3}
+#: K1 (mean, variance) absolute limits against the plain version, as on the
+#: card (tests/test_torch_cuda.py: K1_TOL): f64 both orders exact to ~1e-16
+#: x the conditioning at noise 1e-3; f32 the rounding of the elimination
+K1_LIMIT = {torch.float64: (1e-10, 1e-10), torch.float32: (5e-3, 2e-5)}
 
 
 @pytest.fixture(scope="module")
@@ -40,10 +46,24 @@ def k5_lib(out_dir):
 
 
 @pytest.fixture(scope="module")
+def k3_lib(out_dir):
+    import ctypes
+
+    return ctypes.CDLL(emu.build("knn", out_dir))
+
+
+@pytest.fixture(scope="module")
+def k1_lib(out_dir):
+    import ctypes
+
+    return ctypes.CDLL(emu.build("fused_predict", out_dir))
+
+
+@pytest.fixture(scope="module")
 def tsan_dir(out_dir):
     if not emu.tsan_runtime():
         pytest.skip("g++ has no ThreadSanitizer runtime")
-    for name in ("fused_train", "multiout_solve"):
+    for name in ("fused_train", "multiout_solve", "knn", "fused_predict"):
         emu.build(name, out_dir, tsan=True)
     return out_dir
 
@@ -93,6 +113,103 @@ def test_k5_source_matches_plain(k5_lib, m, B, dtype):
         rel = max(float(((mb - mp).abs() / mp.abs().amax(0)).max()),
                   float(((-Sb - cp).abs() / cp.abs().amax((0, 1))).max()))
         assert rel <= K5_LIMIT[dtype], (design, rel)
+
+
+@pytest.mark.parametrize("pruned", [False, True], ids=["unpruned", "pruned"])
+@pytest.mark.parametrize("d", [2, 3])
+@pytest.mark.parametrize("n_query", [16, 32])
+def test_k3_fused_source_matches_plain(k3_lib, pruned, d, n_query):
+    """The fused K3 design (the merge inside the kernel) against
+    knn_select_plain on 2048 train points at 256 bins, k = 38: distances
+    bit-equal (both are in ascending key order), index sets equal; the kept
+    design's key state bit-equal to its mirror on the same launch inputs."""
+    from muygpys_torch.gpu import knn as K
+
+    prep = emu.k3_problem(n_train=2048, n_query=n_query, d=d, pruned=pruned)
+    if pruned and d == 2:
+        run = prep.lb <= prep.ub[:, None]
+        assert 0 < int(run.sum()) < run.numel(), "no tile was skipped"
+    idx, d2 = emu.k3_select(k3_lib, prep, 38)
+    ip, dp = K.knn_select_plain(prep, 38)
+    assert torch.equal(d2, dp)
+    assert torch.equal(torch.sort(idx, 1).values, torch.sort(ip, 1).values)
+    s1, s2 = emu.k3_keys(k3_lib, prep)
+    p1, p2 = K.knn_candidates_plain(
+        prep.q, prep.qsq, prep.tT, prep.tsq, prep.bins, prep.train_tile,
+        prep.query_tile, prep.chunk_mask, prep.lb, prep.ub)
+    assert torch.equal(s1, p1) and torch.equal(s2, p2)
+
+
+def test_k3_fused_source_small_train_and_ties(k3_lib):
+    """Fewer train points than 2 * bins: sentinel and padded-column keys
+    (all equal) survive into the k selected; they come back as +inf at an
+    in-range index, as from _merge_decode, and the ties do not disturb the
+    distances."""
+    from muygpys_torch.gpu import knn as K
+
+    rng = np.random.default_rng(3)
+    train = torch.as_tensor(rng.uniform(size=(300, 2)).astype(np.float32))
+    queries = torch.as_tensor(rng.uniform(size=(8, 2)).astype(np.float32))
+    prep = K.prepare(train, queries, 64, query_tile=8, train_tile=256,
+                     bins=256)
+    idx, d2 = emu.k3_select(k3_lib, prep, 64)
+    ip, dp = K.knn_select_plain(prep, 64)
+    assert torch.equal(d2, dp)
+    assert int(idx.max()) < 300 and int(idx.min()) >= 0
+    assert not torch.isinf(d2).any()
+    prep = K.prepare(train[:40], queries, 64, query_tile=8, train_tile=256,
+                     bins=256)
+    idx, d2 = emu.k3_select(k3_lib, prep, 64)
+    ip, dp = K.knn_select_plain(prep, 64)
+    assert torch.equal(d2, dp) and torch.isinf(d2).any()
+    assert int(idx.max()) < 40
+
+
+#: K1 cases: (n, smoothness, metric_power, r, heteroscedastic)
+K1_CASES = [
+    (30, 0.5, 1, 1, False),
+    (30, 1.5, 1, 1, False),
+    (30, 1.5, 1, 2, True),
+    (30, math.inf, 1, 2, False),
+    (30, "rbf", 2, 1, False),
+    (30, "rbf", 2, 2, True),
+    (30, "gen", 1, 1, False),
+    (30, "gen", 1, 2, True),
+    (32, 1.5, 1, 1, False),
+    (8, 1.5, 1, 3, True),
+    (33, 1.5, 1, 1, False),
+]
+
+
+def _k1_id(case):
+    n, nu, power, r, hetero = case
+    nu = "inf" if nu == math.inf else nu
+    return f"n{n}-{nu}-p{power}-r{r}-h{int(hetero)}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("case", K1_CASES, ids=_k1_id)
+def test_k1_source_matches_plain(k1_lib, case, dtype):
+    """Every K1 design that takes the shape (registers to n = 32 and r = 4,
+    shared memory always) against fused_predict_coords_bl_plain."""
+    from muygpys_torch.gpu.fused_predict import (
+        fused_predict_coords_bl_plain,
+        k1_design,
+    )
+
+    n, nu, power, r, hetero = case
+    ins = emu.k1_inputs(n, 2, r, 11, dtype, hetero=hetero, nu=nu)
+    mp, vp = fused_predict_coords_bl_plain(*ins, smoothness=nu,
+                                           metric_power=power)
+    designs = (1, 0) if k1_design(n, r, dtype, nu) == "registers" else (0,)
+    assert len(designs) == (2 if n <= 32 else 1)
+    tol_m, tol_v = K1_LIMIT[dtype]
+    for design in designs:
+        m, v = emu.k1_run(k1_lib, design, *ins, nu, power)
+        assert torch.isfinite(m).all() and torch.isfinite(v).all()
+        assert float((m - mp).abs().max()) <= tol_m, design
+        assert float((v - vp).abs().max()) <= tol_v, design
 
 
 @pytest.mark.parametrize("launch", emu.RACE_LAUNCHES)

@@ -290,3 +290,29 @@ def test_f32_distance_workflow_floor_is_the_assembly_in_both_packages():
         assert err["jax"][k] <= 2.0 * err["port"][k], err
         assert err["f64 assembly"][k] <= 0.2 * err["port"][k], err
     assert 1e-3 < err["port"][0] < 2e-2, err
+
+
+@pytest.mark.parametrize(
+    "n,r,dtype,smoothness,want",
+    [
+        (30, 1, torch.float32, 1.5, "registers"),
+        (30, 1, torch.float32, "gen", "registers"),
+        (30, 2, torch.float64, "rbf", "registers"),
+        (32, 4, torch.float64, math.inf, "registers"),
+        (1, 1, torch.float32, 0.5, "registers"),
+        (33, 1, torch.float32, 1.5, "shared"),
+        (30, 5, torch.float32, 1.5, "shared"),
+        (30, 1, torch.float16, 1.5, "shared"),
+    ],
+)
+def test_k1_design_rule(n, r, dtype, smoothness, want):
+    from muygpys_torch.gpu.fused_predict import k1_design
+
+    assert k1_design(n, r, dtype, smoothness) == want
+
+
+def test_k1_design_rule_refuses_an_unknown_smoothness():
+    from muygpys_torch.gpu.fused_predict import k1_design
+
+    with pytest.raises(ValueError, match="smoothness"):
+        k1_design(30, 1, torch.float32, 1.2)

@@ -145,3 +145,149 @@ def test_wrapper_device_rules(problem, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tknn.knn_cuda(train, queries, 40)
+
+
+@pytest.mark.parametrize(
+    "feat,k,bins,want",
+    [
+        (2, 38, 512, "fused"),   # the server, with re-rank
+        (2, 30, 256, "fused"),   # the server, without re-rank
+        (2, 62, 1024, "fused"),  # NN_Wrapper
+        (2, 63, 1024, "fused"),  # NN_Wrapper, batch neighbours
+        (4, 64, 1024, "fused"),
+        (1, 1, 256, "fused"),
+        (5, 38, 512, "keys"),    # too many features
+        (2, 65, 1024, "keys"),   # too many neighbours
+        (2, 38, 128, "keys"),    # bins outside {256, 512, 1024}
+        (2, 38, 2048, "keys"),
+    ],
+)
+def test_knn_design_rule(feat, k, bins, want):
+    assert tknn.knn_design(feat, k, bins) == want
+
+
+def test_select_on_the_cpu_is_the_plain_merge(problem):
+    """knn_select on CPU tensors is knn_select_plain: the keys mirror and
+    the exact merge, in ascending distance order; no kernel launches."""
+    train, queries = problem
+    prep = tknn.prepare(torch.as_tensor(train), torch.as_tensor(queries), 40,
+                        **GEOM)
+    _build.reset_launches()
+    idx, d2 = tknn.knn_select(prep, 40)
+    assert sum(_build.launches.values()) == 0
+    ip, dp = tknn.knn_select_plain(prep, 40)
+    assert torch.equal(idx, ip) and torch.equal(d2, dp)
+    assert idx.shape == (prep.q.shape[0], 40)
+    assert bool((torch.diff(d2, dim=1) >= 0).all())
+
+
+@pytest.mark.parametrize("pruned", [False, True])
+def test_train_index_gives_the_per_request_candidates(problem, pruned):
+    """A train index built once gives the candidates the per-request path
+    computes, request after request."""
+    train, queries = problem
+    ts = train[np.asarray(jknn.spatial_sort(jnp.asarray(train)))]
+    fn = tknn.knn_cuda_pruned if pruned else tknn.knn_cuda
+    index = tknn.build_index(
+        torch.as_tensor(ts), GEOM["train_tile"], GEOM["bins"], pruned=pruned
+    )
+    assert (index.sub is not None) == pruned
+    for part in (queries[:100], queries[100:]):
+        i0, d0 = fn(ts, part, 40, device="cpu", **GEOM)
+        i1, d1 = fn(None, part, 40, device="cpu", train_index=index, **GEOM)
+        assert torch.equal(i0, i1) and torch.equal(d0, d1)
+
+
+def test_train_index_refuses_another_geometry(problem):
+    train, queries = problem
+    index = tknn.build_index(torch.as_tensor(train), 1024, 512)
+    with pytest.raises(ValueError, match="train_index was built"):
+        tknn.knn_cuda(None, queries, 40, device="cpu", train_index=index,
+                      query_tile=128, train_tile=1024, bins=256)
+    with pytest.raises(ValueError, match="train_index was built"):
+        tknn.knn_cuda_pruned(None, queries, 40, device="cpu",
+                             train_index=index, **GEOM)
+
+
+def _count_calls(monkeypatch, name):
+    calls = []
+    real = getattr(tknn, name)
+
+    def spy(*args, **kwargs):
+        calls.append(name)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(tknn, name, spy)
+    return calls
+
+
+@pytest.mark.parametrize("spatial_sort", [True, False])
+def test_server_builds_its_train_index_once(problem, monkeypatch,
+                                            spatial_sort):
+    """FastServer(engine="fused") builds the search's train side (norms,
+    tile boxes, the subsample's own) when it is built, never per request,
+    and every request's candidates are those of the per-request path."""
+    from muygpys_torch import serve as tserve
+    from muygpys_torch.convert import muygps_from_arrays
+    from muygpys_torch.neighbors import NN_Wrapper
+    from muygpys_torch.serve import FastServer
+
+    train, queries = problem
+    train, queries = train[:2048, :2].astype(np.float64), queries[:, :2]
+    targets = np.sin(6 * train[:, :1])
+    model = muygps_from_arrays(length_scale=0.3, noise=1e-3, smoothness=1.5)
+    nbrs = NN_Wrapper(train, 10, device="cpu")
+    built = []
+    real_build = tserve.build_index
+    monkeypatch.setattr(
+        tserve, "build_index",
+        lambda *a, **kw: built.append(1) or real_build(*a, **kw),
+    )
+    name = "knn_cuda_pruned" if spatial_sort else "knn_cuda"
+    searches = []
+    real_search = getattr(tserve, name)
+
+    def search(*args, **kwargs):
+        out = real_search(*args, **kwargs)
+        searches.append((args, kwargs, out))
+        return out
+
+    monkeypatch.setattr(tserve, name, search)
+    norms = _count_calls(monkeypatch, "_norms")
+    server = FastServer(model, nbrs, train, targets, bucket=64,
+                        engine="fused", spatial_sort=spatial_sort,
+                        device="cpu")
+    assert len(built) == 1
+    at_build = len(norms)
+    assert at_build == (2 if spatial_sort else 1)
+    server.predict(queries[:150])  # three buckets
+    assert len(built) == 1 and len(norms) == at_build
+    assert len(searches) == 3
+    train_t = torch.as_tensor(train)
+    if spatial_sort:
+        train_t = train_t[tknn.spatial_sort(train_t)]
+    for args, kwargs, (idx, d2) in searches:
+        assert args[0] is None and kwargs["train_index"] is not None
+        kwargs = dict(kwargs, train_index=None)
+        i0, d0 = real_search(train_t, *args[1:], **kwargs)
+        assert torch.equal(idx, i0) and torch.equal(d2, d0)
+
+
+def test_nn_wrapper_builds_its_train_index_once(problem, monkeypatch):
+    """NN_Wrapper(nn_method="kernel") builds the train side once per index
+    and returns the neighbours the exact method does."""
+    from muygpys_torch.neighbors import NN_Wrapper
+
+    train, queries = problem
+    built = _count_calls(monkeypatch, "build_index")
+    norms = _count_calls(monkeypatch, "_norms")
+    nbrs = NN_Wrapper(train[:, :2], 10, nn_method="kernel", device="cpu")
+    at_build = (len(built), len(norms))
+    assert at_build == (2, 2)  # the pruned index and its subsample's
+    i1, d1 = nbrs.get_nns(queries[:, :2])
+    i2, _ = nbrs.get_batch_nns(np.arange(0, 5000, 101))
+    assert (len(built), len(norms)) == at_build
+    exact = NN_Wrapper(train[:, :2], 10, device="cpu")
+    np.testing.assert_array_equal(i1, exact.get_nns(queries[:, :2])[0])
+    np.testing.assert_array_equal(
+        i2, exact.get_batch_nns(np.arange(0, 5000, 101))[0])
