@@ -21,7 +21,12 @@ its checkout's kernels, sets up the chip_smoke.py headlines and measures,
   probe at x0 and scipy's nfev over the optimization's host-clock time);
 - shear serving (phase 14's headline: the 50,000-point sky, ShearKernel,
   ``FastServer(engine="kernel", bucket=2048)``, three requests of 2048,
-  2048 and 1000): predictions per second between CUDA events.
+  2048 and 1000): predictions per second between CUDA events;
+- free-smoothness training (phase 12's headline: the same LOO batch,
+  length scale, noise and nu free, f32): objective evaluations per second
+  of ``Fused_L_BFGS_B_optimize`` capped at ``FREE_NU_ITERATIONS`` L-BFGS
+  iterations, ``FREE_NU_REPS`` times after a warm-up (an evaluation that
+  builds its coefficient vector from plain tensor code takes ~0.8 s).
 
 Both sides use this checkout's chip_smoke.py for the data and the models,
 and only the public API of the checkout under test.  Prints the card's name
@@ -44,6 +49,11 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+# L-BFGS iterations of one free-smoothness optimization (the rate is per
+# evaluation; the cap keeps the slower side's processes short)
+FREE_NU_ITERATIONS = 4
+# free-smoothness optimizations measured per process, after the warm-up
+FREE_NU_REPS = 2
 
 
 def smoke_helpers():
@@ -56,8 +66,24 @@ def smoke_helpers():
     return module
 
 
+def train_rate(torch, model, bt, bnt, cw, pw, **kw):
+    """Objective evaluations per second of one Fused_L_BFGS_B_optimize run
+    (the probe at x0 and scipy's nfev over its host-clock time)."""
+    from muygpys_torch.optimize import Fused_L_BFGS_B_optimize
+
+    report = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(report):
+        Fused_L_BFGS_B_optimize(model, bt, bnt, cw, pw, engine="kernel",
+                                verbose=True, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return (1 + int(re.search(r"\bnfev:\s*(\d+)", report.getvalue())[1])) / seconds
+
+
 def probe(root: str, reps: int) -> dict:
-    """Measure both rates with the muygpys_torch of ``root``."""
+    """Measure the four rates with the muygpys_torch of ``root``."""
     sys.path.insert(0, root)
     import numpy as np
     import torch
@@ -65,7 +91,7 @@ def probe(root: str, reps: int) -> dict:
     cs = smoke_helpers()
     from muygpys_torch.gpu import _build
     from muygpys_torch.neighbors import NN_Wrapper
-    from muygpys_torch.optimize import Fused_L_BFGS_B_optimize, sample_batch
+    from muygpys_torch.optimize import sample_batch
     from muygpys_torch.optimize.fused_objective import (
         make_fused_train_objective,
     )
@@ -95,18 +121,17 @@ def probe(root: str, reps: int) -> dict:
 
     cw, pw, bt, bnt = cs.train_model().make_train_tensors(bi, bnn, train_d, y_d)
     make_fused_train_objective(cs.train_model(), bt, bnt, cw, pw)[0]({})
-    train_rates = []
-    for _ in range(reps + 1):  # the first optimization is a warm-up
-        report = io.StringIO()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        with contextlib.redirect_stdout(report):
-            Fused_L_BFGS_B_optimize(cs.train_model(), bt, bnt, cw, pw,
-                                    engine="kernel", verbose=True)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        evals = 1 + int(re.search(r"\bnfev:\s*(\d+)", report.getvalue())[1])
-        train_rates.append(evals / seconds)
+    # the first optimization of each model is a warm-up
+    train_rates = [train_rate(torch, cs.train_model(), bt, bnt, cw, pw)
+                   for _ in range(reps + 1)]
+    cw, pw, bt, bnt = cs.free_nu_model().make_train_tensors(bi, bnn, train_d,
+                                                            y_d)
+    make_fused_train_objective(cs.free_nu_model(), bt, bnt, cw, pw)[0]({})
+    free_rates = [
+        train_rate(torch, cs.free_nu_model(), bt, bnt, cw, pw,
+                   options=dict(maxiter=FREE_NU_ITERATIONS))
+        for _ in range(FREE_NU_REPS + 1)
+    ]
 
     from muygpys_torch.convert import muygps_from_arrays
 
@@ -134,6 +159,8 @@ def probe(root: str, reps: int) -> dict:
         train_median=statistics.median(train_rates[1:]),
         shear_preds_per_s=shear_rates,
         shear_median=statistics.median(shear_rates),
+        free_nu_evals_per_s=free_rates[1:],
+        free_nu_median=statistics.median(free_rates[1:]),
     )
 
 
@@ -182,6 +209,9 @@ def main() -> int:
                 r["shear_median"] for r in runs),
             train_by_process=[r["train_median"] for r in runs],
             shear_by_process=[r["shear_median"] for r in runs],
+            free_nu_evals_per_s=statistics.median(
+                r["free_nu_median"] for r in runs),
+            free_nu_by_process=[r["free_nu_median"] for r in runs],
         ) for side, runs in results.items()
     }))
     return 0

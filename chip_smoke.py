@@ -55,17 +55,27 @@ Phases (any failure raises and the script exits non-zero):
 9. general smoothness, K4 (the traced-nu surrogate, csrc/matern_nu.cuh)
    inside K1, K1b and K2: K1 under "gen" against its plain version at the
    serving shape for nu in {0.31, 1.2, 2.0 (the clamp zone), 4.8}, f32 and
-   f64, nu = 1.2 through both designs and timed; K4 alone against scipy.special.kv through the f64 and f32 kernels on
-   a t grid; K1b (the solve from distances) against its plain version,
-   closed form, RBF and gen; K2 under "gen", a fixed and a free nu,
+   f64, nu = 1.2 through both designs and timed; K4's constructor kernel
+   (csrc/matern_nu_coeffs.cu) against its plain version on the card for 14
+   orders (the integers and both sides of the clamp zones among them), f32
+   and f64, with and without the nu-tangent sets, timed (queued, alone on
+   the device and on the host clock) beside the plain version on the card
+   and an empty kernel; K4 alone against scipy.special.kv through the f64
+   (vector built on the CPU and by the constructor kernel) and f32 kernels
+   on a t grid; K1b (the solve from distances) against its plain version,
+   closed form, RBF and gen, through the launcher's design (registers); at
+   nu = 3/2 (f32, f64) and 1.2 (f32) both designs checked and timed, beside
+   the library yardstick (torch.linalg.cholesky + cholesky_solve on K
+   formed elementwise); K2 under "gen", a fixed and a free nu,
    isotropic and anisotropic, at the headline's length scale (every entry
    on K4's series branch) and at one near the neighbour spacing (entries on
    both branches), each row group (the d/dnu rows included) against its own
    limit, through the register design (the free-nu headline also timed
    through the shared-memory design);
 10. the distance-tensor workflow: make_predict_tensors -> fused_predict_bl
-   (K1b) on the first request; in f32 held against the f64 plain version on
-   the same distance tensors, in f64 against the f64 reference engine;
+   (K1b, the register design alone) on the first request; in f32 held
+   against the f64 plain version on the same distance tensors, in f64
+   against the f64 reference engine;
 11. serving nu = 1.2 at the serving headline through the fused engine,
    against the f64 reference engine (the exact Bessel path);
 12. training a free smoothness at the training headline: length scale, noise
@@ -73,8 +83,10 @@ Phases (any failure raises and the script exits non-zero):
    value and gradients at one point against the exact-Bessel lanes
    objective on the card; the objective reached against the lanes engine's
    (capped at 10 L-BFGS iterations, to keep the run short), both judged by
-   the exact f64 objective; where the time of one evaluation
-   goes (coefficient constructor, K2, epilogue); the trained model served;
+   the exact f64 objective; one constructor launch per evaluation (the
+   launch counts and a trace of two evaluations); where the time of one
+   evaluation goes (coefficient constructor, K2, epilogue, the device's
+   idle share); the trained model served;
 13. K5 (the fused multi-output block solve of the lensing shear family)
    against its plain version on real shear blocks at the shear serving
    shape (B=2048, nn=30: m=90 for the 3-in/3-out kernel, m=60 for
@@ -99,12 +111,13 @@ Phases (any failure raises and the script exits non-zero):
    in f64; the trained model served through K5;
 16. the kernels line: one JSON object with every kernel's launches on its
    path and each design's launches there, error against its plain version,
-   times (for K1 and K3 also the kept design's) and bound; for K2 and K5
-   each design's launches over the run (both must have run) and registers;
+   times (for K1, K1b and K3 also the kept design's) and bound; for K2 and
+   K5 each design's launches over the run (both must have run) and
+   registers; K4's constructor with its launches on the free-nu path;
 17. the last line: {"ok": true, "device": {...}}.
 
 Kernel times are CUDA-event medians over back-to-back launches (time_ms);
-for K1, K2, K3 and K5 also the kernel's own device time, each call queued
+for K1, K1b, K2, K3, K4's constructor and K5 also the kernel's own device time, each call queued
 behind a device-side sleep (device_ms), which time_ms exceeds where a
 call's host work outlasts the kernel; wall times are medians of single runs.  Bounds use the H100 SXM
 data-sheet peaks (3.35 TB/s HBM, 67 TFLOP/s fp32 outside the tensor cores;
@@ -458,10 +471,30 @@ def phase_k1(torch, knn_inputs):
     return row
 
 
-def k1_designs(torch, args, smoothness, plain, tol):
-    """Both K1 designs at one shape through the private launcher, each held
+def designs_timed(torch, label, launch, plain, tol):
+    """Both designs of K1 or K1b through ``launch(design)``, each held
     against the plain version's (mean, var) under ``tol`` and timed (queued
-    wrapper calls, and the kernel alone); returns their numbers by design."""
+    wrapper calls, and the kernel alone); returns their numbers by
+    design."""
+    out = {}
+    for design in ("registers", "shared"):
+        def call():
+            return launch(design)
+
+        m, v = call()
+        torch.cuda.synchronize()
+        err_m = float((m - plain[0]).abs().max())
+        err_v = float((v - plain[1]).abs().max())
+        log(f"{label} {design} design: mean {err_m:.3e} (tol {tol[0]:.0e}), "
+            f"var {err_v:.3e} (tol {tol[1]:.0e})")
+        assert err_m <= tol[0] and err_v <= tol[1], f"{label} {design} disagrees"
+        out[design] = dict(ms=time_ms(call), device_ms=device_ms(torch, call))
+    return out
+
+
+def k1_designs(torch, args, smoothness, plain, tol):
+    """Both K1 designs at one shape through the private launcher
+    (designs_timed)."""
     from muygpys_torch.gpu import fused_predict as F
     from muygpys_torch.gpu import matern_nu as _nu
 
@@ -469,22 +502,11 @@ def k1_designs(torch, args, smoothness, plain, tol):
     gen = args[5] if len(args) > 5 else None
     code = _nu.check_smoothness("K1", smoothness, gen, 1, _nu._LEN_VAL)
     gen = None if gen is None else gen[:_nu._LEN_VAL].contiguous()
-    out = {}
-    for design in ("registers", "shared"):
-        def call():
-            return F._launch(nf, q, y, params, noise_nn, gen, code, 1,
-                             smoothness, design=design)
-
-        m, v = call()
-        torch.cuda.synchronize()
-        err_m = float((m - plain[0]).abs().max())
-        err_v = float((v - plain[1]).abs().max())
-        log(f"K1 {design} design {str(nf.dtype)[6:]} nu={smoothness}: mean "
-            f"{err_m:.3e} (tol {tol[0]:.0e}), var {err_v:.3e} (tol "
-            f"{tol[1]:.0e})")
-        assert err_m <= tol[0] and err_v <= tol[1], f"K1 {design} disagrees"
-        out[design] = dict(ms=time_ms(call), device_ms=device_ms(torch, call))
-    return out
+    return designs_timed(
+        torch, f"K1 {str(nf.dtype)[6:]} nu={smoothness}",
+        lambda design: F._launch(nf, q, y, params, noise_nn, gen, code, 1,
+                                 smoothness, design=design),
+        plain, tol)
 
 
 def k1_row(designs, nbytes, ops, **numbers):
@@ -507,27 +529,33 @@ def k1_row(designs, nbytes, ops, **numbers):
     )
 
 
+def library_posterior(torch, up, uc, y, noise, eye):
+    """Matern 3/2 (mean, var) from batch-first scaled distances ``up (B, n,
+    n)`` and ``uc (B, n)`` and batch-last ``y (n, r, B)`` through library
+    calls: K formed elementwise, torch.linalg.cholesky +
+    torch.cholesky_solve + einsum."""
+    s3 = math.sqrt(3.0)
+    K = (1.0 + s3 * up) * torch.exp(-s3 * up) + noise * eye
+    kc = (1.0 + s3 * uc) * torch.exp(-s3 * uc)
+    L = torch.linalg.cholesky(K)
+    Z = torch.cholesky_solve(torch.cat([kc[..., None], y.permute(2, 0, 1)], 2), L)
+    mean = torch.einsum("bn,bnr->rb", kc, Z[..., 1:])
+    return mean, 1.0 - (kc * Z[..., 0]).sum(1)
+
+
 def k1_library(torch, nf, q, y, params):
     """K1's (mean, var) at the serving headline (Matern 3/2, isotropic)
-    through library calls on K formed elementwise: torch.linalg.cholesky +
-    torch.cholesky_solve + einsum, batch first.  A yardstick of speed; the
-    port never calls it."""
+    through library calls on K formed elementwise (library_posterior),
+    batch first.  A yardstick of speed; the port never calls it."""
     ls, noise = float(params[0]), float(params[-1])
-    n = nf.shape[0]
-    s3 = math.sqrt(3.0)
-    eye = torch.eye(n, dtype=nf.dtype, device=nf.device)
+    eye = torch.eye(nf.shape[0], dtype=nf.dtype, device=nf.device)
 
     def run():
         x = nf.permute(2, 0, 1) / ls  # (B, n, d)
         qq = q.T[:, None, :] / ls
         up = (x[:, :, None, :] - x[:, None, :, :]).pow(2).sum(-1).sqrt()
         uc = (x - qq).pow(2).sum(-1).sqrt()
-        K = (1.0 + s3 * up) * torch.exp(-s3 * up) + noise * eye
-        kc = (1.0 + s3 * uc) * torch.exp(-s3 * uc)
-        L = torch.linalg.cholesky(K)
-        Z = torch.cholesky_solve(torch.cat([kc[..., None], y.permute(2, 0, 1)], 2), L)
-        mean = torch.einsum("bn,bnr->rb", kc, Z[..., 1:])
-        return mean, 1.0 - (kc * Z[..., 0]).sum(1)
+        return library_posterior(torch, up, uc, y, noise, eye)
 
     return run
 
@@ -653,13 +681,14 @@ def serve(torch, server, requests):
     )
 
 
-def device_trace(torch, run):
+def device_trace(torch, run, count=()):
     """Where the device time of ``run()`` goes, from a profiler trace.
 
     Only device activities (kernels, copies) are summed, never the host ops
     that launched them, so no kernel counts twice; busy time is the union of
     their intervals.  The idle share divides it by the median wall time of
-    the same work without the profiler, which slows the host."""
+    the same work without the profiler, which slows the host.  ``count``
+    names kernels whose launches in the trace are counted (by substring)."""
     acts = [
         torch.profiler.ProfilerActivity.CPU,
         torch.profiler.ProfilerActivity.CUDA,
@@ -691,6 +720,8 @@ def device_trace(torch, run):
         device_idle_share=1 - busy_us / (wall_ms * 1e3) if spans else None,
         device_activities=len(spans),
         top_device_us=top,
+        **({"launches_of": {k: sum(k in name for _, _, name in spans)
+                            for k in count}} if count else {}),
     )
 
 
@@ -1058,12 +1089,189 @@ def phase_k1_gen(torch, knn_inputs, closed_ms):
     return row
 
 
+def cf2_steps(nu, ts, np_dtype):
+    """How many CF2 steps kve takes at each t of ``ts`` before it freezes
+    (muygpys_torch/ops/bessel.py:_kve_cf2, values alone, in the dtype)."""
+    import numpy as np
+
+    one = np_dtype(1)
+    eps = np_dtype(np.finfo(np_dtype).eps * 0.01)
+    big = np_dtype(np.finfo(np_dtype).max * 1e-8)
+    v = abs(np_dtype(nu))
+    mu = v - np.floor(v + np_dtype(0.5))
+    steps = []
+    for x in np.asarray(ts, np_dtype):
+        b = np_dtype(2) * (one + x)
+        d = one / b
+        h = delh = d
+        a1 = np_dtype(0.25) - mu * mu
+        q, a, s, u, w = a1, -a1, one + a1 * delh, np_dtype(0), a1
+        for i in range(2, 81):
+            a = a - np_dtype(2 * (i - 1))
+            contrib = -(u - b * w) / np_dtype(i)
+            q = q + contrib
+            u = -a * w / np_dtype(i)
+            w = contrib
+            b = b + np_dtype(2)
+            d = one / (b + a * d)
+            delh = (b * d - one) * delh
+            h = h + delh
+            s = s + q * delh
+            if abs(delh) <= eps * abs(h) or max(abs(u), abs(w)) > big:
+                break
+        steps.append(i - 1)
+    return steps
+
+
+def k4_constructor_ops(nu, dtype_name):
+    """Floating-point operations of one constructor launch at ``nu`` (a
+    value and a tangent each step): ~55 a CF2 step at each tail node (this
+    run's step counts), 12 a recurrence step (n of them), 40 a node besides;
+    c and its tangent 4 NTAIL^2; ~60 a series term; 2 NTAIL for cp."""
+    import numpy as np
+
+    from muygpys_torch.gpu import matern_nu as tm
+
+    np_dtype = np.float32 if dtype_name == "float32" else np.float64
+    n = math.floor(nu + 0.5)
+    nodes = sum(55 * k + 12 * n + 40
+                for k in cf2_steps(nu, tm._NODES_T, np_dtype))
+    return nodes + 4 * tm.NTAIL**2 + 60 * tm.KSM + 2 * tm.NTAIL
+
+
+def k4_coeffs_readings(torch, got, want):
+    """How far a coefficient vector ``got`` lies from ``want`` before
+    matern_nu.coeffs_limits' floors: each set's largest error over
+    COEFFS_CHECK_RTOL times the set's largest magnitude; and
+    ``cancel_floor``, the least COEFFS_CANCEL_FLOOR that would cover a, ap
+    and da (their errors beyond the set's own limit in eps max|q|,
+    (KSM - 1) eps max|q| and eps max|dq|)."""
+    from muygpys_torch.gpu import matern_nu as tm
+
+    eps = torch.finfo(want.dtype).eps
+    rtol = tm.COEFFS_CHECK_RTOL[want.dtype]
+    got, want = got.double().cpu().numpy(), want.double().cpu().numpy()
+    err, mag = abs(got - want), abs(want)
+    out, base = {}, {}
+    for name, (lo, hi) in tm.COEFF_SETS.items():
+        if lo < mag.size:
+            base[name] = rtol * mag[lo:hi].max()
+            out[name] = float(err[lo:hi].max() / base[name]) if base[
+                name] > 0 else (0.0 if err[lo:hi].max() == 0 else math.inf)
+    unit_q = eps * mag[slice(*tm.COEFF_SETS["q"])].max()
+    units = {"a": unit_q, "ap": (tm.KSM - 1) * unit_q}
+    if mag.size > tm._OFF_DA:
+        units["da"] = eps * mag[slice(*tm.COEFF_SETS["db"])].max()
+    out["cancel_floor"] = max(
+        float((err[slice(*tm.COEFF_SETS[name])] - base[name]).max() / unit)
+        for name, unit in units.items())
+    return out
+
+
+def phase_k4_constructor(torch):
+    """K4's constructor kernel (csrc/matern_nu_coeffs.cu) against its plain
+    version on the card over matern_nu.COEFFS_CHECK_NUS, f32 and f64, with
+    and without the nu-tangent sets, each set within COEFFS_CHECK_RTOL times
+    its scale (matern_nu.coeffs_limits before its floors); those readings,
+    and the plain version on the CPU against the plain version on the card
+    (what the floors are for); timed at the free-nu headline's order (f32,
+    tangent sets: what a free-nu objective evaluation builds) beside the
+    plain version on the card and an empty kernel; returns its kernels-line
+    row."""
+    import numpy as np
+
+    from muygpys_torch.gpu import _build
+    from muygpys_torch.gpu import matern_nu as tm
+
+    worst = {}
+    readings = {"kernel_vs_plain": {}, "plain_cpu_vs_card": {}}
+    row_err = None
+    for dtype in (torch.float32, torch.float64):
+        key = str(dtype)[6:]
+        for nu in tm.COEFFS_CHECK_NUS:
+            for need_dnu in (False, True):
+                t = torch.tensor(nu, dtype=dtype, device="cuda")
+                before = _build.launches["matern_nu_coeffs"]
+                got = tm.matern_nu_coeffs(t, need_dnu)
+                torch.cuda.synchronize()
+                assert _build.launches["matern_nu_coeffs"] == before + 1
+                want = tm.matern_nu_coeffs_plain(t, need_dnu)
+                assert torch.isfinite(got).all() and got.shape == want.shape
+                r = k4_coeffs_readings(torch, got, want)
+                worse = max((n for n in r if n != "cancel_floor"), key=r.get)
+                worst[key] = max(worst.get(key, 0.0), r[worse])
+                if need_dnu:
+                    readings["kernel_vs_plain"][f"{key} {nu}"] = r
+                    readings["plain_cpu_vs_card"][f"{key} {nu}"] = (
+                        k4_coeffs_readings(torch, tm.matern_nu_coeffs_plain(
+                            t.cpu(), need_dnu), want))
+                if dtype == torch.float32 and nu == NU_GEN and need_dnu:
+                    row_err = float((got - want).abs().max())
+                assert r[worse] <= 1.0, (
+                    f"K4 constructor {key} nu={nu} need_dnu={need_dnu}: set "
+                    f"{worse} off by {r[worse]:.3f} of COEFFS_CHECK_RTOL "
+                    "times its scale")
+    log("K4 constructor against its plain version, worst error as a share "
+        "of COEFFS_CHECK_RTOL times each set's scale (no floor) over "
+        f"{len(tm.COEFFS_CHECK_NUS)} orders: " + json.dumps(worst))
+    for what, table in readings.items():
+        log(f"K4 {what} before the floors, with the nu-tangent sets (each "
+            "set's error over COEFFS_CHECK_RTOL x its scale; cancel_floor in "
+            "eps max|q|, COEFFS_CANCEL_FLOOR = "
+            f"{tm.COEFFS_CANCEL_FLOOR}): " + json.dumps(
+                {k: {n: float(f"{x:.3g}") for n, x in v.items()}
+                 for k, v in table.items()}))
+        worst_of = {}
+        for case, numbers in table.items():
+            w = worst_of.setdefault(case.split()[0], {})
+            for name, x in numbers.items():
+                w[name] = max(w.get(name, -math.inf), x)
+        log(f"K4 {what} worst over the orders: " + json.dumps(worst_of))
+
+    t = torch.tensor(NU_GEN, dtype=torch.float32, device="cuda")
+
+    def build():
+        return tm.matern_nu_coeffs(t, need_dnu=True)
+
+    ms = time_ms(build)
+    dev_ms = device_ms(torch, build)
+    host_ms = wall_ms(torch, build, reps=11)
+    plain_ms = wall_ms(
+        torch, lambda: tm.matern_nu_coeffs_plain(t, need_dnu=True), reps=3)
+    plain_trace = device_trace(
+        torch, lambda: tm.matern_nu_coeffs_plain(t, need_dnu=True))
+    empty_ms = device_ms(torch, lambda: torch.cuda._sleep(0))
+    nbytes = (tm._NODES_T.size + 2 * tm.KSM + tm.NTAIL**2 + 1
+              + tm._LEN_DNU) * 4
+    ops = k4_constructor_ops(NU_GEN, "float32")
+    steps = cf2_steps(NU_GEN, tm._NODES_T, np.float32)
+    row = bound_row(
+        nbytes, ops, max_abs_err=row_err, ms=ms, device_ms=dev_ms,
+        host_ms=host_ms, plain_ms=plain_ms,
+        plain_device_launches=plain_trace["device_activities"],
+        empty_kernel_device_ms=empty_ms,
+        worst_share_of_limit=worst,
+    )
+    log(f"K4 constructor f32 nu={NU_GEN} with the nu-tangent sets: "
+        f"{ms:.4f} ms queued (device {dev_ms:.4f}, host clock {host_ms:.4f} "
+        f"ms a call); plain version on the card {plain_ms:.1f} ms on the "
+        f"host clock, {plain_trace['device_activities']} device activities; "
+        f"an empty kernel {empty_ms:.4f} ms device; bound "
+        f"{row['bound_ms']:.2e} ms ({row['bound_by']}; {nbytes} B, {ops} "
+        f"flop, estimated); CF2 steps at the nodes {min(steps)}-{max(steps)} "
+        "(computed on the host from nu and the nodes by a copy of the freeze "
+        "test, not read from the kernel)")
+    return row
+
+
 def phase_k4_scipy(torch):
     """K4 alone against scipy.special.kv on a t grid, through the kernel:
     K1b with one neighbor, unit length scale and no noise returns
     mean = phi(t) . 1 for y = 1.  f64 with the tensor constructor (what f64
     training evaluates), f32 with the host constructor (what a server
-    evaluates), as tests/test_matern_nu.py certifies them."""
+    evaluates), as tests/test_matern_nu.py certifies them; f64 also with
+    the vector the constructor kernel builds on the card (what f64 training
+    on the card evaluates)."""
     import numpy as np
     import scipy.special
 
@@ -1079,11 +1287,14 @@ def phase_k4_scipy(torch):
             want = (2.0 ** (1 - nu) / scipy.special.gamma(nu) * ts**nu
                     * scipy.special.kv(nu, ts))
         want = np.where(ts <= 0, 1.0, want)
-        for dtype, floor in ((torch.float64, 1e-6), (torch.float32, 1e-4)):
-            if dtype == torch.float64:
-                co = matern_nu_coeffs(torch.tensor(nu, dtype=dtype)).cuda()
-            else:
+        for dtype, floor, built in ((torch.float64, 1e-6, "cpu"),
+                                    (torch.float64, 1e-6, "cuda"),
+                                    (torch.float32, 1e-4, "host")):
+            if built == "host":
                 co = host_coeffs(torch, nu, dtype)
+            else:
+                co = matern_nu_coeffs(
+                    torch.tensor(nu, dtype=dtype, device=built)).cuda()
             cw = torch.as_tensor(ts / math.sqrt(2 * nu), dtype=dtype,
                                  device="cuda")[None, :]
             B = cw.shape[1]
@@ -1105,7 +1316,7 @@ def phase_k4_scipy(torch):
                 assert np.abs(got - want)[~dom].max() < 1e-10
                 err = float(mixed[dom].max())
                 limit = K4_F64_TOL_INTEGER if nu == round(nu) else K4_F64_TOL
-            key = str(dtype)[6:]
+            key = f"{str(dtype)[6:]} built {built}"
             worst[key] = max(worst.get(key, 0.0), err / limit)
             log(f"K4 {key} nu={nu}: mixed error against scipy kv "
                 f"{err:.3e} (limit {limit:.0e}) on {B} points, t in [0, 80]")
@@ -1113,12 +1324,48 @@ def phase_k4_scipy(torch):
     return worst
 
 
+def k1b_designs(torch, args, smoothness, power, plain, tol):
+    """Both K1b designs at one shape through the private launcher
+    (designs_timed)."""
+    from muygpys_torch.gpu import fused_predict as F
+    from muygpys_torch.gpu import matern_nu as _nu
+
+    pw, cw, y, params, gen = args
+    code = _nu.check_smoothness("K1b", smoothness, gen, power, _nu._LEN_VAL)
+    gen = None if gen is None else gen[:_nu._LEN_VAL].contiguous()
+    return designs_timed(
+        torch, f"K1b {str(pw.dtype)[6:]} nu={smoothness}",
+        lambda design: F._launch_dists(pw, cw, y, params, gen, code, power,
+                                       smoothness, design=design),
+        plain, tol)
+
+
+def k1b_library(torch, pw, cw, y, params):
+    """K1b's (mean, var) at the headline (Matern 3/2, l2) through library
+    calls on K formed elementwise from pw / ls plus the nugget:
+    torch.linalg.cholesky + torch.cholesky_solve + einsum, batch first.  A
+    yardstick of speed; the port never calls it."""
+    ls, noise = float(params[0]), float(params[1])
+    eye = torch.eye(pw.shape[0], dtype=pw.dtype, device=pw.device)
+
+    def run():
+        return library_posterior(torch, pw.permute(2, 0, 1) / ls, cw.T / ls,
+                                 y, noise, eye)
+
+    return run
+
+
 def phase_k1b(torch, knn_inputs):
     """K1b (the solve from distances) against its plain version at the
-    serving shape, on the distances of the same neighborhoods."""
+    serving shape, on the distances of the same neighborhoods, through the
+    launcher's design (registers); at the headline (f32 and f64, nu = 3/2)
+    and at nu = 1.2 (f32) both designs checked and timed, beside the library
+    yardstick at nu = 3/2."""
+    from muygpys_torch.gpu import _build
     from muygpys_torch.gpu.fused_predict import (
         fused_predict_bl,
         fused_predict_bl_plain,
+        k1_design,
         serve_tail_terms,
     )
 
@@ -1137,57 +1384,89 @@ def phase_k1b(torch, knn_inputs):
         for nu, power in ((0.5, 1), (NU, 1), (2.5, 1), (math.inf, 1),
                           ("rbf", 2), (0.31, 1), (NU_GEN, 1), (4.8, 1)):
             gen = nu in GEN_NUS
+            smoothness = "gen" if gen else nu
             pw = (f2_p.sqrt() if power == 1 else f2_p).to(dtype).contiguous()
             cw = (f2_c.sqrt() if power == 1 else f2_c).to(dtype).contiguous()
             co = host_coeffs(torch, nu, dtype) if gen else None
             args = (pw, cw, y, params, co)
-            kw = dict(smoothness="gen" if gen else nu, metric_power=power)
+            kw = dict(smoothness=smoothness, metric_power=power)
+            design = k1_design(n, r, dtype, smoothness)
+            before = _build.launches[f"fused_predict/{design}"]
             mk, vk = fused_predict_bl(*args, **kw)
             torch.cuda.synchronize()
+            assert _build.launches[f"fused_predict/{design}"] == before + 1
             mp, vp = fused_predict_bl_plain(*args, **kw)
             assert torch.isfinite(mk).all() and torch.isfinite(vk).all()
             err_m = float((mk - mp).abs().max())
             err_v = float((vk - vp).abs().max())
             tol_m, tol_v = tol[dtype]
             v_min = float(vp.abs().min())
-            log(f"K1b {str(dtype)[6:]} nu={nu} power={power}: mean "
-                f"max_abs_err={err_m:.3e} (tol {tol_m:.0e}), var "
+            log(f"K1b {str(dtype)[6:]} nu={nu} power={power} ({design}): "
+                f"mean max_abs_err={err_m:.3e} (tol {tol_m:.0e}), var "
                 f"max_abs_err={err_v:.3e} (tol {tol_v:.0e}; var min "
                 f"{v_min:.3e})")
             assert tol_v <= 0.1 * v_min, "variance gate too loose"
             assert err_m <= tol_m, f"K1b mean disagrees: {err_m}"
             assert err_v <= tol_v, f"K1b var disagrees: {err_v}"
-            if dtype == torch.float32 and nu in (NU, NU_GEN):
-                ms = time_ms(lambda: fused_predict_bl(*args, **kw))
-                plain_ms = time_ms(
-                    lambda: fused_predict_bl_plain(*args, **kw),
-                    reps=3, trials=3,
-                )
-                entries = (n * (n + 1) // 2 + n) * B
-                if gen:
-                    iu = torch.triu_indices(n, n, device="cuda")
-                    u = torch.cat([pw[iu[0], iu[1]], cw]) / LS
-                    eval_ops = k4_ops(
-                        k4_branch_counts(co[0] * u), serve_tail_terms(dtype)
-                    ) / entries
-                else:
-                    eval_ops = 6.0
-                # pw is symmetric: the n(n+1)/2 rows i >= j suffice
-                nbytes = ((n * (n + 1) // 2 + n + n * r + r + 1) * B + 2
-                          + (73 if gen else 0)) * 4
-                ops = k1_ops_per_query(n, d, r, eval_ops, coords=False) * B
-                numbers = bound_row(
-                    nbytes, ops, max_abs_err=max(err_m, err_v), ms=ms,
-                    plain_ms=plain_ms,
-                )
-                log(f"K1b f32 nu={nu} time: kernel {ms:.4f} ms, plain "
-                    f"{plain_ms:.4f} ms, bound {numbers['bound_ms']:.4f} ms "
-                    f"({numbers['bound_by']}; {nbytes} B, {ops:.0f} flop)")
-                if gen:
-                    row["gen_ms"] = ms
-                    row["gen_bound_ms"] = numbers["bound_ms"]
-                else:
-                    row = numbers
+            if nu not in (NU, NU_GEN) or (dtype == torch.float64 and gen):
+                continue
+            designs = k1b_designs(torch, args, smoothness, power, (mp, vp),
+                                  (tol_m, tol_v))
+            if dtype == torch.float64:
+                row["f64_device_ms"] = designs["registers"]["device_ms"]
+                row["f64_kept_device_ms"] = designs["shared"]["device_ms"]
+                log(f"K1b f64 nu={nu}: registers device "
+                    f"{row['f64_device_ms']:.4f} ms, shared device "
+                    f"{row['f64_kept_device_ms']:.4f} ms")
+                continue
+            plain_ms = time_ms(lambda: fused_predict_bl_plain(*args, **kw),
+                               reps=3, trials=3)
+            entries = (n * (n + 1) // 2 + n) * B
+            if gen:
+                iu = torch.triu_indices(n, n, device="cuda")
+                u = torch.cat([pw[iu[0], iu[1]], cw]) / LS
+                eval_ops = k4_ops(
+                    k4_branch_counts(co[0] * u), serve_tail_terms(dtype)
+                ) / entries
+            else:
+                eval_ops = 6.0
+            # the table's rule: pw symmetric, its n(n+1)/2 rows i >= j; and
+            # what the kernel must read, the whole square (the elimination
+            # reads both triangles of a pw it cannot assume symmetric)
+            rest = (n + n * r + r + 1) * B + 2 + (73 if gen else 0)
+            nbytes = (n * (n + 1) // 2 * B + rest) * 4
+            full_bytes = (n * n * B + rest) * 4
+            ops = k1_ops_per_query(n, d, r, eval_ops, coords=False) * B
+            numbers = bound_row(
+                nbytes, ops, max_abs_err=max(err_m, err_v),
+                design=design, ms=designs[design]["ms"],
+                device_ms=designs[design]["device_ms"],
+                kept_ms=designs["shared"]["ms"],
+                kept_device_ms=designs["shared"]["device_ms"],
+                plain_ms=plain_ms,
+            )
+            # computed like bound_ms, and logged only
+            whole_square_ms = max(full_bytes / HBM_BYTES_PER_S,
+                                  ops / FP32_FLOPS) * 1e3
+            log(f"K1b f32 nu={nu} time: {design} design "
+                f"{numbers['ms']:.4f} ms (device {numbers['device_ms']:.4f}), "
+                f"kept design {numbers['kept_ms']:.4f} ms (device "
+                f"{numbers['kept_device_ms']:.4f}), plain {plain_ms:.4f} ms, "
+                f"bound {numbers['bound_ms']:.4f} ms ({numbers['bound_by']}; "
+                f"{nbytes} B, {ops:.0f} flop), computed from the whole square "
+                f"{whole_square_ms:.4f} ms ({full_bytes} B)")
+            if gen:
+                row.update({f"gen_{k}": numbers[k] for k in (
+                    "ms", "device_ms", "kept_ms", "kept_device_ms",
+                    "bound_ms", "plain_ms")})
+            else:
+                row = numbers
+                row["library_ms"] = time_ms(
+                    k1b_library(torch, pw, cw, y, params), reps=5, trials=3)
+                log(f"K1b f32 library (cholesky + cholesky_solve on K formed "
+                    f"elementwise): {row['library_ms']:.4f} ms")
+    assert row["device_ms"] < row["kept_device_ms"], (
+        f"the K1b register design is not faster at the headline: {row}")
     return row
 
 
@@ -1538,8 +1817,8 @@ def phase_train_free_nu(torch, train, y_train, bi, bnn, k2_gen_ms):
         )
     torch.cuda.synchronize()
     opt_s = time.perf_counter() - t0
-    trained.optimize_scale(pw, bnt)
     launches = dict(_build.launches)
+    trained.optimize_scale(pw, bnt)
     evals = 1 + int(re.search(r"\bnfev:\s*(\d+)", report.getvalue())[1])
     vals = arrays_from_muygps(trained)
     log(f"train free nu (card, f32): length_scale {vals['length_scale']!r}, "
@@ -1550,6 +1829,10 @@ def phase_train_free_nu(torch, train, y_train, bi, bnn, k2_gen_ms):
         f"{evals / opt_s:.1f} evaluations/s")
     assert evals > len(iters) and launches["fused_train_stats"] >= evals, (
         "K2 was not launched for every objective evaluation"
+    )
+    assert launches["matern_nu_coeffs"] == launches["fused_train_stats"], (
+        "the coefficient vector was not built by one constructor launch "
+        f"per evaluation: {launches}"
     )
     for key, (lo, hi) in bounds.items():
         assert min(vals[key] - lo, hi - vals[key]) > 1e-6 * (hi - lo), (
@@ -1633,21 +1916,33 @@ def phase_train_free_nu(torch, train, y_train, bi, bnn, k2_gen_ms):
                           device=device)
         return lambda: matern_nu_coeffs(nu, need_dnu=True)
 
-    # medians of 3 and a trace of 2 evaluations: each evaluation is ~0.8 s
-    # of host dispatch, and the trace runs its window eight times
-    build_card_ms = wall_ms(torch, build_on("cuda"), reps=3)
+    # medians of 11 (the plain build on the CPU: 3), and a trace of 2
+    # evaluations
+    build_card_ms = wall_ms(torch, build_on("cuda"), reps=11)
+    build_device_ms = device_ms(torch, build_on("cuda"))
     build_cpu_ms = wall_ms(torch, build_on("cpu"), reps=3)
     stats = obj32._stats_fn(torch.stack(
         [torch.tensor(float(at.get(k, v)), device="cuda")
          for k, v in obj32._defaults.items()]
     ))
     epilogue_ms = wall_ms(torch, lambda: obj32._epilogue(stats))
-    eval_ms = wall_ms(torch, lambda: obj32(at), reps=3)
-    trace = device_trace(torch, lambda: [obj32(at) for _ in range(2)])
+    eval_ms = wall_ms(torch, lambda: obj32(at), reps=11)
+    trace = device_trace(torch, lambda: [obj32(at) for _ in range(2)],
+                         count=("matern_nu_coeffs_kernel",
+                                "fused_train_stats_regs_kernel"))
+    # the profiler may miss whole evaluations of a traced window (it caught
+    # one of two here on the H100), so the trace is held to one constructor
+    # launch per K2 launch; the launch counts above hold the exact number
+    assert (trace["launches_of"]["matern_nu_coeffs_kernel"]
+            == trace["launches_of"]["fused_train_stats_regs_kernel"] >= 1), (
+        "the trace does not hold one constructor launch per K2 launch: "
+        f"{json.dumps(trace)}"
+    )
     log(f"train free nu: one objective evaluation {eval_ms:.3f} ms on the "
-        f"host's clock = coefficient constructor {build_card_ms:.3f} ms (on "
-        f"the card, f32, with the nu-tangent sets; {build_cpu_ms:.3f} ms on "
-        f"this host's CPU) + K2 {k2_gen_ms:.4f} ms + epilogue "
+        f"host's clock = coefficient constructor {build_card_ms:.3f} ms (one "
+        f"launch on the card, f32, with the nu-tangent sets, device "
+        f"{build_device_ms:.4f} ms; its plain version {build_cpu_ms:.3f} ms "
+        f"on this host's CPU) + K2 {k2_gen_ms:.4f} ms + epilogue "
         f"{epilogue_ms:.3f} ms + "
         f"the rest; device trace of 2 evaluations: {json.dumps(trace)}")
     return trained, dict(
@@ -1660,7 +1955,8 @@ def phase_train_free_nu(torch, train, y_train, bi, bnn, k2_gen_ms):
         objective_f64=dict(card=v_card, lanes=v_lanes, start=v_start,
                            short=short),
         evaluation_ms=dict(whole=eval_ms, build_cpu=build_cpu_ms,
-                           build_card=build_card_ms, k2=k2_gen_ms,
+                           build_card=build_card_ms,
+                           build_card_device=build_device_ms, k2=k2_gen_ms,
                            epilogue=epilogue_ms),
         launches=launches, trace=trace,
     )
@@ -2325,6 +2621,7 @@ def main() -> int:
     rows["fused_predict_coords[gen]"] = phase_k1_gen(
         torch, (nf, q, y), rows["fused_predict_coords"]["ms"]
     )
+    rows["matern_nu_coeffs"] = phase_k4_constructor(torch)
     k4_worst = phase_k4_scipy(torch)
     log("K4 against scipy kv, worst error as a share of its limit: "
         + json.dumps(k4_worst))
@@ -2363,7 +2660,8 @@ def main() -> int:
     _build.reset_launches()
     (m_b, v_b), (m_p, v_p) = dists_path(requests[0], torch.float32)
     launches_by_path["dists"] = dict(_build.launches)
-    assert launches_by_path["dists"]["fused_predict"] > 0
+    assert (launches_by_path["dists"]["fused_predict/registers"]
+            == launches_by_path["dists"]["fused_predict"] > 0)
     assert np.isfinite(m_b).all() and np.isfinite(v_b).all()
     # f32: the distance tensors themselves are the Gram identity's, so K1b
     # is held to the f64 plain version on the SAME tensors, and the whole
@@ -2495,6 +2793,13 @@ def main() -> int:
         ),
         "fused_predict": (
             k1_src, "muygpys_tpu/pallas/fused_predict.py:263", "dists",
+        ),
+        # K4's constructor: one launch per free-nu objective evaluation (the
+        # JAX package builds the vector in one jitted XLA program, whose
+        # output feeds the Pallas kernels)
+        "matern_nu_coeffs": (
+            "muygpys_torch/gpu/csrc/matern_nu_coeffs.cu",
+            "muygpys_tpu/pallas/matern_nu.py:134", "train_gen",
         ),
         # K1 and K2 a second time, with K4 inlined (K4 has no launch of its
         # own: its cost is the gen-minus-closed-form difference per element)

@@ -33,25 +33,32 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "muygpys_torch"
-SOURCES = ("fused_predict", "knn", "fused_train", "multiout_solve")
+SOURCES = ("fused_predict", "knn", "fused_train", "multiout_solve",
+           "matern_nu_coeffs")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v", "-I", str(CSRC),
 )
+# flags of one source beside NVCC_FLAGS: K4's constructor mirrors its plain
+# version's operations one rounding at a time, so nothing may be contracted
+# into a fused multiply-add
+EXTRA_FLAGS = {"matern_nu_coeffs": ("-fmad=false",)}
 
 # launches per kernel, counted by the wrappers where they launch (plain ints;
 # ``reset_launches`` zeroes them before a run whose path is to be shown).
-# K1, K2, K3 and K5 have two designs each: "<kernel>/<design>" counts the
-# launches of one design, "<kernel>" those of both (K3: "knn_candidates" and
-# "knn_candidates_pruned" count its two variants, "knn_candidates/<design>"
-# the designs of both variants)
+# K1, K1b, K2, K3 and K5 have two designs each: "<kernel>/<design>" counts
+# the launches of one design, "<kernel>" those of both (K3:
+# "knn_candidates" and "knn_candidates_pruned" count its two variants,
+# "knn_candidates/<design>" the designs of both variants)
 launches: Dict[str, int] = {
     "fused_predict_coords": 0,
     "fused_predict_coords/registers": 0,
     "fused_predict_coords/shared": 0,
     "fused_predict": 0,
+    "fused_predict/registers": 0,
+    "fused_predict/shared": 0,
     "knn_candidates": 0,
     "knn_candidates_pruned": 0,
     "knn_candidates/fused": 0,
@@ -62,6 +69,7 @@ launches: Dict[str, int] = {
     "multiout_solve": 0,
     "multiout_solve/registers": 0,
     "multiout_solve/shared": 0,
+    "matern_nu_coeffs": 0,
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -118,7 +126,7 @@ def library_path(name: str) -> Path:
     digest = hashlib.sha256()
     for path in sorted(source_files(name)):
         digest.update(path.name.encode() + b"\0" + path.read_bytes())
-    digest.update(" ".join(NVCC_FLAGS[:-2]).encode())
+    digest.update(" ".join(NVCC_FLAGS[:-2] + EXTRA_FLAGS.get(name, ())).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
@@ -137,7 +145,8 @@ def build(names: Sequence[str] = SOURCES) -> Dict[str, float]:
             continue
         tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
         log = open(so.with_suffix(".log"), "w")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, *EXTRA_FLAGS.get(name, ()), "-o",
+               str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (
             subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT),
             log, tmp, so, time.perf_counter(),

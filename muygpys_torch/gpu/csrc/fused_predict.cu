@@ -24,9 +24,10 @@
 // bound by operations and, at this size, by the latency of the n dependent
 // pivot steps.
 //
-// Two designs of K1; the launcher's caller picks
+// Two designs each of K1 and K1b; the launcher's caller picks
 // (muygpys_torch/gpu/fused_predict.py:k1_design): the register design for
-// n <= 32 and r <= 4, the shared-memory design otherwise.
+// n <= 32 and r <= 4, the shared-memory design otherwise.  The two register
+// designs run one elimination, regs_solve_and_emit.
 //
 // The register design (fused_predict_coords_regs_kernel), K2's pattern: one
 // warp per query, up to 8 queries a block.  The block forms the reciprocal
@@ -60,16 +61,26 @@
 // memory, and warps give the latency hiding.
 //
 // K1b moves n^2 + n + n r + r + 1 values per query (~3.9 KB at n=30, f32:
-// ~9.6 us per 8192 queries at 3.35 TB/s) against the same ~11k multiply-adds:
-// it is bound by bytes.  Its block stages each query's distances straight
-// into the augmented matrix (query index fastest, one 32-byte segment per
-// row and 8 queries) and turns them into kernel values in place, so shared
-// memory is n(n+1+r) + n per query, as K1's, and sets the queries per block.
+// ~9.4 us per 8192 queries at 3.35 TB/s) against the same ~11k multiply-adds:
+// it is bound by bytes.  Its register design (fused_predict_regs_kernel)
+// is K1's, fed from distances: a block of 8 queries in f32 (4 in f64)
+// copies each (row, queries) segment of the batch-last pw as 32
+// contiguous bytes, query fastest, by cp.async into a per-query row-major
+// copy of K, turns each distance into its kernel value in place; lane i
+// then loads row i.  pw is
+// the caller's, not symmetric by construction, and the elimination reads
+// both triangles (the pivot row from the upper, the column below it from
+// the lower), so all n^2 values are evaluated and read.  Its shared-memory
+// design (fused_predict_kernel) stages each query's distances straight
+// into the augmented matrix (one 32-byte segment per row and 8 queries),
+// turns them into kernel values in place and eliminates as K1's
+// shared-memory design; shared memory is n(n+1+r) + n per query.
 //
 // Under "gen" the block stages the coefficient vector once in shared memory
 // (matern_nu::stage) and every kernel evaluation is matern_nu::eval on
 // t = coef[0] u.
 
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include "matern_nu.cuh"
@@ -276,6 +287,69 @@ struct RegsMinBlocks {
   static constexpr int value = sizeof(T) == 4 ? (R == 1 ? 4 : 2) : 1;
 };
 
+// The register design's elimination and emit, shared by K1 and K1b: lane i
+// holds row i of K + nugget in A (identity rows past n) and its entries of
+// [kc | y] in x.  Right-looking and fully unrolled, so every register index
+// is static: at pivot j lane j publishes its row through the warp's
+// double-buffered shared row `rows` (2 RB elements, 16-byte aligned; one
+// __syncwarp a step); every lane takes rsqrt of the pivot (no pivot floor)
+// and updates its row and right-hand sides.  Column j of the rows below the
+// pivot is read from their own registers and row j from the published
+// copy, so both triangles of K are read, as the plain version reads them.
+// mean = zc . zy and var = 1 - zc . zc are warp sums.
+template <typename T, int R>
+__device__ __forceinline__ void regs_solve_and_emit(T (&A)[kRows], T (&x)[RegShape<T, R>::XP],
+                                                    T* rows, T* __restrict__ mean,
+                                                    T* __restrict__ var, int n, int r, int b,
+                                                    int B, int lane) {
+  using Shape = RegShape<T, R>;
+  constexpr int VW = Shape::VW, NC = Shape::NC, XP = Shape::XP, RB = Shape::RB;
+  // right-looking elimination of [K | kc | y], one rsqrt per pivot
+#pragma unroll
+  for (int j = 0; j < kRows; ++j) {
+    if (j < n) {
+      T* buf = rows + (j & 1) * RB;  // double-buffered: one barrier a step
+      if (lane == j) {
+#pragma unroll
+        for (int c0 = j / VW * VW; c0 < kRows; c0 += VW) st16(buf + c0, A + c0);
+#pragma unroll
+        for (int k0 = 0; k0 < XP; k0 += VW) st16(buf + kRows + k0, x + k0);
+      }
+      __syncwarp();
+      const T pinv = rsqrt_t(buf[j]);
+      const bool below = lane > j;
+      const T l = below ? A[j] * pinv : T(0);
+      T z[XP];
+#pragma unroll
+      for (int k0 = 0; k0 < XP; k0 += VW) ld16(z + k0, buf + kRows + k0);
+#pragma unroll
+      for (int k = 0; k < NC; ++k) {
+        const T zj = z[k] * pinv;
+        x[k] = below ? x[k] - l * zj : (lane == j ? zj : x[k]);
+      }
+#pragma unroll
+      for (int c0 = (j + 1) / VW * VW; c0 < kRows; c0 += VW) {
+        T rr[VW];
+        ld16(rr, buf + c0);
+#pragma unroll
+        for (int e = 0; e < VW; ++e)
+          if (c0 + e > j) A[c0 + e] -= l * (rr[e] * pinv);
+      }
+    }
+  }
+
+  // lanes past n hold zeros
+  const T zz = warp_sum(x[0] * x[0]);
+  if (lane == 0) var[b] = T(1) - zz;
+#pragma unroll
+  for (int k = 0; k < R; ++k)
+    if (k < r) {
+      const T s = warp_sum(x[0] * x[1 + k]);
+      if (lane == 0) mean[(size_t)k * B + b] = s;
+    }
+}
+
+
 // shared-memory elements of one query: two published rows, the mirrored K
 // (row c of the copy, stride kLdK, is column c of K), the scaled coordinates, the scaled
 // query, the targets and the nuggets; a multiple of 4 so every query stays
@@ -297,7 +371,7 @@ __global__ void __launch_bounds__(256, RegsMinBlocks<T, R>::value) fused_predict
     T* __restrict__ var,             // (B,)
     int n, int d, int r, int B, int code, int metric_power, int nt) {
   using Shape = RegShape<T, R>;
-  constexpr int VW = Shape::VW, NC = Shape::NC, XP = Shape::XP, RB = Shape::RB;
+  constexpr int XP = Shape::XP, RB = Shape::RB;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int P = blockDim.x / 32;  // queries (warps) per block
   const int warp = threadIdx.x / 32;
@@ -386,49 +460,122 @@ __global__ void __launch_bounds__(256, RegsMinBlocks<T, R>::value) fused_predict
     A[c] = v;
   }
 
-  // right-looking elimination of [K | kc | y], one rsqrt per pivot
-#pragma unroll
-  for (int j = 0; j < kRows; ++j) {
-    if (j < n) {
-      T* buf = rows + (j & 1) * RB;  // double-buffered: one barrier a step
-      if (lane == j) {
-#pragma unroll
-        for (int c0 = j / VW * VW; c0 < kRows; c0 += VW) st16(buf + c0, A + c0);
-#pragma unroll
-        for (int k0 = 0; k0 < XP; k0 += VW) st16(buf + kRows + k0, x + k0);
-      }
-      __syncwarp();
-      const T pinv = rsqrt_t(buf[j]);
-      const bool below = lane > j;
-      const T l = below ? A[j] * pinv : T(0);
-      T z[XP];
-#pragma unroll
-      for (int k0 = 0; k0 < XP; k0 += VW) ld16(z + k0, buf + kRows + k0);
-#pragma unroll
-      for (int k = 0; k < NC; ++k) {
-        const T zj = z[k] * pinv;
-        x[k] = below ? x[k] - l * zj : (lane == j ? zj : x[k]);
-      }
-#pragma unroll
-      for (int c0 = (j + 1) / VW * VW; c0 < kRows; c0 += VW) {
-        T rr[VW];
-        ld16(rr, buf + c0);
-#pragma unroll
-        for (int e = 0; e < VW; ++e)
-          if (c0 + e > j) A[c0 + e] -= l * (rr[e] * pinv);
-      }
-    }
-  }
+  regs_solve_and_emit<T, R>(A, x, rows, mean, var, n, r, b, B, lane);
+}
 
-  // mean = zc . zy, var = 1 - zc . zc (lanes past n hold zeros)
-  const T zz = warp_sum(x[0] * x[0]);
-  if (lane == 0) var[b] = T(1) - zz;
-#pragma unroll
-  for (int k = 0; k < R; ++k)
-    if (k < r) {
-      const T s = warp_sum(x[0] * x[1 + k]);
-      if (lane == 0) mean[(size_t)k * B + b] = s;
+// ---- the register design of K1b -------------------------------------------
+
+// bytes of one (row, queries) segment of K1b's batch-last inputs a block
+// copies: 32, so 8 queries a block in f32 and 4 in f64 (measured faster
+// than 64 bytes, 16 and 8 queries, at the headline: chip_variants.py)
+constexpr int kDistsSegmentBytes = 32;
+
+template <typename T, int R>
+struct DistsRegsBounds {
+  static constexpr int queries = kDistsSegmentBytes / (int)sizeof(T);
+  static constexpr int threads = 32 * queries;
+  // a 64-register cap in f32 with one right-hand side, 128 with more; f64
+  // uncapped
+  static constexpr int min_blocks = sizeof(T) == 4 && R == 1 ? 65536 / 64 / threads : 1;
+};
+
+// shared-memory elements of one query of K1b's register design: K + noise I
+// row-major (row stride kLdK), kc, then y (R a row); padded so that the
+// block's queries, stored query-fastest, fall on distinct banks (an odd
+// number of 8-byte words apart in f32, of 8-byte elements in f64)
+__host__ __device__ __forceinline__ size_t dists_regs_elems(int n, int R, int elem_bytes) {
+  const size_t e = (size_t)n * kLdK + n + (size_t)n * R;
+  const size_t period = elem_bytes == 4 ? 32 : 16, want = elem_bytes == 4 ? 2 : 1;
+  return e + (want + period - e % period) % period;
+}
+
+// K1b in registers: one warp per query, lane i on row i, K1's elimination
+// (regs_solve_and_emit).  The block's inputs are staged by asynchronous
+// copies (cp.async), query fastest, so each (row, queries) segment is one
+// contiguous read: a thread owns query tid % P and every 32nd row from
+// tid / P, and has all its copies in flight at once (a register load each
+// would leave one in flight a thread, a quarter of what the memory rate
+// needs).  Each thread then turns the distances it copied into kernel
+// values in place.  pw arrives from the caller, so nothing makes it
+// symmetric bit for bit: all n^2 values are evaluated, as the plain version
+// does, into each query's row-major K, and lane i loads its row of the
+// whole square.
+template <typename T, int R>
+__global__ void __launch_bounds__(DistsRegsBounds<T, R>::threads, DistsRegsBounds<T, R>::min_blocks)
+    fused_predict_regs_kernel(const T* __restrict__ pw,      // (n, n, B)
+                              const T* __restrict__ cw,      // (n, B)
+                              const T* __restrict__ y,       // (n, r, B)
+                              const T* __restrict__ params,  // (2): ls, noise
+                              const T* __restrict__ gen,     // K4 coefficients or null
+                              T* __restrict__ mean,          // (r, B)
+                              T* __restrict__ var,           // (B,)
+                              int n, int r, int B, int code, int metric_power, int nt) {
+  using Shape = RegShape<T, R>;
+  constexpr int XP = Shape::XP, RB = Shape::RB;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int P = blockDim.x / 32;  // queries (warps) per block
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int b0 = blockIdx.x * P;
+  const size_t per = dists_regs_elems(n, R, sizeof(T));
+  const size_t oC = (size_t)n * kLdK, oY = oC + n;  // per-query offsets
+
+  T* rows = reinterpret_cast<T*>(smem_raw);  // [P][2 RB] published rows
+  T* base = rows + (size_t)P * 2 * RB;        // [P][per] the queries
+  T* co = base + P * per;                     // [LEN_VAL] K4 coefficients under gen
+
+  // the copies of this thread's query: rows tid / P, + 32, ... (blockDim is
+  // 32 P) of pw, cw and y
+  const int w = threadIdx.x % P, b = b0 + w, first = threadIdx.x / P;
+  T* q = base + w * per;
+  if (b < B) {
+    for (int row = first, i = first / n, c = first % n; row < n * n; row += 32) {
+      __pipeline_memcpy_async(q + i * kLdK + c, pw + (size_t)row * B + b, sizeof(T));
+      for (c += 32; c >= n; c -= n) ++i;
     }
+    for (int i = first; i < n; i += 32)
+      __pipeline_memcpy_async(q + oC + i, cw + (size_t)i * B + b, sizeof(T));
+    for (int row = first; row < n * r; row += 32)
+      __pipeline_memcpy_async(q + oY + row, y + (size_t)row * B + b, sizeof(T));
+  }
+  __pipeline_commit();
+  if (code == GEN) matern_nu::stage(co, gen, matern_nu::LEN_VAL, nt);
+  __syncthreads();  // the staged coefficients
+  __pipeline_wait_prior(0);
+  if (b < B) {
+    const T ls = params[0], noise = params[1];
+    const T inv = metric_power == 1 ? T(1) / ls : T(1) / (ls * ls);
+    for (int row = first, i = first / n, c = first % n; row < n * n; row += 32) {
+      T* e = q + i * kLdK + c;
+      T v = kernel_value(*e * inv, code, co, nt);
+      if (i == c) v += noise;
+      *e = v;
+      for (c += 32; c >= n; c -= n) ++i;
+    }
+    for (int i = first; i < n; i += 32) q[oC + i] = kernel_value(q[oC + i] * inv, code, co, nt);
+  }
+  __syncthreads();
+
+  if (b0 + warp >= B) return;  // no block-wide barrier below this point
+  const T* sm = base + warp * per;
+  const bool live = lane < n;
+  T x[XP];
+#pragma unroll
+  for (int k = 0; k < XP; ++k) x[k] = T(0);
+  if (live) {
+    x[0] = sm[oC + lane];
+#pragma unroll
+    for (int k = 0; k < R; ++k)
+      if (k < r) x[1 + k] = sm[oY + lane * r + k];
+  }
+  T A[kRows];
+#pragma unroll
+  for (int c = 0; c < kRows; ++c) {
+    T v = c == lane ? T(1) : T(0);
+    if (c < n && live) v = sm[lane * kLdK + c];
+    A[c] = v;
+  }
+  regs_solve_and_emit<T, R>(A, x, rows + warp * 2 * RB, mean, var, n, r, b0 + warp, B, lane);
 }
 
 // K1b: the same posterior from distances.  pw (n, n, B) and cw (n, B) are
@@ -558,11 +705,42 @@ int launch_coords(const T* nf, const T* q, const T* y, const T* params, const T*
   return (int)cudaGetLastError();
 }
 
+template <typename T, int R>
+int launch_dists_regs(const T* pw, const T* cw, const T* y, const T* params, const T* gen,
+                      T* mean, T* var, int n, int r, int B, int code, int metric_power, int nt,
+                      void* stream) {
+  constexpr int P = DistsRegsBounds<T, R>::queries;
+  const size_t bytes =
+      sizeof(T) * (P * (2 * RegShape<T, R>::RB + dists_regs_elems(n, R, sizeof(T))) +
+                   (code == GEN ? matern_nu::LEN_VAL : 0));
+  if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (bytes > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(fused_predict_regs_kernel<T, R>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int grid = (B + P - 1) / P;
+  fused_predict_regs_kernel<T, R><<<grid, 32 * P, bytes, (cudaStream_t)stream>>>(
+      pw, cw, y, params, gen, mean, var, n, r, B, code, metric_power, nt);
+  return (int)cudaGetLastError();
+}
+
+// design 1: the register design (n <= 32, r <= 4); design 0: the
+// shared-memory design
 template <typename T>
 int launch_dists(const T* pw, const T* cw, const T* y, const T* params, const T* gen,
                  T* mean, T* var, int n, int r, int B, int code, int metric_power, int nt,
-                 void* stream) {
+                 int design, void* stream) {
   if (B == 0) return 0;
+  if (design == 1) {
+    if (n < 1 || n > kRows || r < 1 || r > 4) return (int)cudaErrorInvalidValue;
+    auto go = r == 1   ? launch_dists_regs<T, 1>
+              : r == 2 ? launch_dists_regs<T, 2>
+                       : launch_dists_regs<T, 4>;
+    return go(pw, cw, y, params, gen, mean, var, n, r, B, code, metric_power, nt, stream);
+  }
+  if (design != 0) return (int)cudaErrorInvalidValue;
   const int m = n + 1 + r;
   size_t bytes = 0;
   const int tq = queries_per_block<T>((size_t)n * m + n,
@@ -602,17 +780,17 @@ int fused_predict_coords_f64(const double* nf, const double* q, const double* y,
 
 int fused_predict_f32(const float* pw, const float* cw, const float* y, const float* params,
                       const float* gen, float* mean, float* var, int n, int r, int B,
-                      int code, int metric_power, int nt, void* stream) {
+                      int code, int metric_power, int nt, int design, void* stream) {
   return launch_dists<float>(pw, cw, y, params, gen, mean, var, n, r, B, code, metric_power,
-                             nt, stream);
+                             nt, design, stream);
 }
 
 int fused_predict_f64(const double* pw, const double* cw, const double* y,
                       const double* params, const double* gen, double* mean, double* var,
-                      int n, int r, int B, int code, int metric_power, int nt,
+                      int n, int r, int B, int code, int metric_power, int nt, int design,
                       void* stream) {
   return launch_dists<double>(pw, cw, y, params, gen, mean, var, n, r, B, code,
-                              metric_power, nt, stream);
+                              metric_power, nt, design, stream);
 }
 
 const char* muygpys_cuda_error_string(int code) {

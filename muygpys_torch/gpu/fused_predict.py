@@ -6,10 +6,12 @@ Counterpart of :mod:`muygpys_tpu.pallas.fused_predict`.
 (``csrc/fused_predict.cu``) computes per-feature length-scaled distances, the
 Matern/RBF kernel, the nugget, and eliminates the augmented ``[K | kc | y]``
 in place (no pivot floor, like the TPU kernel) to read off the posterior
-mean and variance; it has two designs, picked by :func:`k1_design` (a warp
-per query eliminating in registers for ``n <= 32`` and ``r <= 4``, else in
-shared memory).  :func:`fused_predict_bl` (K1b) does the same from
-pre-assembled *distance* tensors.  Hyperparameters are runtime inputs, so
+mean and variance.  :func:`fused_predict_bl` (K1b) does the same from
+pre-assembled *distance* tensors.  Each has two designs, picked by
+:func:`k1_design` (a warp per query eliminating in registers for
+``n <= 32`` and ``r <= 4``, else in shared memory); both register designs
+run one elimination, ``regs_solve_and_emit`` in ``csrc/fused_predict.cu``.
+Hyperparameters are runtime inputs, so
 one build serves every trained model; with ``smoothness="gen"`` so is the
 Matern smoothness, through a coefficient vector of
 :func:`muygpys_torch.gpu.matern_nu.matern_nu_coeffs` (K4, ``matern_nu.cuh``).
@@ -37,7 +39,7 @@ _COORDS_ARGTYPES = (
 REGISTER_MAX_N = 32
 REGISTER_MAX_R = 4
 _DISTS_ARGTYPES = (
-    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 )
 
 
@@ -142,10 +144,10 @@ def fused_predict_bl_plain(
 
 
 def k1_design(n, r, dtype, smoothness=1.5) -> str:
-    """The K1 design a launch takes: ``"registers"`` (one lane per row of
-    the augmented matrix, eliminated in registers) for ``n <= 32`` and
-    ``r <= 4`` in f32 and f64, every closed form, RBF and ``"gen"``; else
-    ``"shared"`` (the matrix in shared memory)."""
+    """The design a K1 or K1b launch takes: ``"registers"`` (one lane per
+    row of the augmented matrix, eliminated in registers) for ``n <= 32``
+    and ``r <= 4`` in f32 and f64, every closed form, RBF and ``"gen"``;
+    else ``"shared"`` (the matrix in shared memory)."""
     if isinstance(smoothness, torch.Tensor) or (
         smoothness not in _nu.SMOOTHNESS_CODES
     ):
@@ -269,8 +271,9 @@ def fused_predict_bl(
     ``params = [length_scale, noise]``; ``smoothness`` and ``gen_coeffs`` as
     :func:`fused_predict_coords_bl`.  Unit prior variance.
 
-    Runs on ``device`` (default ``"cuda"``): the kernel there, the plain
-    version for ``device="cpu"``.  Returns mean ``(r, B)``, var ``(B,)``.
+    Runs on ``device`` (default ``"cuda"``): the kernel there (the design
+    of :func:`k1_design`), the plain version for ``device="cpu"``.  Returns
+    mean ``(r, B)``, var ``(B,)``.
     """
     dev = config.device(device)
     code = _nu.check_smoothness(
@@ -300,19 +303,33 @@ def fused_predict_bl(
         )
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"fused_predict_bl takes f32 or f64, not {dtype}")
-    ins = [t.contiguous() for t in (pw, cw, y, params)]
+    pw, cw, y, params = (t.contiguous() for t in (pw, cw, y, params))
+    return _launch_dists(
+        pw, cw, y, params, _gen_on_device(gen_coeffs, dtype, dev), code,
+        metric_power, smoothness,
+    )
+
+
+def _launch_dists(pw, cw, y, params, gen, code, metric_power, smoothness=1.5,
+                  design=None):
+    """One K1b launch on contiguous CUDA tensors of checked shapes: the
+    design of :func:`k1_design`, or ``design`` where a caller compares the
+    two (the kernel refuses a register launch outside its bounds).
+    Returns mean ``(r, B)`` and var ``(B,)``."""
+    n, r, B = y.shape
+    dtype, dev = pw.dtype, pw.device
+    design = design or k1_design(n, r, dtype, smoothness)
     mean = torch.empty((r, B), dtype=dtype, device=dev)
     var = torch.empty((B,), dtype=dtype, device=dev)
-    gen = _gen_on_device(gen_coeffs, dtype, dev)
     fn = _build.function(
         "fused_predict", _symbol("fused_predict", dtype), _DISTS_ARGTYPES
     )
     with _build.on_device(dev):
         rc = fn(
-            *(_build.ptr(t) for t in ins), _build.ptr(gen), _build.ptr(mean),
-            _build.ptr(var), n, r, B, code, metric_power,
-            serve_tail_terms(dtype), _build.stream(dev),
+            *(_build.ptr(t) for t in (pw, cw, y, params, gen, mean, var)),
+            n, r, B, code, metric_power, serve_tail_terms(dtype),
+            int(design == "registers"), _build.stream(dev),
         )
     _build.check(rc, "fused_predict", "fused_predict")
-    _build.count("fused_predict")
+    _build.count("fused_predict", f"fused_predict/{design}")
     return mean, var

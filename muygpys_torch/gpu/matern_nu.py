@@ -6,9 +6,11 @@ Counterpart of :mod:`muygpys_tpu.pallas.matern_nu`.  A modified Bessel
 :mod:`muygpys_torch.ops.bessel`, ~10^3 operations) is far too expensive
 inside a fused kernel, so the work is split:
 
-1. :func:`matern_nu_coeffs` runs OUTSIDE the kernel (plain tensor code, once
-   per optimizer step; :func:`matern_nu_coeffs_host` in numpy f64, once per
-   server) and compresses the whole nu-dependence of
+1. :func:`matern_nu_coeffs` runs OUTSIDE the evaluating kernels (once per
+   optimizer step: for a nu on the card one launch of the constructor
+   kernel ``csrc/matern_nu_coeffs.cu``, for a nu on the CPU its plain
+   version :func:`matern_nu_coeffs_plain`; :func:`matern_nu_coeffs_host` in
+   numpy f64, once per server) and compresses the whole nu-dependence of
 
        phi_nu(t) = 2^{1-nu}/Gamma(nu) t^nu K_nu(t),   t = sqrt(2 nu) d / l
 
@@ -48,11 +50,13 @@ the correct ``e^{-t}`` decay).
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import numpy as np
 import torch
 
+from muygpys_torch.gpu import _build
 from muygpys_torch.ops.bessel import _kve_raw
 
 T0 = 2.0  # series/tail split: the P and Em w^n Q pieces grow ~ e^t/2 each
@@ -90,6 +94,13 @@ _OFF_DA = _LEN_DT
 _OFF_DB = _OFF_DA + KSM
 _OFF_DC = _OFF_DB + KSM
 _LEN_DNU = _OFF_DC + NTAIL
+# the sets of the vector by name: (first entry, end)
+COEFF_SETS = {
+    "scalars": (0, _N_SCAL), "a": (_OFF_A, _OFF_B), "q": (_OFF_B, _OFF_C),
+    "c": (_OFF_C, _LEN_VAL), "ap": (_OFF_AP, _OFF_BP), "bp": (_OFF_BP, _OFF_CP),
+    "cp": (_OFF_CP, _LEN_DT), "da": (_OFF_DA, _OFF_DB), "db": (_OFF_DB, _OFF_DC),
+    "dc": (_OFF_DC, _LEN_DNU),
+}
 
 _FACT = np.array([math.factorial(k) for k in range(KSM)], np.float64)
 _LOG_FACT = np.array([math.lgamma(k + 1) for k in range(KSM)], np.float64)
@@ -235,20 +246,23 @@ def _build_value_coeffs(nu, delta):
     return torch.cat([scal, a, q, c, ap, bp, cp])
 
 
-def matern_nu_coeffs(nu, need_dnu: bool = False):
-    """Flat coefficient vector for :func:`matern_nu_eval` and the fused
-    kernels, in the dtype and on the device of ``nu`` (a Python float
-    builds in f64 on the CPU).
-
-    ``need_dnu`` appends the nu-tangent sets, from one forward-mode pass
-    through the constructor (analytic, not finite differences), for the
-    training kernel's d/dnu rows.  Without it the vector is differentiable
-    in ``nu`` by ``torch.autograd``."""
+def _as_nu(nu):
+    """``nu`` as a one-element floating tensor (a Python float in f64 on the
+    CPU)."""
     if not isinstance(nu, torch.Tensor):
         nu = torch.tensor(float(nu), dtype=torch.float64)
     if not nu.is_floating_point():
         nu = nu.to(torch.float32)
-    nu = nu.reshape(1)
+    return nu.reshape(1)
+
+
+def matern_nu_coeffs_plain(nu, need_dnu: bool = False):
+    """Plain PyTorch version of the constructor kernel: the flat coefficient
+    vector in the dtype and on the device of ``nu``, built by tensor
+    operations (~12,000 of them on a card), the nu-tangent sets from one
+    forward-mode pass; differentiable in ``nu`` by ``torch.autograd``
+    without ``need_dnu``."""
+    nu = _as_nu(nu)
     delta = _clamp_offset(nu)
     if not need_dnu:
         return _build_value_coeffs(nu, delta)
@@ -259,6 +273,141 @@ def matern_nu_coeffs(nu, need_dnu: bool = False):
     return torch.cat(
         [co, dco[_OFF_A:_OFF_B], dco[_OFF_B:_OFF_C], dco[_OFF_C:_LEN_VAL]]
     )
+
+
+_COEFFS_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+# the constructor kernel's constants, one tensor per dtype and device
+_CONSTANTS = {}
+
+
+def _kernel_constants(dtype, device):
+    """The Chebyshev-Gauss nodes, k!, ln k! and the interpolation matrix in
+    the layout of ``csrc/matern_nu_coeffs.cu``: the plain version's f64
+    arrays cast to ``dtype``, so both sides read the same bits."""
+    key = (dtype, device)
+    if key not in _CONSTANTS:
+        # the kernel evaluates kve at the nodes by CF2 alone, the branch the
+        # plain version selects above T0
+        if not _NODES_T.min() > T0:
+            raise RuntimeError("a tail node lies at or below T0")
+        flat = np.concatenate([_NODES_T, _FACT, _LOG_FACT, _CHEB_MAT.ravel()])
+        _CONSTANTS[key] = torch.as_tensor(flat, dtype=dtype, device=device)
+    return _CONSTANTS[key]
+
+
+def _launch_coeffs(nu, need_dnu: bool, tangent: bool = False):
+    """One launch of the constructor kernel on a one-element CUDA ``nu``:
+    the vector (``_LEN_DNU`` long with ``need_dnu``, else ``_LEN_DT``) and,
+    with ``tangent``, d vector / d nu of its first ``_LEN_DT`` entries."""
+    dtype, dev = nu.dtype, nu.device
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"matern_nu_coeffs takes f32 or f64, not {dtype}")
+    nu = nu.detach().contiguous()
+    out = torch.empty((_LEN_DNU if need_dnu else _LEN_DT,), dtype=dtype,
+                      device=dev)
+    dout = (torch.empty((_LEN_DT,), dtype=dtype, device=dev) if tangent
+            else None)
+    suffix = "f32" if dtype == torch.float32 else "f64"
+    fn = _build.function(
+        "matern_nu_coeffs", f"matern_nu_coeffs_{suffix}", _COEFFS_ARGTYPES
+    )
+    with _build.on_device(dev):
+        rc = fn(
+            _build.ptr(nu), _build.ptr(_kernel_constants(dtype, dev)),
+            _build.ptr(out), _build.ptr(dout), int(need_dnu),
+            _build.stream(dev),
+        )
+    _build.check(rc, "matern_nu_coeffs", "matern_nu_coeffs")
+    _build.count("matern_nu_coeffs")
+    return out, dout
+
+
+class _CoeffsOnCard(torch.autograd.Function):
+    """The kernel's vector, differentiable in ``nu``: nu is a scalar, so the
+    tangent the same launch writes is the whole Jacobian."""
+
+    @staticmethod
+    def forward(ctx, nu):
+        out, dout = _launch_coeffs(nu, False, tangent=True)
+        ctx.save_for_backward(dout)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (dout,) = ctx.saved_tensors
+        return (grad_out * dout).sum().reshape(1)
+
+
+def matern_nu_coeffs(nu, need_dnu: bool = False):
+    """Flat coefficient vector for :func:`matern_nu_eval` and the fused
+    kernels, in the dtype and on the device of ``nu`` (a Python float
+    builds in f64 on the CPU).
+
+    ``need_dnu`` appends the nu-tangent sets (analytic, not finite
+    differences) for the training kernel's d/dnu rows.  Without it the
+    vector is differentiable in ``nu`` by ``torch.autograd``.
+
+    A ``nu`` on a CUDA device is one launch of the constructor kernel
+    (``csrc/matern_nu_coeffs.cu``), and nothing is read back to the host; a
+    ``nu`` on the CPU runs :func:`matern_nu_coeffs_plain`."""
+    nu = _as_nu(nu)
+    if nu.device.type == "cpu":
+        return matern_nu_coeffs_plain(nu, need_dnu)
+    if need_dnu:
+        return _launch_coeffs(nu, True)[0]
+    return _CoeffsOnCard.apply(nu)
+
+
+#: the orders at which a vector built another way is checked against this
+#: module's (the constructor kernel's tests and chip_smoke.py): K4's test
+#: orders, the integers and both sides of the clamp zones (f32 1e-2, f64 1e-7)
+COEFFS_CHECK_NUS = (0.05, 0.31, 0.5, 1.2, 1.5, 2.5, 3.7, 4.8, 7.3, 10.0, 1.0,
+                    2.0, 2.003, 0.999)
+#: :func:`coeffs_limits`' rtol by dtype: in f64 the builds differ only in
+#: their rounding; in f32 the bound of the port's f32 vector against JAX's
+COEFFS_CHECK_RTOL = {torch.float64: 1e-12, torch.float32: 2e-4}
+#: the rounding floor of the near-integer cancellation, in eps max|q|
+#: (eps max|dq| for da): the most that two builds on different devices
+#: were seen to need, 0.743 (the plain version on the CPU against the
+#: same on a card, f64, nu = 10), doubled and rounded up (PERF.md)
+COEFFS_CANCEL_FLOOR = 2
+
+
+def coeffs_limits(want, rtol: float) -> np.ndarray:
+    """Entry-by-entry absolute limits for a coefficient vector built another
+    way (the constructor kernel, another framework) against ``want`` (a
+    1-D vector of this layout, any length, in the dtype both were built
+    in), as a float64 numpy array.
+
+    - Each set is held against its own largest magnitude times ``rtol``:
+      the sets span thirty orders of magnitude, and a set's small members
+      are sums of its large ones.
+    - The tail sets ``c``, ``cp`` and ``dc`` against at least 1: they are
+      Chebyshev coefficients of ``log(phi e^t)`` and of its derivatives, so
+      an absolute error of ``rtol`` is a relative error of ``rtol`` on phi
+      (at nu = 1/2 the fit is zero up to rounding).
+    - ``a``, ``ap`` and ``da`` also get the rounding floor of the
+      near-integer cancellation ``a_k = u_k + q_{k-n}``: its terms are as
+      large as ``max|q|`` (tangents ``max|dq|``, ~``max|q| / |mu|``), so
+      ``COEFFS_CANCEL_FLOOR`` eps times that, ``(KSM - 1)`` times more for
+      ``ap_k = k a_k``.
+    """
+    want = torch.as_tensor(want).detach()
+    eps = torch.finfo(want.dtype).eps  # the dtype the vector was built in
+    want = want.cpu().double().abs().numpy()
+    lim = np.zeros_like(want)
+    for name, (lo, hi) in COEFF_SETS.items():
+        if lo < want.size:
+            scale = want[lo:hi].max()
+            tail = name in ("c", "cp", "dc")
+            lim[lo:hi] = rtol * (max(scale, 1.0) if tail else scale)
+    floor_q = COEFFS_CANCEL_FLOOR * eps * want[_OFF_B:_OFF_C].max()
+    lim[_OFF_A:_OFF_B] += floor_q
+    lim[_OFF_AP:_OFF_BP] += (KSM - 1) * floor_q
+    if want.size > _OFF_DA:
+        lim[_OFF_DA:_OFF_DB] += (
+            COEFFS_CANCEL_FLOOR * eps * want[_OFF_DB:_OFF_DC].max())
+    return lim
 
 
 def _horner(coefs, w):

@@ -1,8 +1,9 @@
-"""The hand-written CUDA sources (K1/K1b, K2, K3 and K5) run on the CPU, one
-thread per CUDA thread, for ``tests/test_torch_cuda_emulation.py``.
+"""The hand-written CUDA sources (K1/K1b, K2, K3, K4's constructor and K5) run
+on the CPU, one thread per CUDA thread, for
+``tests/test_torch_cuda_emulation.py``.
 
 A machine without a card or ``nvcc`` cannot run ``muygpys_torch/gpu/csrc``.
-:func:`build` compiles any of its four ``.cu`` sources with the host's C++20
+:func:`build` compiles any of its five ``.cu`` sources with the host's C++20
 compiler against a small emulation of the CUDA subset they use: a
 ``std::thread`` per CUDA thread, ``std::barrier`` for ``__syncthreads`` and
 ``__syncwarp``, an exchange slot for the warp shuffles, ballots and
@@ -83,6 +84,12 @@ inline float __fsqrt_rn(float x) { return std::sqrt(x); }
 inline double __dsqrt_rn(double x) { return std::sqrt(x); }
 inline float __frcp_rn(float x) { return 1.0f / x; }
 inline double __drcp_rn(double x) { return 1.0 / x; }
+// glibc's lgamma writes the global signgam (a race between the emulated
+// threads); CUDA's keeps no such state
+inline double emu_lgamma(double x) { int s; return lgamma_r(x, &s); }
+inline float emu_lgammaf(float x) { int s; return lgammaf_r(x, &s); }
+#define lgamma emu_lgamma
+#define lgammaf emu_lgammaf
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
@@ -343,7 +350,8 @@ def k5_run(lib, design, ins, m, o, B, batch_last):
 RACE_LAUNCHES = ("k2-registers", "k2-shared", "k2-registers-free-nu",
                  "k5-shared-24", "k5-registers-60", "k5-registers-90",
                  "k3-fused", "k3-fused-pruned", "k1-registers",
-                 "k1-registers-gen")
+                 "k1-registers-gen", "k1b-registers", "k1b-registers-gen",
+                 "k4-coeffs")
 
 
 def race_launch(out_dir: str, launch: str) -> None:
@@ -355,6 +363,16 @@ def race_launch(out_dir: str, launch: str) -> None:
         prep = k3_problem(n_train=2048, n_query=16,
                           pruned=launch.endswith("pruned"))
         k3_select(lib, prep, 38)
+        return
+    if launch.startswith("k4"):
+        lib = ctypes.CDLL(os.path.join(out_dir, "libmatern_nu_coeffs_tsan.so"))
+        coeffs_run(lib, torch.tensor([1.2], dtype=torch.float64), True,
+                   tangent=True)
+        return
+    if launch.startswith("k1b"):
+        lib = ctypes.CDLL(os.path.join(out_dir, "libfused_predict_tsan.so"))
+        nu = "gen" if launch.endswith("gen") else 1.5
+        k1b_run(lib, 1, *k1b_inputs(30, 2, 9, torch.float32, nu=nu), nu, 1)
         return
     if launch.startswith("k1"):
         lib = ctypes.CDLL(os.path.join(out_dir, "libfused_predict_tsan.so"))
@@ -485,3 +503,79 @@ def k1_run(lib, design, nf, q, y, params, noise_nn, gen, nu, power):
             n, d, r, B, code, power, serve_tail_terms(nf.dtype), design, None)
     assert rc == 0, f"K1 launcher refused: {rc}"
     return mean, var
+
+
+def k1b_inputs(n, r, B, dtype, nu=1.5, power=1, seed=0, symmetric=True,
+               noise=1e-3):
+    """K1b inputs ``(pw, cw, y, params, gen)`` on the CPU: distances of
+    uniform points (F2 with ``power=2``); ``symmetric=False`` scales the
+    upper triangle of ``pw`` by up to 10%, the lower one kept."""
+    from muygpys_torch.gpu.matern_nu import matern_nu_coeffs_host
+
+    g = torch.Generator().manual_seed(seed)
+    f64 = dict(dtype=torch.float64, generator=g)
+    pts = torch.rand((n, 2, B), **f64)
+    q = torch.rand((2, B), **f64)
+    pw = ((pts[:, None] - pts[None]) ** 2).sum(2)
+    cw = ((pts - q[None]) ** 2).sum(1)
+    if power == 1:
+        pw, cw = pw.sqrt(), cw.sqrt()
+    if not symmetric:
+        upper = torch.triu(torch.ones((n, n), dtype=torch.float64), 1)
+        pw = pw * (1.0 + 0.1 * upper[:, :, None] * torch.rand((n, n, B), **f64))
+    y = torch.randn((n, r, B), **f64)
+    params = torch.tensor([0.6, noise], dtype=dtype)
+    np_dtype = np.float64 if dtype == torch.float64 else np.float32
+    gen = (torch.as_tensor(matern_nu_coeffs_host(1.2, np_dtype))
+           if nu == "gen" else None)
+    return (*(t.to(dtype).contiguous() for t in (pw, cw, y)), params, gen)
+
+
+def k1b_run(lib, design, pw, cw, y, params, gen, nu, power):
+    """One K1b launch of ``design`` (1 registers, 0 shared memory)."""
+    from muygpys_torch.gpu import matern_nu as _nu
+    from muygpys_torch.gpu.fused_predict import serve_tail_terms
+
+    n, r, B = y.shape
+    code = _nu.check_smoothness("k1b", nu, gen, power, _nu._LEN_VAL)
+    gen = None if gen is None else gen[:_nu._LEN_VAL].contiguous()
+    mean = torch.full((r, B), math.nan, dtype=pw.dtype)
+    var = torch.full((B,), math.nan, dtype=pw.dtype)
+    fn = (lib.fused_predict_f32 if pw.dtype == torch.float32
+          else lib.fused_predict_f64)
+    fn.argtypes = [P] * 7 + [ctypes.c_int] * 7 + [P]
+    rc = fn(*(ptr(t) for t in (pw, cw, y, params, gen, mean, var)),
+            n, r, B, code, power, serve_tail_terms(pw.dtype), design, None)
+    assert rc == 0, f"K1b launcher refused: {rc}"
+    return mean, var
+
+
+def coeffs_run(lib, nu, need_dnu, tangent=False):
+    """One launch of K4's constructor on a one-element CPU ``nu``: the
+    vector and, with ``tangent``, d vector / d nu of its first _LEN_DT
+    entries."""
+    from muygpys_torch.gpu import matern_nu as _nu
+
+    dtype = nu.dtype
+    consts = _nu._kernel_constants(dtype, nu.device)
+    assert lib.matern_nu_coeffs_constants_length() == consts.numel()
+    out = torch.full((_nu._LEN_DNU if need_dnu else _nu._LEN_DT,), math.nan,
+                     dtype=dtype)
+    dout = (torch.full((_nu._LEN_DT,), math.nan, dtype=dtype) if tangent
+            else None)
+    fn = (lib.matern_nu_coeffs_f32 if dtype == torch.float32
+          else lib.matern_nu_coeffs_f64)
+    fn.argtypes = [P] * 4 + [ctypes.c_int, P]
+    rc = fn(ptr(nu), ptr(consts), ptr(out), ptr(dout), int(need_dnu), None)
+    assert rc == 0, f"K4 constructor refused: {rc}"
+    return out, dout
+
+
+def digamma_run(lib, x):
+    """The constructor's device digamma, elementwise over a CPU tensor."""
+    out = torch.full_like(x, math.nan)
+    fn = (lib.matern_nu_digamma_f32 if x.dtype == torch.float32
+          else lib.matern_nu_digamma_f64)
+    fn.argtypes = [P, P, ctypes.c_int, P]
+    assert fn(ptr(x), ptr(out), x.numel(), None) == 0
+    return out

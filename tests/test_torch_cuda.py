@@ -14,6 +14,7 @@ import torch
 
 from muygpys_torch.gpu import _build
 from muygpys_torch.gpu import knn as K
+from muygpys_torch.gpu import matern_nu as tm
 from muygpys_torch.gpu.fused_predict import (
     fused_predict_bl,
     fused_predict_bl_plain,
@@ -563,6 +564,114 @@ def test_free_nu_objective_builds_its_coefficients_on_the_card(monkeypatch):
         assert value.device.type == dev
         got[dev] = [float(value)] + [float(grads[k]) for k in names]
     np.testing.assert_allclose(got["cuda"], got["cpu"], rtol=1e-7)
+
+
+# -- K4's constructor: the coefficient vector in one launch -----------------
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("need_dnu", [False, True])
+@pytest.mark.parametrize("nu", tm.COEFFS_CHECK_NUS)
+def test_k4_constructor_kernel_matches_plain(nu, need_dnu, dtype):
+    """matern_nu_coeffs on a CUDA nu is one launch of the constructor
+    kernel and gives the plain version's vector on the same card."""
+    _need_card()
+    t = torch.tensor(nu, dtype=dtype, device="cuda")
+    before = _build.launches["matern_nu_coeffs"]
+    got = tm.matern_nu_coeffs(t, need_dnu)
+    torch.cuda.synchronize()
+    assert _build.launches["matern_nu_coeffs"] == before + 1
+    want = tm.matern_nu_coeffs_plain(t, need_dnu)
+    assert got.dtype == dtype and got.device == t.device
+    assert got.shape == want.shape and torch.isfinite(got).all()
+    err = (got - want).abs().double().cpu().numpy()
+    limits = tm.coeffs_limits(want, tm.COEFFS_CHECK_RTOL[dtype])
+    assert (err <= limits).all(), float((err / limits).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_k4_constructor_is_differentiable_on_the_card(dtype):
+    """Reverse mode through the kernel's vector (the tangent the same
+    launch writes) matches reverse mode through the plain version."""
+    _need_card()
+    t = torch.tensor([0.7, 3.0], dtype=dtype, device="cuda")
+    grads = {}
+    for build in (tm.matern_nu_coeffs, tm.matern_nu_coeffs_plain):
+        nu = torch.tensor(1.7, dtype=dtype, device="cuda", requires_grad=True)
+        tm.matern_nu_eval(t, build(nu)).sum().backward()
+        grads[build.__name__] = float(nu.grad)
+    rtol = 1e-9 if dtype == torch.float64 else 1e-3
+    assert grads["matern_nu_coeffs"] == pytest.approx(
+        grads["matern_nu_coeffs_plain"], rel=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_k4_digamma_kernel_matches_torch(dtype):
+    """The constructor's device digamma against torch.special.digamma on
+    the card."""
+    _need_card()
+    import ctypes
+
+    x = torch.cat([torch.linspace(0.01, 30.0, 997, dtype=torch.float64),
+                   torch.tensor([1.0, 9.999, 10.0, 10.001, 1e3, 1e6, -0.5,
+                                 -2.25, -7.9], dtype=torch.float64)])
+    x = x.to(dtype).cuda()
+    out = torch.full_like(x, math.nan)
+    suffix = "f32" if dtype == torch.float32 else "f64"
+    fn = _build.function("matern_nu_coeffs", f"matern_nu_digamma_{suffix}",
+                         [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    _build.check(fn(_build.ptr(x), _build.ptr(out), x.numel(),
+                    _build.stream(x.device)), "matern_nu_coeffs", "digamma")
+    rtol = {torch.float64: 1e-14, torch.float32: 4e-6}[dtype]
+    torch.testing.assert_close(out, torch.special.digamma(x), rtol=rtol,
+                               atol=rtol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("smoothness", [1.5, "gen"])
+def test_k1b_both_designs_read_both_triangles_and_registers_refuse_n33(
+        smoothness, dtype):
+    """Both K1b designs against the plain version on a pw whose upper
+    triangle differs from its lower one; the register design refuses
+    n = 33 (the launcher then takes shared memory)."""
+    _need_card()
+    from muygpys_torch.gpu import fused_predict as F
+    from muygpys_torch.gpu import matern_nu as _nu
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    opts = dict(dtype=torch.float64, device="cuda", generator=g)
+    co = _gen_coeffs(1.2, dtype) if smoothness == "gen" else None
+    for n in (30, 33):
+        B = 1001
+        pts = torch.rand((n, 2, B), **opts)
+        q = torch.rand((2, B), **opts)
+        pw = ((pts[:, None] - pts[None, :]) ** 2).sum(2).sqrt()
+        upper = torch.triu(torch.ones((n, n), **{k: opts[k] for k in
+                                                 ("dtype", "device")}), 1)
+        pw = pw * (1.0 + 0.1 * upper[:, :, None] * torch.rand((n, n, B), **opts))
+        cw = ((pts - q[None]) ** 2).sum(1).sqrt()
+        y = torch.randn((n, 1, B), **opts)
+        args = [t.to(dtype).contiguous() for t in (pw, cw, y)]
+        params = torch.tensor([0.6, 0.1], dtype=dtype, device="cuda")
+        code = _nu.check_smoothness("k1b", smoothness, co, 1, _nu._LEN_VAL)
+        gen = None if co is None else co[:_nu._LEN_VAL].contiguous()
+        mp, vp = F.fused_predict_bl_plain(*args, params, gen_coeffs=co,
+                                          smoothness=smoothness)
+        tol_m, tol_v = K1_TOL[dtype]
+        for design in ("registers", "shared"):
+            if n == 33 and design == "registers":
+                with pytest.raises(RuntimeError, match="launch failed"):
+                    F._launch_dists(*args, params, gen, code, 1, smoothness,
+                                    design=design)
+                continue
+            before = _build.launches[f"fused_predict/{design}"]
+            m, v = F._launch_dists(*args, params, gen, code, 1, smoothness,
+                                   design=design)
+            torch.cuda.synchronize()
+            assert _build.launches[f"fused_predict/{design}"] == before + 1
+            torch.testing.assert_close(m, mp, rtol=0, atol=tol_m)
+            torch.testing.assert_close(v, vp, rtol=0, atol=tol_v)
+        assert F.k1_design(n, 1, dtype, smoothness) == (
+            "registers" if n <= 32 else "shared")
 
 
 # -- K5: the fused multi-output block solve ----------------------------------

@@ -1,8 +1,9 @@
-"""The hand-written CUDA sources (K1, K2, K3 and K5), run on the CPU one
+"""The hand-written CUDA sources (K1, K1b, K2, K3 and K5), run on the CPU one
 thread per CUDA thread (``_cuda_emulation``), against their plain PyTorch
-versions; and one launch of each new design under ThreadSanitizer, which
-fails on a missing barrier.  Skipped where ``g++`` lacks C++20
-``<barrier>``."""
+versions (K4's constructor in test_torch_cuda_emulation_k4.py); and one
+launch of each new design, K4's constructor included, under
+ThreadSanitizer, which fails on a missing barrier.  Skipped where ``g++``
+lacks C++20 ``<barrier>``."""
 
 import math
 
@@ -63,7 +64,8 @@ def k1_lib(out_dir):
 def tsan_dir(out_dir):
     if not emu.tsan_runtime():
         pytest.skip("g++ has no ThreadSanitizer runtime")
-    for name in ("fused_train", "multiout_solve", "knn", "fused_predict"):
+    for name in ("fused_train", "multiout_solve", "knn", "fused_predict",
+                 "matern_nu_coeffs"):
         emu.build(name, out_dir, tsan=True)
     return out_dir
 
@@ -208,6 +210,58 @@ def test_k1_source_matches_plain(k1_lib, case, dtype):
     for design in designs:
         m, v = emu.k1_run(k1_lib, design, *ins, nu, power)
         assert torch.isfinite(m).all() and torch.isfinite(v).all()
+        assert float((m - mp).abs().max()) <= tol_m, design
+        assert float((v - vp).abs().max()) <= tol_v, design
+
+
+#: K1b cases: every closed form, RBF on F2 and "gen", at n = 1, 8 and 30
+K1B_SMOOTHNESS = [(0.5, 1), (1.5, 1), (2.5, 1), (math.inf, 1), ("rbf", 2),
+                  ("gen", 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("r", [1, 2])
+@pytest.mark.parametrize("n", [1, 8, 30])
+@pytest.mark.parametrize("nu,power", K1B_SMOOTHNESS,
+                         ids=[f"{nu}-p{p}" for nu, p in K1B_SMOOTHNESS])
+def test_k1b_source_matches_plain(k1_lib, nu, power, n, r, dtype):
+    """Both K1b designs (registers, the launcher's pick at these shapes,
+    and the kept shared-memory design) against fused_predict_bl_plain."""
+    from muygpys_torch.gpu.fused_predict import fused_predict_bl_plain, k1_design
+
+    assert k1_design(n, r, dtype, nu) == "registers"
+    ins = emu.k1b_inputs(n, r, 11, dtype, nu=nu, power=power, seed=n + r)
+    mp, vp = fused_predict_bl_plain(*ins, smoothness=nu, metric_power=power)
+    tol_m, tol_v = K1_LIMIT[dtype]
+    for design in (1, 0):
+        m, v = emu.k1b_run(k1_lib, design, *ins, nu, power)
+        assert torch.isfinite(m).all() and torch.isfinite(v).all()
+        assert float((m - mp).abs().max()) <= tol_m, design
+        assert float((v - vp).abs().max()) <= tol_v, design
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32],
+                         ids=["f64", "f32"])
+@pytest.mark.parametrize("nu", [1.5, "gen"])
+def test_k1b_source_reads_both_triangles(k1_lib, nu, dtype):
+    """On a pw whose two triangles differ, both designs give the plain
+    version's result (which reads the pivot row from the upper triangle and
+    the column below it from the lower), not the mirrored one's."""
+    from muygpys_torch.gpu.fused_predict import fused_predict_bl_plain
+
+    ins = emu.k1b_inputs(30, 2, 11, dtype, nu=nu, symmetric=False, noise=0.1)
+    pw = ins[0]
+    mp, vp = fused_predict_bl_plain(*ins, smoothness=nu)
+    # the lower triangle mirrored: the symmetric distances before the upper
+    # triangle was scaled
+    lower = torch.tril(pw.permute(2, 0, 1)).permute(1, 2, 0)
+    mirrored = lower + torch.tril(pw.permute(2, 0, 1), -1).permute(2, 1, 0)
+    ms, vs = fused_predict_bl_plain(mirrored, *ins[1:], smoothness=nu)
+    tol_m, tol_v = K1_LIMIT[dtype]
+    assert float((ms - mp).abs().max()) > 4 * tol_m
+    for design in (1, 0):
+        m, v = emu.k1b_run(k1_lib, design, *ins, nu, 1)
         assert float((m - mp).abs().max()) <= tol_m, design
         assert float((v - vp).abs().max()) <= tol_v, design
 

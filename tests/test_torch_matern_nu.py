@@ -31,11 +31,8 @@ def assert_coeffs_close(got, want, rtol):
     thirty orders of magnitude, and a set's small members are sums of its
     large ones (1e-14 absolute covers a set that is zero up to rounding: the
     tail fit at nu = 1/2)."""
-    L = tm
-    cuts = [0, L._N_SCAL, L._OFF_B, L._OFF_C, L._LEN_VAL, L._OFF_BP, L._OFF_CP,
-            L._LEN_DT, L._OFF_DB, L._OFF_DC, L._LEN_DNU]
     assert got.shape == want.shape
-    for lo, hi in zip(cuts, cuts[1:]):
+    for lo, hi in tm.COEFF_SETS.values():
         if lo >= got.size:
             break
         scale = np.abs(want[lo:hi]).max()

@@ -137,7 +137,7 @@ def test_sources_are_present():
 
 
 def test_launch_counters_reset():
-    """One count per kernel, and one per design of K1, K2, K3 and K5;
+    """One count per kernel, and one per design of K1, K1b, K2, K3 and K5;
     ``count`` adds one to each name it is given, and a reset zeroes them
     all."""
     before = _build.launches["knn_candidates"]
@@ -146,11 +146,13 @@ def test_launch_counters_reset():
     _build.reset_launches()
     assert set(_build.launches) == {
         "fused_predict_coords", "fused_predict_coords/registers",
-        "fused_predict_coords/shared", "fused_predict", "knn_candidates",
+        "fused_predict_coords/shared", "fused_predict",
+        "fused_predict/registers", "fused_predict/shared", "knn_candidates",
         "knn_candidates_pruned", "knn_candidates/fused", "knn_candidates/keys",
         "fused_train_stats",
         "fused_train_stats/registers", "fused_train_stats/shared",
         "multiout_solve", "multiout_solve/registers", "multiout_solve/shared",
+        "matern_nu_coeffs",
     }
     assert all(v == 0 for v in _build.launches.values())
 
@@ -165,7 +167,8 @@ def test_every_kernel_source_is_built_and_counted():
     """One library per hand-written source, one launch counter per
     ``__global__`` entry a wrapper launches."""
     assert _build.SOURCES == (
-        "fused_predict", "knn", "fused_train", "multiout_solve"
+        "fused_predict", "knn", "fused_train", "multiout_solve",
+        "matern_nu_coeffs",
     )
     on_disk = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
     assert on_disk == sorted(_build.SOURCES)
@@ -176,6 +179,12 @@ def test_every_kernel_source_is_built_and_counted():
     # no library stands in for the elimination
     for library in ("cusolver", "cublas", "cutlass"):
         assert library not in text.lower()
+    # K4's constructor: one kernel in both dtypes, built without contraction
+    text = (_build.CSRC / "matern_nu_coeffs.cu").read_text()
+    assert "__global__" in text
+    for symbol in ("matern_nu_coeffs_f32", "matern_nu_coeffs_f64"):
+        assert f"int {symbol}(" in text
+    assert "-fmad=false" in _build.EXTRA_FLAGS["matern_nu_coeffs"]
 
 
 @pytest.mark.parametrize(
