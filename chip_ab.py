@@ -27,6 +27,15 @@ its checkout's kernels, sets up the chip_smoke.py headlines and measures,
   of ``Fused_L_BFGS_B_optimize`` capped at ``FREE_NU_ITERATIONS`` L-BFGS
   iterations, ``FREE_NU_REPS`` times after a warm-up (an evaluation that
   builds its coefficient vector from plain tensor code takes ~0.8 s).
+- where the checkout has the device chassis (``Fused_Device_LBFGS_optimize``,
+  whole L-BFGS trajectories replayed as CUDA graphs): the same two training
+  headlines through it (``engine="kernel"``), objective evaluations per
+  second over each call's host-clock time, its capture included, the
+  free-smoothness one capped at the same ``FREE_NU_ITERATIONS``.
+
+A checkout whose ``FastServer`` captures its buckets serves through the
+captured graphs; an older one serves eagerly: the serving rates compare
+the two as a user meets them.
 
 Both sides use this checkout's chip_smoke.py for the data and the models,
 and only the public API of the checkout under test.  Prints the card's name
@@ -82,6 +91,20 @@ def train_rate(torch, model, bt, bnt, cw, pw, **kw):
     return (1 + int(re.search(r"\bnfev:\s*(\d+)", report.getvalue())[1])) / seconds
 
 
+def device_rate(torch, model, bt, bnt, cw, pw, **kw):
+    """Objective evaluations per second of one Fused_Device_LBFGS_optimize
+    run through K2, over its host-clock time (capture included)."""
+    from muygpys_torch.optimize import Fused_Device_LBFGS_optimize
+
+    info = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    Fused_Device_LBFGS_optimize(model, bt, bnt, cw, pw, engine="kernel",
+                                info=info, **kw)
+    torch.cuda.synchronize()
+    return info["evaluations"] / (time.perf_counter() - t0)
+
+
 def probe(root: str, reps: int) -> dict:
     """Measure the four rates with the muygpys_torch of ``root``."""
     sys.path.insert(0, root)
@@ -98,6 +121,7 @@ def probe(root: str, reps: int) -> dict:
     from muygpys_torch.serve import FastServer
 
     import muygpys_torch
+    import muygpys_torch.optimize
 
     assert os.path.realpath(os.path.dirname(os.path.dirname(
         muygpys_torch.__file__))) == os.path.realpath(root)
@@ -124,6 +148,9 @@ def probe(root: str, reps: int) -> dict:
     # the first optimization of each model is a warm-up
     train_rates = [train_rate(torch, cs.train_model(), bt, bnt, cw, pw)
                    for _ in range(reps + 1)]
+    device = hasattr(muygpys_torch.optimize, "Fused_Device_LBFGS_optimize")
+    device_rates = [device_rate(torch, cs.train_model(), bt, bnt, cw, pw)
+                    for _ in range(reps + 1)] if device else [None]
     cw, pw, bt, bnt = cs.free_nu_model().make_train_tensors(bi, bnn, train_d,
                                                             y_d)
     make_fused_train_objective(cs.free_nu_model(), bt, bnt, cw, pw)[0]({})
@@ -132,6 +159,11 @@ def probe(root: str, reps: int) -> dict:
                    options=dict(maxiter=FREE_NU_ITERATIONS))
         for _ in range(FREE_NU_REPS + 1)
     ]
+    device_free_rates = [
+        device_rate(torch, cs.free_nu_model(), bt, bnt, cw, pw,
+                    maxiter=FREE_NU_ITERATIONS)
+        for _ in range(FREE_NU_REPS + 1)
+    ] if device else [None]
 
     from muygpys_torch.convert import muygps_from_arrays
 
@@ -161,7 +193,18 @@ def probe(root: str, reps: int) -> dict:
         shear_median=statistics.median(shear_rates),
         free_nu_evals_per_s=free_rates[1:],
         free_nu_median=statistics.median(free_rates[1:]),
+        device_train_evals_per_s=device_rates[1:],
+        device_train_median=(statistics.median(device_rates[1:])
+                             if device else None),
+        device_free_nu_evals_per_s=device_free_rates[1:],
+        device_free_nu_median=(statistics.median(device_free_rates[1:])
+                               if device else None),
     )
+
+
+def _median_or_none(values):
+    values = [v for v in values if v is not None]
+    return statistics.median(values) if values else None
 
 
 def main() -> int:
@@ -212,6 +255,13 @@ def main() -> int:
             free_nu_evals_per_s=statistics.median(
                 r["free_nu_median"] for r in runs),
             free_nu_by_process=[r["free_nu_median"] for r in runs],
+            device_train_evals_per_s=_median_or_none(
+                r["device_train_median"] for r in runs),
+            device_train_by_process=[r["device_train_median"] for r in runs],
+            device_free_nu_evals_per_s=_median_or_none(
+                r["device_free_nu_median"] for r in runs),
+            device_free_nu_by_process=[r["device_free_nu_median"]
+                                       for r in runs],
         ) for side, runs in results.items()
     }))
     return 0

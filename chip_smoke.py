@@ -31,9 +31,14 @@ Phases (any failure raises and the script exits non-zero):
    not a multiple of the bucket; the same with engine="kernel" over an
    exact NN_Wrapper; both held against the f64 reference engine on the same
    exact neighbours (mean and variance each against its own limit); the
-   fused requests launch only the new designs of K3 and K1; a
-   torch.profiler trace of the fused requests gives device time by kernel
-   and the idle share; NN_Wrapper(nn_method="kernel") against the exact
+   fused requests launch only the new designs of K3 and K1; on the card
+   each server captures its bucket in a CUDA graph at the first request:
+   for both engines every request's captured outputs are held bit for bit
+   to the eager core on the same padded inputs, with the same launches of
+   each design, predictions/s are taken both ways alternated (captured,
+   eager, eager, captured), and torch.profiler traces of the requests both
+   ways give device time by kernel, the idle share and the device
+   activities a bucket; NN_Wrapper(nn_method="kernel") against the exact
    index on the first request;
 6. K2 (fused LOO statistics and analytic derivatives) against its plain
    version at the training shape (n=30, B=2048) on real neighbourhoods of
@@ -49,7 +54,15 @@ Phases (any failure raises and the script exits non-zero):
    NN_Wrapper -> sample_batch -> make_train_tensors ->
    Fused_L_BFGS_B_optimize(engine="kernel") -> optimize_scale, held against
    the same chassis on the CPU in f64 (K2's plain version); a profiler
-   trace of K2 objective evaluations;
+   trace of K2 objective evaluations; then the same headline on the device
+   chassis (Fused_Device_LBFGS_optimize(engine="kernel"), f32: one eager
+   warm-up step, then replays from the start of a captured graph of
+   STEPS_PER_REPLAY steps, the done flag read once per replay), held to the
+   same gates against the CPU f64 optimum, with its iterations,
+   evaluations, replays, capture ms, wall ms, evaluations/s (a first run
+   and a replay-only run) and a trace's idle share; make_device_trainer on
+   two LOO batches (one capture; the second batch held to the f64 fused
+   chassis on the card);
 8. serving the trained model: FastServer(engine="fused") against the f64
    reference engine with the same model;
 9. general smoothness, K4 (the traced-nu surrogate, csrc/matern_nu.cuh)
@@ -86,7 +99,9 @@ Phases (any failure raises and the script exits non-zero):
    the exact f64 objective; one constructor launch per evaluation (the
    launch counts and a trace of two evaluations); where the time of one
    evaluation goes (coefficient constructor, K2, epilogue, the device's
-   idle share); the trained model served;
+   idle share); the trained model served; the same headline on the
+   device chassis (one constructor launch per K2 launch), its exact f64
+   objective held to the lanes engine's;
 13. K5 (the fused multi-output block solve of the lensing shear family)
    against its plain version on real shear blocks at the shear serving
    shape (B=2048, nn=30: m=90 for the 3-in/3-out kernel, m=60 for
@@ -102,8 +117,9 @@ Phases (any failure raises and the script exits non-zero):
    2/ls^4, nn=30, f32), FastServer(engine="kernel", bucket=2048) over an
    exact NN_Wrapper answers three requests (2048, 2048, 1000); mean
    (count, 3) and covariance (count, 3, 3) held against the lanes engine in
-   f64 on the same neighbours; one request of ShearKernel2in3out; a
-   profiler trace of the three requests;
+   f64 on the same neighbours; the captured bucket against the eager core
+   (bit for bit, the same launches), alternated rates and traces, as in
+   phase 5; one request of ShearKernel2in3out;
 15. shear training, then serving the trained model: a LOO batch of 2048,
    Fused_L_BFGS_B_optimize(loss="mse") with the length scale free, on the
    card in f32, held against the same chassis on the CPU in f64; one lool
@@ -114,6 +130,7 @@ Phases (any failure raises and the script exits non-zero):
    times (for K1, K1b and K3 also the kept design's) and bound; for K2 and
    K5 each design's launches over the run (both must have run) and
    registers; K4's constructor with its launches on the free-nu path;
+   each kernel's paths that ran it inside a captured graph (in_graph);
 17. the last line: {"ok": true, "device": {...}}.
 
 Kernel times are CUDA-event medians over back-to-back launches (time_ms);
@@ -135,6 +152,10 @@ import time
 
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
+# the launch-count paths whose kernels run inside a captured CUDA graph: the
+# serving buckets (FastServer on a card) and the device chassis
+CAPTURED_PATHS = ("fused", "kernel", "fused_gen", "shear", "device_train",
+                  "device_train_gen")
 
 TRAIN, QUERIES, D, NN = 50_000, 8192, 2, 30
 LS, NOISE, NU = 0.5, 1e-3, 1.5
@@ -1733,6 +1754,21 @@ def phase_train(torch, train, y_train, nbrs, bi, bnn):
         F32_PARAM_RTOL["length_scale"]
     )
 
+    def judge(label, got):
+        """Phase 7's gates on another optimizer's f32 optimum: its f64
+        objective and its parameters against the CPU f64 optimum."""
+        v_got = f64_objective(got)
+        rel_got = abs(v_got - v_cpu) / abs(v_cpu)
+        params = {k: abs(got[k] / ref_vals[k] - 1) for k in F32_PARAM_RTOL}
+        log(f"{label}: f64 objective {v_got!r} against the CPU f64 "
+            f"optimum's {v_cpu!r}: relative {rel_got:.3e} (limit "
+            f"{OBJECTIVE_RTOL:.0e}); parameters relative {json.dumps(params)} "
+            f"(limits {json.dumps(F32_PARAM_RTOL)})")
+        assert rel_got <= OBJECTIVE_RTOL, f"{label} is not at the f64 optimum"
+        for key, limit in F32_PARAM_RTOL.items():
+            assert params[key] <= limit, f"{label} {key} is off the optimum"
+        return dict(objective_relative=rel_got, parameters_relative=params)
+
     # where the time of a K2 objective evaluation goes
     obj32, names = make_fused_train_objective(trained, bt, bnt, cw, pw)
     point = {n: vals[n] for n in names}
@@ -1752,7 +1788,7 @@ def phase_train(torch, train, y_train, nbrs, bi, bnn):
         card_f64=dict(length_scale=card64["length_scale"],
                       noise=card64["noise"]),
         parameters_relative=param_rel,
-        launches=launches, trace=trace,
+        launches=launches, trace=trace, judge=judge,
     )
 
 
@@ -1959,6 +1995,7 @@ def phase_train_free_nu(torch, train, y_train, bi, bnn, k2_gen_ms):
                            build_card_device=build_device_ms, k2=k2_gen_ms,
                            epilogue=epilogue_ms),
         launches=launches, trace=trace,
+        reference=(exact, v_lanes, v_start),
     )
 
 
@@ -2396,6 +2433,236 @@ def phase_shear_train(torch, pts, targets, nbrs):
     )
 
 
+def captured_vs_eager(torch, label, server, requests):
+    """A served bucket replays the graph the server captured at its first
+    bucket (FastServer on a card).  Request by request (each one bucket):
+    the captured outputs against the eager core's on the same padded
+    inputs, bit for bit, and the launches of each kernel design, which
+    must be the same.  Then predictions/s of both, alternated (captured,
+    eager, eager, captured), and a profiler trace of each."""
+    import statistics
+
+    import numpy as np
+
+    from muygpys_torch.gpu import _build
+
+    assert server._capture and server._captured is not None, (
+        f"{label}: the server did not capture its bucket"
+    )
+    for req in requests:
+        assert len(req) <= server.bucket
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        got = server.predict(req)
+        captured = dict(_build.launches)
+        _build.reset_launches()
+        eager = [t.cpu().numpy() for t in server._core(*server._captured.inputs)]
+        eager_launches = dict(_build.launches)
+        for g, e in zip(got, eager):
+            assert np.array_equal(g, e[:len(req)]), (
+                f"{label}: the captured bucket differs from the eager core"
+            )
+        assert captured == eager_launches, (
+            f"{label}: launches differ: captured {captured}, eager "
+            f"{eager_launches}"
+        )
+    rates = {"captured": [], "eager": []}
+    for mode in ("captured", "eager", "eager", "captured"):
+        server._capture = mode == "captured"
+        rates[mode].append(serve(torch, server, requests)[2])
+    traces = {}
+    for mode in ("captured", "eager"):
+        server._capture = mode == "captured"
+        traces[mode] = device_trace(
+            torch, lambda: [server.predict(r) for r in requests]
+        )
+        traces[mode]["device_activities_per_bucket"] = (
+            traces[mode]["device_activities"] / len(requests)
+        )
+    server._capture = True
+    out = dict(
+        captured_preds_per_s=statistics.median(rates["captured"]),
+        eager_preds_per_s=statistics.median(rates["eager"]),
+        rates=rates, launches_per_request=captured,
+        capture_ms=server._captured.capture_ms,
+        trace=traces["captured"], eager_trace=traces["eager"],
+    )
+    log(f"{label}: captured buckets bit-equal to the eager core on "
+        f"{len(requests)} requests, the same launches ({captured}); "
+        f"predictions/s captured {rates['captured']}, eager "
+        f"{rates['eager']} (alternated); capture "
+        f"{out['capture_ms']:.1f} ms; device trace captured "
+        f"{json.dumps(traces['captured'])}; eager "
+        f"{json.dumps(traces['eager'])}")
+    return out
+
+
+def device_train_run(torch, label, model_fn, data32):
+    """The device chassis on the card in f32 through K2:
+    Fused_Device_LBFGS_optimize(engine="kernel") (counts zeroed just
+    before, read just after: a warm-up step, a capture, replays); then the
+    same trajectory built again and run twice, the second run replaying
+    its graph (the steady rate), and a profiler trace of a third.  Returns
+    (the trained model's values, the run's numbers)."""
+    from muygpys_torch.convert import arrays_from_muygps
+    from muygpys_torch.gpu import _build
+    from muygpys_torch.optimize import Fused_Device_LBFGS_optimize
+    from muygpys_torch.optimize.device_chassis import (
+        STEPS_PER_REPLAY,
+        _fused_trajectory,
+    )
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    info = {}
+    trained = Fused_Device_LBFGS_optimize(model_fn(), *data32,
+                                          engine="kernel", info=info)
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    # the eager warm-up step, then every step of every replay
+    steps = info["replays"] * STEPS_PER_REPLAY
+    assert launches["fused_train_stats"] == 1 + steps, (
+        f"{label}: K2 did not run once per captured step: {launches}, "
+        f"{info}"
+    )
+    run, _, _, z0 = _fused_trajectory(model_fn(), *data32)
+    run.run(z0)
+    steady = run.run(z0)
+    assert steady["capture_ms"] == 0.0 and run.captures == 1
+    assert steady["evaluations"] == info["evaluations"]
+    trace = device_trace(torch, lambda: run.run(z0))
+    numbers = dict(
+        iterations=info["iterations"], evaluations=info["evaluations"],
+        replays=info["replays"], steps_per_replay=STEPS_PER_REPLAY,
+        steps=steps, capture_ms=info["capture_ms"], wall_ms=info["wall_ms"],
+        evaluations_per_s=info["evaluations"] / (info["wall_ms"] / 1e3),
+        steady_wall_ms=steady["wall_ms"],
+        steady_evaluations_per_s=(
+            steady["evaluations"] / (steady["wall_ms"] / 1e3)
+        ),
+        device_us_per_step=(
+            (trace["device_busy_us"] or 0.0)
+            / (steady["replays"] * STEPS_PER_REPLAY)
+        ),
+        trace=trace, launches=launches,
+    )
+    log(f"{label} (device chassis, card, f32, K2): "
+        f"{info['iterations']} L-BFGS iterations, {info['evaluations']} "
+        f"evaluations, {info['replays']} replays of {STEPS_PER_REPLAY} "
+        f"steps (= host reads of done), capture {info['capture_ms']:.1f} ms, "
+        f"run {info['wall_ms']:.2f} ms = "
+        f"{numbers['evaluations_per_s']:.1f} evaluations/s; replayed again "
+        f"{steady['wall_ms']:.2f} ms = "
+        f"{numbers['steady_evaluations_per_s']:.1f} evaluations/s; device "
+        f"{numbers['device_us_per_step']:.1f} us a step; trace "
+        f"{json.dumps(trace)}; launches {launches}")
+    return arrays_from_muygps(trained), numbers
+
+
+def inside_bounds(vals, bounds):
+    for key, (lo, hi) in bounds.items():
+        assert min(vals[key] - lo, hi - vals[key]) > 1e-6 * (hi - lo), (
+            f"trained {key} {vals[key]} ran to a bound"
+        )
+
+
+def phase_device_train(torch, data32, judge):
+    """(b) The training headline on the device chassis, held to the CPU
+    f64 optimum by ``judge`` (phase 7's gates)."""
+    vals, numbers = device_train_run(torch, "device train", train_model,
+                                     data32)
+    inside_bounds(vals, {"length_scale": LS_BOUNDS, "noise": NOISE_BOUNDS})
+    numbers.update(judge("device train", vals), length_scale=vals[
+        "length_scale"], noise=vals["noise"])
+    return numbers
+
+
+def phase_device_train_free_nu(torch, data32, exact, v_lanes, v_start):
+    """(b) The free-smoothness headline on the device chassis: one
+    constructor launch per K2 launch, and the exact f64 objective at its
+    optimum held to the lanes engine's (phase 12's gate)."""
+    vals, numbers = device_train_run(torch, "device train free nu",
+                                     free_nu_model, data32)
+    launches = numbers["launches"]
+    assert launches["matern_nu_coeffs"] == launches["fused_train_stats"], (
+        f"not one constructor launch per K2 launch: {launches}"
+    )
+    inside_bounds(vals, {"length_scale": LS_BOUNDS, "noise": NOISE_BOUNDS,
+                         "smoothness": NU_BOUNDS})
+    v_dev = exact(vals)
+    short = (v_lanes - v_dev) / abs(v_lanes)
+    log(f"device train free nu: length_scale {vals['length_scale']!r}, "
+        f"noise {vals['noise']!r}, smoothness {vals['smoothness']!r}; exact "
+        f"f64 objective {v_dev!r} against the lanes optimum's {v_lanes!r}: "
+        f"short by {short:.3e} relative (limit {GEN_OBJECTIVE_RTOL:.0e})")
+    assert v_dev > v_start, "training did not improve the exact objective"
+    assert short <= GEN_OBJECTIVE_RTOL, (
+        "the device chassis' optimum is worse than the lanes engine's"
+    )
+    numbers.update(vals, objective_f64=dict(card=v_dev, lanes=v_lanes,
+                                            short=short))
+    return numbers
+
+
+def phase_device_trainer(torch, data32, batch2_32, judge):
+    """(c) make_device_trainer (the batched-layout objective under
+    autograd, f32) on two LOO batches of the headline: one capture for
+    both; the first batch held to phase 7's gates, the second to the same
+    gates against the f64 fused chassis on the card on that batch."""
+    from muygpys_torch.convert import arrays_from_muygps
+    from muygpys_torch.optimize import (
+        Fused_L_BFGS_B_optimize,
+        make_device_trainer,
+    )
+    from muygpys_torch.optimize.fused_objective import (
+        make_fused_train_objective,
+    )
+
+    trainer = make_device_trainer(train_model())
+    m1, info1 = trainer(*data32)
+    m2, info2 = trainer(*batch2_32, z_init=info1["z"])
+    assert trainer.captures() == 1 and trainer.cache_size() == 1, (
+        "the second batch was captured anew"
+    )
+    assert info2["capture_ms"] == 0.0
+    v1, v2 = arrays_from_muygps(m1), arrays_from_muygps(m2)
+    for vals in (v1, v2):
+        inside_bounds(vals, {"length_scale": LS_BOUNDS,
+                             "noise": NOISE_BOUNDS})
+    first = judge("device trainer, batch 1", v1)
+    data64 = tuple(t.double() for t in batch2_32)
+    ref = arrays_from_muygps(Fused_L_BFGS_B_optimize(train_model(), *data64))
+    obj64, _ = make_fused_train_objective(train_model(), *data64)
+
+    def f64(v):
+        return float(obj64({"length_scale": v["length_scale"],
+                            "noise": v["noise"]})[0])
+
+    rel = abs(f64(v2) - f64(ref)) / abs(f64(ref))
+    log(f"device trainer: batch 1 {info1['iterations']} iterations, "
+        f"{info1['evaluations']} evaluations, {info1['replays']} replays, "
+        f"capture {info1['capture_ms']:.1f} ms, {info1['wall_ms']:.1f} ms; "
+        f"batch 2 (warm start, no capture) {info2['iterations']} "
+        f"iterations, {info2['evaluations']} evaluations, "
+        f"{info2['wall_ms']:.1f} ms: length_scale {v2['length_scale']!r}, "
+        f"noise {v2['noise']!r}, f64 objective relative to the f64 fused "
+        f"chassis' optimum on that batch {rel:.3e} (limit "
+        f"{OBJECTIVE_RTOL:.0e}); captures {trainer.captures()}")
+    assert rel <= OBJECTIVE_RTOL, "batch 2 is not at its f64 optimum"
+    return dict(
+        batch1=dict(v1, **first, iterations=info1["iterations"],
+                    evaluations=info1["evaluations"],
+                    replays=info1["replays"],
+                    capture_ms=info1["capture_ms"],
+                    wall_ms=info1["wall_ms"]),
+        batch2=dict(v2, objective_relative=rel,
+                    iterations=info2["iterations"],
+                    evaluations=info2["evaluations"],
+                    replays=info2["replays"], wall_ms=info2["wall_ms"]),
+        captures=trainer.captures(),
+    )
+
+
 def main() -> int:
     import torch
 
@@ -2545,17 +2812,17 @@ def main() -> int:
     ref = reference_outputs(model, targets)
     launches_by_path = {}
     e2e = {}
+    captured = {}
     for engine in ("fused", "kernel"):
         server, e2e[engine] = serve_checked(
             "e2e", model, targets, engine, ref, VAR_TOL_F32
         )
         launches_by_path[engine] = e2e[engine]["launches"]
-        if engine == "fused":
-            trace = device_trace(
-                torch, lambda: [server.predict(r) for r in requests]
-            )
-            e2e[engine]["trace"] = trace
-            log(f"e2e fused device trace: {json.dumps(trace)}")
+        # (a) the captured buckets against the eager core
+        captured[engine] = captured_vs_eager(
+            torch, f"captured {engine}", server, requests
+        )
+        e2e[engine]["trace"] = captured[engine]["trace"]
     fused_launches = launches_by_path["fused"]
     assert fused_launches["fused_predict_coords"] > 0
     assert fused_launches["knn_candidates"] > 0
@@ -2601,11 +2868,33 @@ def main() -> int:
     trained, train_numbers = phase_train(
         torch, train, y_train, nbrs, bi, bnn
     )
+    judge = train_numbers.pop("judge")
     launches_by_path["train"] = train_numbers.pop("launches")
     assert launches_by_path["train"]["fused_train_stats"] > 0
     assert (launches_by_path["train"]["fused_train_stats/registers"]
             == launches_by_path["train"]["fused_train_stats"])
     log("train: " + json.dumps(train_numbers))
+
+    # 7b. (b) the training headline on the device chassis, and (c) the
+    # device trainer on two batches
+    y_d = torch.as_tensor(y_train, dtype=torch.float32, device="cuda")
+    cw32, pw32, bt32, bnt32 = train_model().make_train_tensors(
+        bi, bnn, train_d, y_d
+    )
+    data32 = (bt32, bnt32, cw32, pw32)
+    device_numbers = {"fixed_nu": phase_device_train(torch, data32, judge)}
+    launches_by_path["device_train"] = (
+        device_numbers["fixed_nu"].pop("launches")
+    )
+    bi2, bnn2 = sample_batch(
+        nbrs, TRAIN_BATCH, TRAIN, rng=np.random.default_rng(3)
+    )
+    cw2, pw2, bt2, bnt2 = train_model().make_train_tensors(
+        bi2, bnn2, train_d, y_d
+    )
+    device_numbers["trainer"] = phase_device_trainer(
+        torch, data32, (bt2, bnt2, cw2, pw2), judge
+    )
 
     # 8. serving the trained model (variances scale with sigma^2, and so
     # does their f32 rounding)
@@ -2712,7 +3001,19 @@ def main() -> int:
     )
     launches_by_path["train_gen"] = gen_numbers.pop("launches")
     assert launches_by_path["train_gen"]["fused_train_stats"] > 0
+    exact_gen, v_lanes, v_start = gen_numbers.pop("reference")
     log("train free nu: " + json.dumps(gen_numbers))
+    # 12b. (b) the free-smoothness headline on the device chassis
+    cwg, pwg, btg, bntg = free_nu_model().make_train_tensors(
+        bi, bnn, train_d, y_d
+    )
+    device_numbers["free_nu"] = phase_device_train_free_nu(
+        torch, (btg, bntg, cwg, pwg), exact_gen, v_lanes, v_start
+    )
+    launches_by_path["device_train_gen"] = (
+        device_numbers["free_nu"].pop("launches")
+    )
+    log("device chassis: " + json.dumps(device_numbers))
     _, served_trained_gen = serve_checked(
         "trained free nu", trained_gen, y_train, "fused",
         reference_outputs(trained_gen, y_train),
@@ -2733,11 +3034,10 @@ def main() -> int:
     launches_by_path["shear"] = shear_e2e["launches"]
     assert (launches_by_path["shear"]["multiout_solve/registers"]
             == launches_by_path["shear"]["multiout_solve"] > 0)
-    shear_trace = device_trace(
-        torch, lambda: [shear_server.predict(r) for r in shear_requests]
+    captured["shear"] = captured_vs_eager(
+        torch, "captured shear", shear_server, shear_requests
     )
-    shear_e2e["trace"] = shear_trace
-    log(f"shear device trace: {json.dumps(shear_trace)}")
+    shear_e2e["trace"] = captured["shear"]["trace"]
     _, shear_23 = shear_serve_checked(
         torch, "shear 2-in-3-out", shear_model("23"), sky_nbrs, sky,
         sky_targets[:, 1:], shear_requests[:1],
@@ -2849,9 +3149,17 @@ def main() -> int:
             name=name, route="cuda", source=source, replaces=replaces,
             launches=launches_by_path[path][counter],
             paths={p: c[counter] for p, c in launches_by_path.items()},
+            # the paths that ran it inside a captured CUDA graph
+            in_graph=sorted(p for p, c in launches_by_path.items()
+                            if p in CAPTURED_PATHS and c[counter] > 0),
             design_launches_on_path=designs_on_path,
             **rows[name],
         ))
+    log("captured serving: " + json.dumps({
+        k: {m: v[m] for m in ("captured_preds_per_s", "eager_preds_per_s",
+                              "capture_ms")}
+        for k, v in captured.items()
+    }))
     log(f"chip_smoke: every phase passed in "
         f"{time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}))

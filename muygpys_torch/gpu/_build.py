@@ -16,11 +16,17 @@ memory) is never silent.  The runtime launches, and sets kernel attributes,
 on the calling thread's current device, so every wrapper calls its entry
 point inside :func:`on_device` of the tensors' device.
 
+A launch recorded during a CUDA graph capture (:func:`recording`, used by
+:mod:`muygpys_torch.gpu.graphs`) is counted at each replay of the graph
+instead, so :data:`launches` says how often each kernel ran either way.
+
 Nothing here runs at import: the CPU-only test machines have no ``nvcc``.
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import ctypes
 import hashlib
 import os
@@ -74,6 +80,9 @@ launches: Dict[str, int] = {
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _fns: Dict[tuple, object] = {}
+# the launches a CUDA graph capture in progress records instead of counting
+# (muygpys_torch.gpu.graphs adds them again at every replay)
+_recording = contextvars.ContextVar("recording", default=None)
 
 
 def reset_launches() -> None:
@@ -83,9 +92,33 @@ def reset_launches() -> None:
 
 def count(*names: str) -> None:
     """Add one launch to each named count: a wrapper calls it where it
-    launches its kernel, and nowhere else."""
+    launches its kernel, and nowhere else.  During a capture
+    (:func:`recording`) the launch is recorded, not counted: the kernel
+    runs, and counts, when the graph is replayed."""
+    target = _recording.get()
+    if target is None:
+        target = launches
     for name in names:
-        launches[name] += 1
+        target[name] = target.get(name, 0) + 1
+
+
+@contextlib.contextmanager
+def recording():
+    """Record the launches of a CUDA graph capture: yields the dict of
+    counts the capture's launches add to, which :func:`add_launches`
+    adds to :data:`launches` at each replay."""
+    counts: Dict[str, int] = {}
+    token = _recording.set(counts)
+    try:
+        yield counts
+    finally:
+        _recording.reset(token)
+
+
+def add_launches(counts: Dict[str, int]) -> None:
+    """Count the launches a replayed graph made (recorded at capture)."""
+    for name, n in counts.items():
+        launches[name] += n
 
 
 def _nvcc() -> str:

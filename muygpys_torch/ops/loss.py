@@ -11,6 +11,8 @@ from __future__ import annotations
 
 import torch
 
+from muygpys_torch.ops import solve as _solve
+
 
 def cross_entropy_fn(predictions, targets, eps: float = 1e-15, **kwargs):
     """Unnormalized log loss of softmaxed predictions vs one-hot targets,
@@ -53,9 +55,8 @@ def lool_fn_unscaled(predictions, targets, variances, **kwargs):
     residual = predictions - targets
     if residual.ndim == 1:
         residual = residual[:, None]
-    sol = torch.linalg.solve(variances, residual[..., None])
+    sol, logdet = _solve.solve_and_logdet(variances, residual[..., None])
     quad = (residual[..., None, :] @ sol)[..., 0, 0]
-    _, logdet = torch.linalg.slogdet(variances)
     return torch.sum(quad + logdet)
 
 

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from muygpys_torch.ops import solve as _solve
+
 
 def _flatten(Kin, nn_targets):
     if Kin.ndim == 3:
@@ -36,7 +38,7 @@ def analytic_scale_optim_unnormalized(Kin, nn_targets, **kwargs):
     (b, n)`` or ``(b, n, r)``."""
     if nn_targets.ndim == 2:
         nn_targets = nn_targets[:, :, None]
-    L = torch.linalg.cholesky(Kin)
+    L = _solve.cholesky(Kin)
     W = torch.linalg.solve_triangular(L, nn_targets, upper=False)
     return torch.sum(W * W)
 

@@ -8,14 +8,81 @@ Counterpart of :mod:`muygpys_tpu.ops.solve`.  Shape conventions:
   ``Kcross (b, i, n, o)``, ``nn_targets (b, i, n)``: the ``(i, n)`` axes are
   flattened into one observation axis of ``i * n`` rows, and the variance is
   the full ``(o, o)`` block per neighborhood.
+
+Factorizations and solves go through :func:`cholesky` and :func:`solve`.
+Outside :func:`sync_free` they raise on a matrix that is not positive
+definite (or singular), which costs a read of the device's status on a
+card; inside it they give NaN for such a matrix and never read the device,
+as a CUDA graph capture requires (JAX's factorization returns NaN too).
 """
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import math
 from typing import Tuple
 
 import torch
+
+_SYNC_FREE = contextvars.ContextVar("sync_free", default=False)
+
+
+@contextlib.contextmanager
+def sync_free():
+    """Inside: a failed factorization or solve yields NaN instead of
+    raising, with no host read (the device chassis steps in it)."""
+    token = _SYNC_FREE.set(True)
+    try:
+        yield
+    finally:
+        _SYNC_FREE.reset(token)
+
+
+def _nan_where_failed(X, info):
+    failed = (info != 0).reshape(info.shape + (1,) * (X.ndim - info.ndim))
+    return torch.where(failed, torch.full_like(X, math.nan), X)
+
+
+def cholesky(K: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of ``K (..., n, n)``; inside :func:`sync_free`
+    a failed factor is NaN."""
+    if not _SYNC_FREE.get():
+        return torch.linalg.cholesky(K)
+    L, info = torch.linalg.cholesky_ex(K)
+    return _nan_where_failed(L, info)
+
+
+def cholesky_solve(B: torch.Tensor, L: torch.Tensor) -> torch.Tensor:
+    """``(L L^T)^{-1} B``.  Inside :func:`sync_free` as two triangular
+    solves: on a card ``torch.cholesky_solve`` may go through a MAGMA
+    routine that allocates device memory, which a capture refuses."""
+    if not _SYNC_FREE.get():
+        return torch.cholesky_solve(B, L)
+    W = torch.linalg.solve_triangular(L, B, upper=False)
+    return torch.linalg.solve_triangular(L.transpose(-2, -1), W, upper=True)
+
+
+def solve_and_logdet(A: torch.Tensor, B: torch.Tensor):
+    """``(A^{-1} B, log det A)`` for symmetric positive definite ``A``;
+    inside :func:`sync_free` both from one :func:`cholesky` (``slogdet``'s
+    LU may allocate device memory as ``cholesky_solve`` does)."""
+    if not _SYNC_FREE.get():
+        return torch.linalg.solve(A, B), torch.linalg.slogdet(A)[1]
+    L = cholesky(A)
+    logdet = 2.0 * torch.sum(
+        torch.log(torch.diagonal(L, dim1=-2, dim2=-1)), dim=-1
+    )
+    return cholesky_solve(B, L), logdet
+
+
+def solve(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
+    """``A^{-1} B`` for a symmetric positive definite ``A`` (every caller's:
+    covariance blocks); inside :func:`sync_free` by :func:`cholesky` and
+    :func:`cholesky_solve`, NaN where ``A`` is not positive definite."""
+    if not _SYNC_FREE.get():
+        return torch.linalg.solve(A, B)
+    return cholesky_solve(B, cholesky(A))
 
 
 def _as_columns(nn_targets: torch.Tensor):
@@ -73,11 +140,11 @@ def posterior_mean(Kin, Kcross, nn_targets, **kwargs) -> torch.Tensor:
     """``mu = Kcross Kin^{-1} Y`` per neighborhood."""
     if Kin.ndim != 3:
         Kf, Kc, y, batch, out, extra = _flatten_blocks(Kin, Kcross, nn_targets)
-        F = torch.cholesky_solve(Kc, torch.linalg.cholesky(Kf))
+        F = cholesky_solve(Kc, cholesky(Kf))
         return (F.transpose(-2, -1) @ y).reshape(batch + out + extra)
     y, squeeze = _as_columns(nn_targets)
-    L = torch.linalg.cholesky(Kin)
-    F = torch.cholesky_solve(Kcross[:, :, None], L)  # (b, n, 1)
+    L = cholesky(Kin)
+    F = cholesky_solve(Kcross[:, :, None], L)  # (b, n, 1)
     mean = (F.transpose(-2, -1) @ y)[:, 0, :]  # (b, r)
     return mean[:, 0] if squeeze else mean
 
@@ -93,10 +160,10 @@ def diagonal_variance(
             Kin, Kcross, batch_dim_count=batch_dim_count
         )
         V = torch.linalg.solve_triangular(
-            torch.linalg.cholesky(Kf), Kc, upper=False
+            cholesky(Kf), Kc, upper=False
         )
         return Kout - (V.transpose(-2, -1) @ V).reshape(batch + out + out)
-    L = torch.linalg.cholesky(Kin)
+    L = cholesky(Kin)
     V = torch.linalg.solve_triangular(L, Kcross[:, :, None], upper=False)
     return Kout - torch.sum(V[:, :, 0] ** 2, dim=-1)
 
@@ -106,7 +173,7 @@ def posterior_mean_and_variance(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mean and variance sharing ONE Cholesky factorization, any layout."""
     Kf, Kc, y, batch, out, extra = _flatten_blocks(Kin, Kcross, nn_targets)
-    L = torch.linalg.cholesky(Kf)
+    L = cholesky(Kf)
     Z = torch.linalg.solve_triangular(
         L, torch.cat([Kc, y], dim=-1), upper=False
     )
@@ -128,7 +195,7 @@ def serve_mean_and_variance(
         return posterior_mean_and_variance(Kin, Kcross, Kout, nn_targets)
     y, squeeze = _as_columns(nn_targets)
     rhs = torch.cat([Kcross[:, :, None], y], dim=-1)
-    sol = torch.linalg.solve(Kin, rhs)
+    sol = solve(Kin, rhs)
     mean = torch.einsum("bn,bnr->br", Kcross, sol[:, :, 1:])
     var = Kout - torch.einsum("bn,bn->b", Kcross, sol[:, :, 0])
     return (mean[:, 0] if squeeze else mean), var

@@ -1,9 +1,9 @@
 """LOO training: batch sampling, objectives, losses and the chassis.
 
-Counterpart of :mod:`muygpys_tpu.optimize` for the training slices.  Not
-ported yet: ``Bayes_optimize`` and the device chassis
-(``make_device_trainer``, ``Device_LBFGS_optimize``,
-``Fused_Device_LBFGS_optimize``, ``device_lbfgs``).
+Counterpart of :mod:`muygpys_tpu.optimize` for the training slices, the
+device chassis (:mod:`muygpys_torch.optimize.device_chassis`: whole L-BFGS
+trajectories replayed as CUDA graphs) included.  Not ported yet:
+``Bayes_optimize``.
 """
 
 from muygpys_torch.optimize.batch import (
@@ -16,6 +16,12 @@ from muygpys_torch.optimize.chassis import (
     Adam_optimize,
     L_BFGS_B_optimize,
     OptimizeFn,
+)
+from muygpys_torch.optimize.device_chassis import (
+    Device_LBFGS_optimize,
+    Fused_Device_LBFGS_optimize,
+    device_lbfgs,
+    make_device_trainer,
 )
 from muygpys_torch.optimize.fast_objective import (
     fast_objective_supports,
@@ -39,17 +45,21 @@ from muygpys_torch.optimize.shear_objective import (
 
 __all__ = [
     "Adam_optimize",
+    "Device_LBFGS_optimize",
+    "Fused_Device_LBFGS_optimize",
     "Fused_L_BFGS_B_optimize",
     "L_BFGS_B_optimize",
     "LossFn",
     "OptimizeFn",
     "cross_entropy_fn",
+    "device_lbfgs",
     "fast_objective_supports",
     "full_filtered_batch",
     "get_balanced_batch",
     "lool_fn",
     "lool_fn_unscaled",
     "looph_fn",
+    "make_device_trainer",
     "make_fast_loo_objective",
     "make_loo_crossval_fn",
     "make_shear_loo_objective",

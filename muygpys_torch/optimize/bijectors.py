@@ -3,9 +3,10 @@
 Counterpart of :mod:`muygpys_tpu.optimize.bijectors`: every chassis
 optimizes ``z`` with ``theta = lo + (hi - lo) * sigmoid(z)``, so a proposal
 can never leave its box (a negative nugget is impossible by construction).
-The tensor pair is differentiable by ``torch.autograd``; the numpy twins
-serve the host-side chassis, including the chain-rule factor for engines
-that return analytic gradients in theta-space (the fused K2 objective).
+The tensor forms are differentiable by ``torch.autograd`` and run where
+their tensors lie (the device chassis applies the chain rule of the fused
+K2 objective on the card with :func:`dforward_dz`); the numpy twins serve
+the host-side chassis.
 """
 
 from __future__ import annotations
@@ -23,6 +24,13 @@ _Z_CLIP = 18.420680743952367  # = logit(1 - 1e-8)
 def forward(z, lo, hi):
     """Unconstrained ``z`` -> ``theta`` in the open box ``(lo, hi)``."""
     return lo + (hi - lo) * torch.sigmoid(z)
+
+
+def dforward_dz(z, lo, hi):
+    """d theta / d z of :func:`forward`, in the order of the sigmoid's
+    derivative rule: ``(hi - lo) * (s * (1 - s))``."""
+    s = torch.sigmoid(z)
+    return (hi - lo) * (s * (1.0 - s))
 
 
 def inverse(theta, lo, hi):

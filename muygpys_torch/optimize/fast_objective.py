@@ -16,8 +16,15 @@ homoscedastic (optionally free) or heteroscedastic noise; loss lool, mse,
 looph or huber (unnormalized pseudo-Huber on the mean).  The reference's
 stored-noise sigma^2 quirk is carried over exactly: sigma^2 perturbs Kin
 with the model's STORED noise, so a free noise costs a second
-factorization and d sigma^2 / d noise = 0.  ``layout="batched"`` waits for
-the device-chassis slice.
+factorization and d sigma^2 / d noise = 0.
+
+``layout="batched"`` keeps the batch first, ``(B, n, n)``, and factors with
+one batched ``torch.linalg.cholesky`` and one stacked triangular solve, as
+the JAX package's batched layout does with ``jnp.linalg.cholesky``.  It is
+the objective of the device chassis (:mod:`muygpys_torch.optimize.device_chassis`),
+which steps it inside :func:`muygpys_torch.ops.solve.sync_free`: there a
+failed factorization is NaN (scored as the chassis' large penalty) instead
+of an error, and nothing is read back to the host.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from muygpys_torch.gp.deformation import Anisotropy, Isotropy
 from muygpys_torch.gp.kernels import Matern, RBF
 from muygpys_torch.gp.noise import HeteroscedasticNoise, HomoscedasticNoise
 from muygpys_torch.ops import kernels as _k
+from muygpys_torch.ops import solve as _solve
 from muygpys_torch.ops.lanes_solver import cholesky_bl, tri_solve_fwd_bl
 from muygpys_torch.ops.loss import looph_fn, lool_fn, mse_fn, pseudo_huber_fn
 from muygpys_torch.ops.tensors import safe_sqrt
@@ -143,6 +151,8 @@ def make_fast_loo_objective(
             for the model's deformation — distances ``(B, n)`` /
             ``(B, n, n)`` for Isotropy, per-feature differences
             ``(B, n, d)`` / ``(B, n, n, d)`` for Anisotropy.
+        layout: ``"lanes"`` (the floored batch-last elimination) or
+            ``"batched"`` (batch first, one batched Cholesky).
         device: where the objective runs (default ``"cuda"``).
 
     Returns:
@@ -150,11 +160,8 @@ def make_fast_loo_objective(
         parameters (floats or tensors that require grad) and returns the
         negated loss, to be maximized.
     """
-    if layout != "lanes":
-        raise ValueError(
-            f"layout {layout!r}: only 'lanes' is ported; 'batched' waits for "
-            "the device-chassis slice"
-        )
+    if layout not in ("lanes", "batched"):
+        raise ValueError(f"unknown layout {layout!r} (lanes, batched)")
     loss = check_model(muygps, loss)
     if boundary_scale is None:
         # the reference's own per-loss defaults (optimize/loss.py)
@@ -175,6 +182,10 @@ def make_fast_loo_objective(
             return matern_fn(dists, smoothness=nu)
 
     names, _, _ = muygps.get_opt_params()
+    if layout == "batched":
+        return _batched_objective(muygps, batch_targets, batch_nn_targets,
+                                  crosswise_dists, pairwise_dists, loss,
+                                  boundary_scale, dev, kfn, nu0), names
     pw_bl, cw_bl, y_bl, t_bl, d_feat = batch_last(
         muygps, batch_targets, batch_nn_targets, crosswise_dists,
         pairwise_dists, dev,
@@ -249,3 +260,106 @@ def make_fast_loo_objective(
         return -lool_fn(mean.T, t_bl.T, var, scale)
 
     return obj_fn, names
+
+
+def _batched_objective(muygps, batch_targets, batch_nn_targets,
+                       crosswise_dists, pairwise_dists, loss, boundary_scale,
+                       dev, kfn, nu0):
+    """``obj_fn`` of the batched layout: the JAX package's batched branch,
+    operation for operation."""
+    kernel = muygps.kernel
+    names, _, _ = muygps.get_opt_params()
+    pw = torch.as_tensor(pairwise_dists, device=dev)
+    dtype = pw.dtype
+    cw = torch.as_tensor(crosswise_dists, dtype=dtype, device=dev)
+    y = torch.as_tensor(batch_nn_targets, dtype=dtype, device=dev)
+    t = torch.as_tensor(batch_targets, dtype=dtype, device=dev)
+    if y.ndim == 2:
+        y = y[:, :, None]  # (B, n, r)
+    if t.ndim == 1:
+        t = t[:, None]  # (B, r)
+    B, n = pw.shape[0], pw.shape[1]
+    metric_name = kernel.deformation.metric.name
+    ls_param = kernel.deformation.length_scale
+    if isinstance(kernel.deformation, Anisotropy):
+        d_feat = len(ls_param)
+        if pw.ndim != 4 or pw.shape[-1] != d_feat:
+            raise ValueError(
+                "anisotropic objectives expect per-feature difference "
+                f"tensors (B, n, n, {d_feat}); got {tuple(pw.shape)}"
+            )
+        ls_names = [p.name() for p in ls_param]
+        ls0 = [p() for p in ls_param]
+
+        def scaled_dists(params):
+            ls = torch.stack([
+                torch.as_tensor(params.get(nm, v), dtype=dtype, device=dev)
+                for nm, v in zip(ls_names, ls0)
+            ])
+            u_p = torch.sum((pw / ls) ** 2, dim=3)
+            u_c = torch.sum((cw / ls) ** 2, dim=2)
+            if metric_name == "l2":
+                return safe_sqrt(u_p), safe_sqrt(u_c)
+            return u_p, u_c
+
+    else:
+        if pw.ndim != 3:
+            raise ValueError(
+                f"isotropic objectives expect distances (B, n, n); got "
+                f"{tuple(pw.shape)}"
+            )
+        apply_ls = kernel.deformation.metric.apply_length_scale
+
+        def scaled_dists(params):
+            ls = params.get("length_scale", ls_param())
+            return apply_ls(pw, ls), apply_ls(cw, ls)
+
+    eye = torch.eye(n, dtype=dtype, device=dev)[None]  # (1, n, n)
+    if isinstance(muygps.noise, HeteroscedasticNoise):
+        eps = torch.as_tensor(muygps.noise(), dtype=dtype, device=dev)
+        noise0, noise_is_free = None, False
+    else:
+        noise0 = float(muygps.noise())
+        noise_is_free = "noise" in names
+
+    def tri_fwd(L, R):
+        return torch.linalg.solve_triangular(L, R, upper=False)
+
+    def obj_fn(params):
+        nu = params.get("smoothness", nu0)
+        u_p, u_c = scaled_dists(params)
+        Kraw = kfn(u_p, nu)
+        Kcross = kfn(u_c, nu)  # (B, n)
+        if noise0 is None:
+            Kin = Kraw + eye * eps[:, None, :]
+        else:
+            Kin = Kraw + params.get("noise", noise0) * eye
+        L = _solve.cholesky(Kin)
+        Z = tri_fwd(L, torch.cat([Kcross[:, :, None], y], dim=2))
+        zc, zy = Z[:, :, 0], Z[:, :, 1:]  # L^{-1} Kcross, L^{-1} Y
+        mean = torch.einsum("bn,bnr->br", zc, zy)
+        var = 1.0 - torch.einsum("bn,bn->b", zc, zc)
+        if loss == "mse":
+            return -torch.sum((mean - t) ** 2) / t.numel()
+        if loss == "huber":
+            bs2 = boundary_scale**2
+            return -bs2 * torch.sum(
+                torch.sqrt(1.0 + (mean - t) ** 2 / bs2) - 1.0
+            )
+        if noise_is_free:
+            zy0 = tri_fwd(_solve.cholesky(Kraw + noise0 * eye), y)
+        else:
+            zy0 = zy
+        scale = torch.sum(zy0 * zy0) / (B * n)  # analytic sigma^2
+        sv = torch.clamp_min(scale * var, 10.0 * torch.finfo(var.dtype).eps)
+        sv_b = sv[:, None]
+        sq = (mean - t) ** 2
+        if loss == "looph":
+            bs2 = boundary_scale**2
+            return -torch.sum(
+                2.0 * bs2 * (torch.sqrt(1.0 + sq / (bs2 * sv_b)) - 1.0)
+                + torch.log(sv_b)
+            )
+        return -torch.sum(sq / sv_b + torch.log(sv_b))
+
+    return obj_fn

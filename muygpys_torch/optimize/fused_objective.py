@@ -53,7 +53,13 @@ class FusedTrainObjective:
         self._stats_fn = stats_fn
         self._epilogue = epilogue
 
-    def _evaluate(self, theta):
+    def evaluate(self, theta: torch.Tensor):
+        """``(value, gradient)`` at a 1-D ``theta`` ordered as
+        :attr:`names`, on the objective's device (any float dtype; the
+        gradient comes back in ``theta``'s): one K2 launch (and, under a
+        free smoothness, one launch of the coefficient constructor) and the
+        epilogue's tensor operations, with nothing read back to the host,
+        so the device chassis captures it in its graph."""
         vals = dict(self._defaults)
         like = next(iter(vals.values()))
         vals.update(zip(self.names, theta.to(like.dtype)))
@@ -69,7 +75,7 @@ class FusedTrainObjective:
     def value(self, theta: torch.Tensor) -> torch.Tensor:
         """The objective at ``theta`` (ordered as :attr:`names`),
         differentiable through ``FusedLOO``."""
-        return FusedLOO.apply(theta, self._evaluate)
+        return FusedLOO.apply(theta, self.evaluate)
 
     def __call__(self, params: Dict):
         like = next(iter(self._defaults.values()))
@@ -77,7 +83,7 @@ class FusedTrainObjective:
             [float(params.get(nm, self._defaults[nm])) for nm in self.names],
             dtype=like.dtype, device=like.device,
         )
-        value, grad = self._evaluate(theta)
+        value, grad = self.evaluate(theta)
         return value, dict(zip(self.names, grad))
 
 

@@ -8,8 +8,10 @@ covariance, in either solver layout, under ``torch.autograd``:
 
 - ``layout="lanes"``: the batch-last floored block elimination of
   :mod:`muygpys_torch.ops.lanes_solver` (a Python loop of ``I * nn`` steps);
-- ``layout="batched"``: one flattened ``(B, m, m)``
-  ``torch.linalg.cholesky`` and a single stacked triangular solve.
+- ``layout="batched"``: one flattened ``(B, m, m)`` Cholesky
+  (:func:`muygpys_torch.ops.solve.cholesky`: NaN for a failed factor inside
+  ``sync_free``, as the device chassis steps it) and a single stacked
+  triangular solve.
 
 Losses: ``"mse"`` on the posterior mean and ``"lool"``, the multivariate
 leave-one-out likelihood over the full ``(O, O)`` covariance blocks
@@ -30,6 +32,7 @@ from muygpys_torch.gp.kernels.experimental import (
     ShearKernel,
     ShearKernel2in3out,
 )
+from muygpys_torch.ops import solve as _solve
 from muygpys_torch.ops.lanes_solver import multiout_serve_mean_and_variance
 from muygpys_torch.ops.loss import lool_fn_unscaled
 
@@ -118,7 +121,7 @@ def make_shear_loo_objective(
         if layout == "lanes":
             mean, cov = multiout_serve_mean_and_variance(Kp, Kcross, Kout, bnt)
         else:
-            L = torch.linalg.cholesky(Kp.reshape(B, m, m))
+            L = _solve.cholesky(Kp.reshape(B, m, m))
             rhs = torch.cat(
                 [Kcross.reshape(B, m, o), bnt.reshape(B, m, 1)], dim=2
             )

@@ -32,6 +32,17 @@ server; ``"lanes"`` and ``"reference"`` serve any order through the exact
 Bessel path.  The query batch is
 padded (``mode="edge"``) up to a fixed bucket.  ``mesh``-sharded serving is
 not ported yet.
+
+On a CUDA device every engine the JAX package compiles per bucket with
+``jax.jit`` (``"fused"``, ``"kernel"`` and the shear ``"kernel"``) is
+captured once per server into a CUDA graph
+(:class:`muygpys_torch.gpu.graphs.CapturedProgram`), at its first bucket:
+a bucket then copies its padded queries (and, for the non-fused engines,
+the neighbour indices, looked up outside the graph as in JAX) through a
+pinned staging buffer into the graph's static inputs, replays the graph
+and copies the outputs back.  No Python runs per kernel, and nothing falls
+back: a capture that fails raises.  ``"lanes"`` and ``"reference"``, the
+debugging engines, stay eager.
 """
 
 from __future__ import annotations
@@ -52,6 +63,7 @@ from muygpys_torch.gp.kernels.matern import CLOSED_FORMS
 from muygpys_torch.gp.muygps import MuyGPS
 from muygpys_torch.gp.noise import HeteroscedasticNoise, HomoscedasticNoise
 from muygpys_torch.gpu.fused_predict import fused_predict_coords_bl
+from muygpys_torch.gpu.graphs import CapturedProgram
 from muygpys_torch.gpu.knn import (
     build_index,
     knn_cuda,
@@ -167,9 +179,14 @@ class FastServer:
         )
         feature_count = train.shape[1]
 
+        # the program of one bucket, and whether a card runs it captured
+        self._captured = None
+        self._capture = self.device.type == "cuda" and engine in (
+            "fused", "kernel"
+        )
         if self._shear:
             # multi-output block path: noise, scale and Kout are the model's
-            self._predict_fn = self._build_shear()
+            self._core = self._build_shear()
             return
 
         if isinstance(muygps.noise, HeteroscedasticNoise):
@@ -220,7 +237,7 @@ class FastServer:
         self._gen_coeffs = None
         if engine in ("kernel", "fused"):
             self._smoothness, self._gen_coeffs = self._kernel_smoothness()
-        self._predict_fn = self._build()
+        self._core = self._build()
 
     def _build_shear(self):
         """Serving program of the lensing shear family: difference tensors
@@ -241,13 +258,20 @@ class FastServer:
             )
         if self.engine == "kernel":
             Kout = kernel.Kout().to(dtype=self._dtype, device=self.device)
+            # the scale on the device once: a captured bucket copies nothing
+            # from the host
+            scale = muygps.scale()
+            scale = (scale.to(dtype=self._dtype, device=self.device)
+                     if torch.is_tensor(scale) else torch.as_tensor(
+                         np.asarray(scale, dtype=float), dtype=self._dtype,
+                         device=self.device))
 
             def solve(Kin, Kcross, nnt):
                 mean, cov = multiout_serve_cuda(
                     muygps.noise.perturb(Kin), Kcross, Kout, nnt,
                     device=self.device,
                 )
-                return mean, muygps.scale() * cov
+                return mean, scale * cov
 
         else:
             solve = muygps.posterior_mean_and_variance
@@ -441,18 +465,45 @@ class FastServer:
             pad = self.bucket - chunk.shape[0]
             if pad:
                 chunk = np.pad(chunk, ((0, pad), (0, 0)), mode="edge")
-            queries = torch.as_tensor(
-                chunk, dtype=self._dtype, device=self.device
-            )
-            if fused:
-                m, v = self._predict_fn(queries)
-            else:
+            arrays = [chunk]
+            if not fused:
                 idx = nn_idx[start:start + self.bucket]
                 if pad:
                     idx = np.pad(idx, ((0, pad), (0, 0)), mode="edge")
-                m, v = self._predict_fn(
-                    queries, torch.as_tensor(idx, device=self.device)
+                arrays.append(idx)
+            if self._capture:
+                m, v = self._replay(arrays)
+            else:
+                m, v = self._core(
+                    torch.as_tensor(chunk, dtype=self._dtype,
+                                    device=self.device),
+                    *(torch.as_tensor(a, device=self.device)
+                      for a in arrays[1:]),
                 )
             means.append(m.cpu().numpy())
             variances.append(v.cpu().numpy())
         return np.concatenate(means)[:count], np.concatenate(variances)[:count]
+
+    def _replay(self, arrays):
+        """One bucket through the captured program: the padded queries (and
+        neighbour indices) via pinned staging buffers into its static
+        inputs, then a replay.  The first bucket captures it."""
+        np_dtype = np.float64 if self._dtype == torch.float64 else np.float32
+        arrays = [np.ascontiguousarray(arrays[0], dtype=np_dtype)] + [
+            np.ascontiguousarray(a, dtype=np.int64) for a in arrays[1:]
+        ]
+        if self._captured is None:
+            self._staging = [
+                torch.empty(a.shape, dtype=torch.from_numpy(a).dtype,
+                            pin_memory=True) for a in arrays
+            ]
+            inputs = [torch.empty(h.shape, dtype=h.dtype, device=self.device)
+                      for h in self._staging]
+        else:
+            inputs = self._captured.inputs
+        for host, dev, a in zip(self._staging, inputs, arrays):
+            host.copy_(torch.from_numpy(a))
+            dev.copy_(host, non_blocking=True)
+        if self._captured is None:
+            self._captured = CapturedProgram(self._core, inputs)
+        return self._captured.replay()

@@ -1,6 +1,6 @@
 """muygpys_torch.optimize.bijectors against muygpys_tpu.optimize.bijectors
-(f64): the tensor pair with its autograd derivative, the numpy twins and
-the name-keyed bijector."""
+(f64): the tensor pair with its autograd derivative and its tensor
+d theta / d z, the numpy twins and the name-keyed bijector."""
 
 import jax
 import jax.numpy as jnp
@@ -30,6 +30,11 @@ def test_forward_inverse_match_jax():
     np.testing.assert_allclose(z.grad.numpy(), np.asarray(dref), rtol=1e-12)
     np.testing.assert_allclose(
         z.grad.numpy(), tbj.dforward_dz_np(Z, LO, HI), rtol=1e-12
+    )
+    # the tensor form the device chassis applies on the card
+    np.testing.assert_allclose(
+        tbj.dforward_dz(torch.as_tensor(Z), LO, HI).numpy(), np.asarray(dref),
+        rtol=1e-12,
     )
     inner = THETA[2:-2]
     np.testing.assert_allclose(

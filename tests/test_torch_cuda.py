@@ -843,7 +843,8 @@ def test_k5_launcher_refuses_what_does_not_fit():
 @pytest.mark.parametrize("family", ["33", "23"])
 def test_shear_server_kernel_engine_on_the_card(family):
     """FastServer(engine="kernel") on the card launches K5 once per bucket
-    and agrees with the lanes engine on the same neighbours."""
+    (the replays of its captured bucket, plus the eager warm-up before the
+    capture) and agrees with the lanes engine on the same neighbours."""
     _need_card()
     from muygpys_torch import config
     from muygpys_torch.convert import muygps_from_arrays
@@ -871,7 +872,7 @@ def test_shear_server_kernel_engine_on_the_card(family):
         before = _build.launches["multiout_solve"]
         m64, c64 = FastServer(model, nbrs, pts, obs, bucket=128,
                               engine="kernel").predict(xte)
-        assert _build.launches["multiout_solve"] == before + 3
+        assert _build.launches["multiout_solve"] == before + 1 + 3
         ml, cl = FastServer(model, nbrs, pts, obs, bucket=128,
                             engine="lanes").predict(xte)
         config.update("ftype", 32)
@@ -888,3 +889,212 @@ def test_shear_server_kernel_engine_on_the_card(family):
     prior = 2 / ls**2
     assert np.abs(m32 - ml).max() <= 1e-3 * np.abs(ml).max()
     assert np.abs(c32 - cl).max() <= 1e-4 * prior
+
+
+# ---------------------------------------------------------------------------
+# captured programs: serving buckets and the device chassis
+
+
+def _fused_field(seed=11, count=4096, d=2):
+    rng = np.random.default_rng(seed)
+    train = rng.uniform(size=(count, d)).astype(np.float32)
+    targets = rng.standard_normal((count, 1)).astype(np.float32)
+    queries = rng.uniform(size=(700, d)).astype(np.float32)
+    return train, targets, queries
+
+
+def _captured_and_eager(server, requests):
+    """Each request's outputs through the captured bucket, and the eager
+    core's on the same padded inputs, with the launches of each (the
+    captured program already exists: the caller warmed the server up)."""
+    out = []
+    for req in requests:
+        _build.reset_launches()
+        m, v = server.predict(req)
+        captured = dict(_build.launches)
+        inputs = server._captured.inputs  # the bucket just served
+        _build.reset_launches()
+        me, ve = server._core(*inputs)
+        eager = dict(_build.launches)
+        out.append(((m, v), (me.cpu().numpy(), ve.cpu().numpy()),
+                    captured, eager))
+    return out
+
+
+@pytest.mark.parametrize("engine", ["fused", "kernel"])
+def test_captured_serving_is_bit_equal_to_the_eager_core(engine):
+    """A served bucket replays the graph captured at the first bucket: its
+    outputs equal the eager core's on the same inputs bit for bit, and it
+    launches the same kernels the same number of times."""
+    _need_card()
+    from muygpys_torch.convert import muygps_from_arrays
+    from muygpys_torch.neighbors import NN_Wrapper
+    from muygpys_torch.serve import FastServer
+
+    train, targets, queries = _fused_field()
+    model = muygps_from_arrays(0.3, noise=1e-3, smoothness=1.5, scale=1.0)
+    server = FastServer(model, NN_Wrapper(train, 30), train, targets,
+                        bucket=256, engine=engine)
+    server.predict(queries[:10])  # the capture
+    assert server._captured is not None
+    # one bucket each, the second padded
+    for (m, v), (me, ve), captured, eager in _captured_and_eager(
+        server, [queries[:256], queries[256:400]]
+    ):
+        n = len(m)
+        assert np.array_equal(m, me[:n]) and np.array_equal(v, ve[:n])
+        assert captured == eager and eager["fused_predict_coords"] == 1
+        if engine == "fused":
+            assert eager["knn_candidates_pruned"] == 1
+
+
+def test_captured_shear_serving_is_bit_equal_to_the_eager_core():
+    _need_card()
+    from muygpys_torch.convert import muygps_from_arrays
+    from muygpys_torch.neighbors import NN_Wrapper
+    from muygpys_torch.serve import FastServer
+
+    rng = np.random.default_rng(5)
+    pts = rng.uniform(size=(3000, 2)).astype(np.float32)
+    phase = pts @ (2 * np.pi * np.array([3.0, 5.0], dtype=np.float32))
+    targets = np.stack(
+        [np.sin(phase), 0.4 * np.cos(phase), 0.3 * np.sin(2 * phase)], axis=1
+    )
+    ls = 0.05
+    model = muygps_from_arrays(ls, noise=1e-3 * 2 / ls**4, kernel="shear",
+                               noise_model="shear33")
+    server = FastServer(model, NN_Wrapper(pts, 30), pts, targets,
+                        bucket=128, engine="kernel")
+    xte = rng.uniform(size=(300, 2)).astype(np.float32)
+    server.predict(xte[:5])
+    for (m, c), (me, ce), captured, eager in _captured_and_eager(
+        server, [xte[:128], xte[128:256]]
+    ):
+        assert np.array_equal(m, me) and np.array_equal(c, ce)
+        assert captured == eager and eager["multiout_solve"] == 1
+
+
+def _train_problem(seed=3, B=256, n=20):
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(size=(B, n, 2))
+    q = rng.uniform(size=(B, 2))
+    pw = np.sqrt(((pts[:, :, None] - pts[:, None]) ** 2).sum(-1))
+    cw = np.sqrt(((q[:, None] - pts) ** 2).sum(-1))
+    y = np.sin(3 * pts[..., 0]) + 0.1 * rng.standard_normal((B, n))
+    t = np.sin(3 * q[:, 0]) + 0.1 * rng.standard_normal(B)
+    return t, y, cw, pw
+
+
+def _train_model():
+    from muygpys_torch.convert import muygps_from_arrays
+
+    return muygps_from_arrays(
+        0.5, noise=1e-3, smoothness=1.5, scale="analytic",
+        length_scale_bounds=(0.01, 5.0), noise_bounds=(1e-6, 1.0),
+    )
+
+
+def test_device_chassis_replays_and_reads_done_once_per_replay():
+    """Fused_Device_LBFGS_optimize through K2 on the card (f64): one eager
+    warm-up step, then replays of one captured graph from the start, each
+    followed by one read of the done flag; K2 ran at every step of every
+    replay; the optimum is the same chassis' on the CPU."""
+    _need_card()
+    from muygpys_torch.convert import arrays_from_muygps
+    from muygpys_torch.optimize import Fused_Device_LBFGS_optimize
+    from muygpys_torch.optimize.device_chassis import STEPS_PER_REPLAY
+
+    data = _train_problem()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        info = {}
+        _build.reset_launches()
+        out[dev] = arrays_from_muygps(Fused_Device_LBFGS_optimize(
+            _train_model(), *data, device=dev, info=info
+        ))
+        out[dev + "_info"] = info
+    info = out["cuda_info"]
+    assert info["replays"] == math.ceil(
+        info["evaluations"] / STEPS_PER_REPLAY
+    )
+    assert info["capture_ms"] > 0
+    assert (_build.launches["fused_train_stats"]
+            == 1 + info["replays"] * STEPS_PER_REPLAY)
+    assert info["iterations"] == out["cpu_info"]["iterations"]
+    for key in ("length_scale", "noise"):
+        np.testing.assert_allclose(out["cuda"][key], out["cpu"][key],
+                                   rtol=1e-6)
+
+
+def test_a_failed_capture_raises():
+    """An objective that reads the device back to the host cannot be
+    captured: the device chassis raises instead of stepping eagerly."""
+    _need_card()
+    from muygpys_torch.optimize import device_lbfgs
+
+    def fun(z):
+        return torch.sum((z - 1.0) ** 2) * (1.0 + 0.0 * float(z[0]))
+
+    with pytest.raises(RuntimeError):
+        device_lbfgs(fun, torch.zeros(2, dtype=torch.float64, device="cuda"))
+
+
+def test_device_lbfgs_puts_a_numpy_start_on_the_card():
+    """A z0 that is not a tensor runs on the card, replayed from a captured
+    graph, as does lbfgs_while_loop; both agree with the CPU's steps."""
+    _need_card()
+    from muygpys_torch.optimize import device_chassis as tdc
+
+    def fun(z):
+        w = torch.arange(1.0, 4.0, dtype=z.dtype, device=z.device)
+        return torch.sum(w * (z - 0.5) ** 2) + 0.1 * torch.sum(z ** 4)
+
+    z0 = np.array([1.0, -2.0, 0.3])
+    z, info = tdc.device_lbfgs(fun, z0)
+    assert z.device.type == "cuda" and info["capture_ms"] > 0
+    ref, ref_info = tdc.device_lbfgs(fun, z0, device="cpu")
+    assert info["iterations"] == ref_info["iterations"]
+    np.testing.assert_allclose(z.cpu().numpy(), ref.numpy(), rtol=1e-10)
+    out = tdc.lbfgs_while_loop(fun, list(z0))
+    assert all(t.device.type == "cuda" for t in out)
+    np.testing.assert_allclose(out[0].cpu().numpy(), ref.numpy(),
+                               rtol=1e-10)
+
+
+def test_device_trainer_captures_once_for_two_batches():
+    _need_card()
+    from muygpys_torch.optimize import make_device_trainer
+
+    trainer = make_device_trainer(_train_model(), device="cuda")
+    m1, info1 = trainer(*_train_problem(3))
+    m2, info2 = trainer(*_train_problem(4), z_init=info1["z"])
+    assert trainer.captures() == 1 and trainer.cache_size() == 1
+    assert info1["capture_ms"] > 0 and info2["capture_ms"] == 0
+    assert info1["iterations"] >= 1 and info2["iterations"] >= 1
+    ref, _ = make_device_trainer(_train_model(), device="cpu")(
+        *_train_problem(4), z_init=info1["z"].cpu()
+    )
+    from muygpys_torch.convert import arrays_from_muygps
+
+    np.testing.assert_allclose(
+        arrays_from_muygps(m2)["length_scale"],
+        arrays_from_muygps(ref)["length_scale"], rtol=1e-6,
+    )
+
+
+def test_generic_device_chassis_on_the_card_matches_cpu():
+    """Device_LBFGS_optimize (the generic objective, autograd captured in
+    the step, factorizations without host reads) on the card."""
+    _need_card()
+    from muygpys_torch.convert import arrays_from_muygps
+    from muygpys_torch.optimize import Device_LBFGS_optimize
+
+    t, y, cw, pw = _train_problem(B=128, n=12)
+    got = {}
+    for dev in ("cpu", "cuda"):
+        got[dev] = arrays_from_muygps(Device_LBFGS_optimize(
+            _train_model(), *(torch.as_tensor(a, device=dev)
+                              for a in (t, y, cw, pw))
+        ))
+    np.testing.assert_allclose(got["cuda"]["length_scale"],
+                               got["cpu"]["length_scale"], rtol=1e-6)

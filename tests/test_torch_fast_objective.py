@@ -10,6 +10,10 @@
 - free and general smoothness: the lanes objective (exact Bessel path) and
   the K2 objective (traced-nu surrogate, analytic d/dnu rows) against the JAX
   package's, value and every gradient;
+- the batched layout (make_fast_loo_objective(layout="batched"), the device
+  chassis' objective) against the JAX package's batched layout, value and
+  every gradient, and its failed factorization: an error outside
+  ``sync_free``, NaN inside it;
 - the model classes both objectives refuse."""
 
 import jax
@@ -29,6 +33,7 @@ from muygpys_torch.gp.hyperparameter import Parameter
 from muygpys_torch.gp.kernels import KernelFn, Matern
 from muygpys_torch.gp.muygps import MuyGPS
 from muygpys_torch.gpu import _build
+from muygpys_torch.ops import solve as tsolve
 from muygpys_torch.optimize import (
     Fused_L_BFGS_B_optimize,
     make_fast_loo_objective,
@@ -353,8 +358,8 @@ class _ShearLike(KernelFn):
 def test_unsupported_models_raise_before_any_launch(iso):
     jm, data, _, _ = iso
     tm = carried_for_training(jm)
-    with pytest.raises(ValueError, match="device-chassis slice"):
-        make_fast_loo_objective(tm, *data, layout="batched", device="cpu")
+    with pytest.raises(ValueError, match="unknown layout"):
+        make_fast_loo_objective(tm, *data, layout="rows", device="cpu")
     with pytest.raises(ValueError, match="lool/mse/looph/huber"):
         make_fast_loo_objective(tm, *data, loss="cross_entropy", device="cpu")
     shear = MuyGPS(kernel=_ShearLike(), noise=tm.noise)
@@ -405,3 +410,56 @@ def test_objectives_default_to_cuda(iso, monkeypatch):
             build(tm, *data)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Fused_L_BFGS_B_optimize(tm, *data)
+
+
+@pytest.mark.parametrize(
+    "model,prob,params,loss", AUTOGRAD_CASES,
+    ids=[f"{i}-{c[3]}" for i, c in enumerate(AUTOGRAD_CASES)],
+)
+def test_batched_layout_matches_jax(model, prob, params, loss):
+    """The batched layout against the JAX package's, value and every
+    gradient (JAX's under jax.value_and_grad, the port's under autograd)."""
+    jm = jax_model_to_train(**model)
+    data = problem(AUTOGRAD_CASES.index((model, prob, params, loss)), **prob)
+    jobj, jnames = jax_fast_objective(
+        jm, *(jnp.asarray(a) for a in data), loss=loss, layout="batched"
+    )
+    v_ref, g_ref = jax.value_and_grad(jobj)(
+        {k: jnp.asarray(v) for k, v in params.items()}
+    )
+    obj, names = make_fast_loo_objective(
+        carried_for_training(jm), *data, loss=loss, layout="batched",
+        device="cpu",
+    )
+    assert sorted(names) == sorted(jnames)
+    theta = {
+        k: torch.tensor(v0, dtype=torch.float64, requires_grad=True)
+        for k, v0 in params.items()
+    }
+    value = obj(theta)
+    value.backward()
+    np.testing.assert_allclose(float(value), float(v_ref), rtol=1e-10)
+    for k in params:
+        np.testing.assert_allclose(
+            float(theta[k].grad), float(g_ref[k]), rtol=1e-10, atol=1e-12,
+            err_msg=k,
+        )
+
+
+def test_batched_layout_failed_factor_is_nan_inside_sync_free(iso):
+    """A proposal whose Kin is not positive definite (a negative nugget
+    larger than the smallest eigenvalue): outside sync_free the Cholesky
+    raises, as the scipy chassis expect; inside it the objective is NaN, as
+    JAX's batched layout returns, and nothing raises."""
+    jm, data, _, _ = iso
+    obj, _ = make_fast_loo_objective(
+        carried_for_training(jm), *data, layout="batched", device="cpu"
+    )
+    bad = {"length_scale": 0.33, "noise": -0.5}
+    with pytest.raises(torch.linalg.LinAlgError):
+        obj(bad)
+    with tsolve.sync_free():
+        assert torch.isnan(obj(bad))
+        assert torch.isfinite(obj({"length_scale": 0.33, "noise": 2e-3}))
+    with pytest.raises(torch.linalg.LinAlgError):
+        obj(bad)
