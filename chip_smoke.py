@@ -125,13 +125,33 @@ Phases (any failure raises and the script exits non-zero):
    card in f32, held against the same chassis on the CPU in f64; one lool
    evaluation and gradient of the batched layout against the lanes layout
    in f64; the trained model served through K5;
-16. the kernels line: one JSON object with every kernel's launches on its
+16. the fast posterior mean at the serving headline: phase 7's trained
+   model through checkpoint.save_model / load_model in a temporary
+   directory (the restored model compares equal, and FastServer(engine=
+   "fused") serves the first request from both bit for bit); the offline
+   precompute over all 50,000 training points, NN_Wrapper(nn_method=
+   "kernel").get_batch_nns (K3p at 1024 bins, k = 63, its neighbour sets
+   against the exact index's) -> fast_nn_update (once) -> the
+   deformation's pairwise tensor -> kernel -> fast_coefficients
+   (examples.fast_posterior_mean.make_fast_regressor), timed whole and by
+   step; the fast state through save_fast_state / load_fast_state bit
+   for bit; the three requests through fast_posterior_mean_serve (get_nns
+   -> the nearest point's self-inclusive set -> crosswise tensor ->
+   fast_posterior_mean); the f32
+   coefficients held to the f64 precompute of the same neighbourhoods and
+   the f32 fast mean to the f64 fast mean on the same indices, the fast
+   mean against the fused engine's full posterior mean (correlation);
+   predictions/s (host numpy in and out) alternated with the captured
+   fused engine's, and a trace; a two-response MultivariateMuyGPS (nu 3/2
+   and 5/2) precomputing (50000, 30, 2) coefficients and serving one
+   request against f64; K3p checked and timed at the precompute's shape;
+17. the kernels line: one JSON object with every kernel's launches on its
    path and each design's launches there, error against its plain version,
    times (for K1, K1b and K3 also the kept design's) and bound; for K2 and
    K5 each design's launches over the run (both must have run) and
    registers; K4's constructor with its launches on the free-nu path;
    each kernel's paths that ran it inside a captured graph (in_graph);
-17. the last line: {"ok": true, "device": {...}}.
+18. the last line: {"ok": true, "device": {...}}.
 
 Kernel times are CUDA-event medians over back-to-back launches (time_ms);
 for K1, K1b, K2, K3, K4's constructor and K5 also the kernel's own device time, each call queued
@@ -293,6 +313,22 @@ K5_SINGULAR_REL = {"float64": 1e-12, "float32": 1e-6}
 # a prior of 800) and 6-13x at the trained length scale (3.7e-5, 1.4e-2 on
 # 38,400); PERF.md, Findings
 SHEAR_MEAN_REL_F32, SHEAR_COV_REL_F32 = 1.25e-8, 2e-6
+# the fast posterior mean (phase 16): the f32 coefficients against the f64
+# precompute of the same neighbourhoods, as a share of the largest f64
+# coefficient: the f32 rounding of the Gram-identity distances (eps |x|^2
+# on d^2, 6e-8 on unit coordinates) times a neighbourhood's condition
+# number (~1e3 at the trained noise 0.034 and nn = 30); the CPU's f32 gave
+# 1.4e-4 on the headline set; the f32 fast mean against the f64 fast mean
+# on the same indices is held to MEAN_TOL_F32
+FAST_COEFF_REL_F32 = 1e-3
+# the fast mean against the fused engine's full posterior mean (another
+# neighbourhood: the nearest training point's self-inclusive set, not the
+# query's own): tests/test_gp.py's correlation
+FAST_CORR_MIN = 0.99
+# rounds of the fast path's timings: the precompute, and the alternated
+# (fast, fused, fused, fast) serving rates (two rounds a side read 0.94M
+# and 1.72M fast-mean predictions/s in two runs on the same card)
+FAST_ROUNDS = 5
 # shear training: tests/test_shear_objective.py's tolerance on the length
 # scale, and the f64 objective at the card's optimum against the CPU's
 SHEAR_LS_RTOL, SHEAR_OBJECTIVE_RTOL = 5e-3, 1e-3
@@ -607,78 +643,90 @@ def phase_k3(torch, train_sorted, queries, cand_count):
     )
     rows = {}
     for name, prep, k, train_used in cases:
-        design = K.knn_design(prep.q.shape[1], k, prep.bins)
-        assert design == "fused", f"{name} takes the {design} design"
-        ik, dk = K.knn_select(prep, k)
-        torch.cuda.synchronize()
-        ip, dp = K.knn_select_plain(prep, k)
-        # the fused design selects exactly the k smallest keys, in ascending
-        # order: the distances are the plain version's bits; equal keys may
-        # come out in another order, so index sets are compared
-        same_idx = float(
-            (torch.sort(ik, 1).values == torch.sort(ip, 1).values)
-            .float().mean()
-        )
-        bit_equal = bool(torch.equal(dk, dp))
-        finite = torch.isfinite(dp)
-        err = float((dk - dp)[finite].abs().max())
-        s1k, s2k = prep.candidates()
-        torch.cuda.synchronize()
-        s1p, s2p = K.knn_candidates_plain(
-            prep.q, prep.qsq, prep.tT, prep.tsq, prep.bins, prep.train_tile,
-            prep.query_tile, prep.chunk_mask, prep.lb, prep.ub,
-        )
-        keys_equal = float(((s1k == s1p) & (s2k == s2p)).float().mean())
-        log(f"K3 {name} ({prep.q.shape[0]} x {prep.tT.shape[1]}, bins "
-            f"{prep.bins}, k {k}): fused d2 bit-equal {bit_equal}, index "
-            f"slots agree {same_idx:.6f}, max_abs_err {err:.3e}; kept "
-            f"design's s1/s2 equal on {keys_equal:.6f} of slots")
-        assert bit_equal and same_idx >= 0.999, f"K3 {name} disagrees"
-        assert keys_equal == 1.0, f"K3 {name} kept design disagrees"
-
-        def fused():
-            return K.knn_select(prep, k)
-
-        def kept():
-            return K.knn_select(prep, k, design="keys")
-
-        times = dict(
-            ms=time_ms(fused), device_ms=device_ms(torch, fused),
-            kept_ms=time_ms(kept), kept_device_ms=device_ms(torch, kept),
-        )
-        plain_ms = time_ms(lambda: K.knn_select_plain(prep, k), reps=3,
-                           trials=3)
-        q_real = queries if "subsample" not in name else prep.q
-        library_ms = time_ms(
-            lambda: torch.topk(torch.cdist(q_real, train_used), k, dim=1,
-                               largest=False),
-            reps=3, trials=3,
-        )
-        q_count, feat = prep.q.shape
-        t_count = prep.tT.shape[1]
-        if prep.lb is None:
-            pairs, extra = q_count * t_count, 0
-        else:
-            run = (prep.lb <= prep.ub[:, None]).sum().item()
-            pairs = run * prep.query_tile * prep.train_tile
-            extra = (prep.lb.numel() + prep.ub.numel()) * 4
-        # each input read once, the (idx int64, d2 f32) result written once
-        nbytes = ((q_count + t_count) * (feat + 1) * 4 + extra
-                  + q_count * k * 12)
-        rows[name] = bound_row(
-            nbytes, pairs * (2 * feat + 3), design=design, max_abs_err=err,
-            plain_ms=plain_ms, library_ms=library_ms, **times,
-        )
-        log(f"K3 {name} time: fused {times['ms']:.4f} ms (device "
-            f"{times['device_ms']:.4f}), kept design + merge "
-            f"{times['kept_ms']:.4f} ms (device {times['kept_device_ms']:.4f})"
-            f", plain {plain_ms:.4f} ms, cdist + topk {library_ms:.4f} ms, "
-            f"bound {rows[name]['bound_ms']:.4f} ms "
-            f"({rows[name]['bound_by']}; {pairs} pairs visited of "
-            f"{q_count * t_count})")
-        assert times["device_ms"] < times["kept_device_ms"], (
-            f"K3 {name}: the fused design is not faster than the kept one")
+        rows[name] = k3_case(torch, name, prep, k, queries, train_used)
     return rows
+
+
+def k3_case(torch, name, prep, k, queries, train_used):
+    """One K3 case against its plain version: the design the launcher
+    takes (fused: the merge in the kernel) and the kept design with its
+    _merge_decode, each timed, the kept design's key state against its
+    mirror bit for bit, the cdist + topk yardstick and the bound.  Returns
+    the kernels-line row."""
+    from muygpys_torch.gpu import knn as K
+
+    design = K.knn_design(prep.q.shape[1], k, prep.bins)
+    assert design == "fused", f"{name} takes the {design} design"
+    ik, dk = K.knn_select(prep, k)
+    torch.cuda.synchronize()
+    ip, dp = K.knn_select_plain(prep, k)
+    # the fused design selects exactly the k smallest keys, in ascending
+    # order: the distances are the plain version's bits; equal keys may
+    # come out in another order, so index sets are compared
+    same_idx = float(
+        (torch.sort(ik, 1).values == torch.sort(ip, 1).values)
+        .float().mean()
+    )
+    bit_equal = bool(torch.equal(dk, dp))
+    finite = torch.isfinite(dp)
+    err = float((dk - dp)[finite].abs().max())
+    s1k, s2k = prep.candidates()
+    torch.cuda.synchronize()
+    s1p, s2p = K.knn_candidates_plain(
+        prep.q, prep.qsq, prep.tT, prep.tsq, prep.bins, prep.train_tile,
+        prep.query_tile, prep.chunk_mask, prep.lb, prep.ub,
+    )
+    keys_equal = float(((s1k == s1p) & (s2k == s2p)).float().mean())
+    log(f"K3 {name} ({prep.q.shape[0]} x {prep.tT.shape[1]}, bins "
+        f"{prep.bins}, k {k}): fused d2 bit-equal {bit_equal}, index "
+        f"slots agree {same_idx:.6f}, max_abs_err {err:.3e}; kept "
+        f"design's s1/s2 equal on {keys_equal:.6f} of slots")
+    assert bit_equal and same_idx >= 0.999, f"K3 {name} disagrees"
+    assert keys_equal == 1.0, f"K3 {name} kept design disagrees"
+
+    def fused():
+        return K.knn_select(prep, k)
+
+    def kept():
+        return K.knn_select(prep, k, design="keys")
+
+    times = dict(
+        ms=time_ms(fused), device_ms=device_ms(torch, fused),
+        kept_ms=time_ms(kept), kept_device_ms=device_ms(torch, kept),
+    )
+    plain_ms = time_ms(lambda: K.knn_select_plain(prep, k), reps=3,
+                       trials=3)
+    q_real = queries if "subsample" not in name else prep.q
+    library_ms = time_ms(
+        lambda: torch.topk(torch.cdist(q_real, train_used), k, dim=1,
+                           largest=False),
+        reps=3, trials=3,
+    )
+    q_count, feat = prep.q.shape
+    t_count = prep.tT.shape[1]
+    if prep.lb is None:
+        pairs, extra = q_count * t_count, 0
+    else:
+        run = (prep.lb <= prep.ub[:, None]).sum().item()
+        pairs = run * prep.query_tile * prep.train_tile
+        extra = (prep.lb.numel() + prep.ub.numel()) * 4
+    # each input read once, the (idx int64, d2 f32) result written once
+    nbytes = ((q_count + t_count) * (feat + 1) * 4 + extra
+              + q_count * k * 12)
+    row = bound_row(
+        nbytes, pairs * (2 * feat + 3), design=design, max_abs_err=err,
+        plain_ms=plain_ms, library_ms=library_ms, **times,
+    )
+    log(f"K3 {name} time: fused {times['ms']:.4f} ms (device "
+        f"{times['device_ms']:.4f}), kept design + merge "
+        f"{times['kept_ms']:.4f} ms (device {times['kept_device_ms']:.4f})"
+        f", plain {plain_ms:.4f} ms, cdist + topk {library_ms:.4f} ms, "
+        f"bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']}; {pairs} pairs visited of "
+        f"{q_count * t_count})")
+    assert times["device_ms"] < times["kept_device_ms"], (
+        f"K3 {name}: the fused design is not faster than the kept one")
+    return row
 
 
 def serve(torch, server, requests):
@@ -2663,6 +2711,259 @@ def phase_device_trainer(torch, data32, batch2_32, judge):
     )
 
 
+def fast_stages(torch, model, nbrs, train_d, targets_d):
+    """The seconds of make_fast_regressor's three steps, each called alone
+    with a synchronize after it: neighbours (get_batch_nns: K3p, the
+    re-rank and the indices to the host), tensors (fast_nn_update, the
+    deformation's pairwise tensor, the kernel) and factorization
+    (fast_coefficients).  Returns (coefficients, seconds by stage)."""
+    import numpy as np
+
+    from muygpys_torch.ops.tensors import fast_nn_update
+
+    t0 = time.perf_counter()
+    batch_nn, _ = nbrs.get_batch_nns(np.arange(train_d.shape[0]))
+    t1 = time.perf_counter()
+    nn_fast = fast_nn_update(torch.as_tensor(batch_nn, device="cuda"))
+    Kin = model.kernel(model.kernel.deformation.pairwise_tensor(
+        train_d, nn_fast))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    coeffs = model.fast_coefficients(Kin, targets_d[nn_fast])
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    return coeffs, dict(neighbours_s=t1 - t0, tensors_s=t2 - t1,
+                        factorization_s=t3 - t2)
+
+
+def phase_fast_mean(torch, card, trained, train, y_train, nbrs, requests,
+                    train_sorted):
+    """The fast posterior mean at the serving headline (phase 16): the
+    K2-trained model through a checkpoint file and back, served bit for
+    bit by the fused engine from both; the offline precompute over all
+    50,000 training points through NN_Wrapper(nn_method="kernel") (K3p at
+    1024 bins); the fast state through a file; the three requests served
+    at one kernel evaluation and one contraction each; a two-response
+    MultivariateMuyGPS.  Returns (the phase's numbers, the launches of the
+    path, the kernels-line row of K3p at the precompute's shape)."""
+    import statistics
+    import tempfile
+
+    import numpy as np
+
+    from muygpys_torch import checkpoint
+    from muygpys_torch.convert import arrays_from_muygps, mmuygps_from_arrays
+    from muygpys_torch.examples.fast_posterior_mean import (
+        fast_posterior_mean_serve,
+        make_fast_multivariate_regressor,
+        make_fast_regressor,
+    )
+    from muygpys_torch.gpu import _build
+    from muygpys_torch.gpu import knn as K
+    from muygpys_torch.neighbors import NN_Wrapper
+    from muygpys_torch.serve import FastServer
+
+    out = {}
+    train_d = torch.as_tensor(train, device="cuda")
+    y_d = torch.as_tensor(y_train, dtype=torch.float32, device="cuda")
+    # (a) the trained model through a file and back
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "model.json")
+        checkpoint.save_model(path, trained)
+        restored = checkpoint.load_model(path)
+        with open(path) as f:
+            out["checkpoint_bytes"] = len(f.read())
+    assert restored == trained, "the restored model differs"
+    servers = [
+        FastServer(m, nbrs, train, y_train, bucket=QUERIES, engine="fused")
+        for m in (trained, restored)
+    ]
+    first = [s.predict(requests[0]) for s in servers]
+    assert all(np.array_equal(a, b) for a, b in zip(*first)), (
+        "the restored model serves other bits than the trained one")
+    log(f"fast mean: the trained model through save_model/load_model "
+        f"({out['checkpoint_bytes']} bytes of JSON) compares equal and "
+        f"FastServer(engine='fused') serves the first request from both "
+        f"bit for bit: {arrays_from_muygps(restored)}")
+
+    # (b) the precompute and the three requests through
+    # examples.fast_posterior_mean, once with the launches counted (the
+    # path), then timed
+    nn_kernel = NN_Wrapper(train, NN, nn_method="kernel")
+    design = K.knn_design(D, NN + 1 + 32, 1024)
+    log(f"fast mean: get_batch_nns over {TRAIN} training points asks K3p "
+        f"for k = {NN + 1 + 32} at 1024 bins: the {design} design")
+    assert design == "fused"
+
+    def serve_fast(model, x, nn_fast, coeffs, request):
+        mean, near = fast_posterior_mean_serve(model, nn_kernel, request, x,
+                                               nn_fast, coeffs)
+        return mean.cpu().numpy(), near
+
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    coeffs, nn_fast = make_fast_regressor(restored, nn_kernel, train_d, y_d)
+    means, nears = [], []
+    for r in requests:
+        m, near = serve_fast(restored, train_d, nn_fast, coeffs, r)
+        means.append(m)
+        nears.append(near)
+    torch.cuda.synchronize()
+    launches = dict(_build.launches)
+    assert launches["knn_candidates_pruned"] > 0
+    assert launches["knn_candidates"] > 0
+    assert (launches["knn_candidates/fused"]
+            == launches["knn_candidates_pruned"] + launches["knn_candidates"])
+    mean = np.concatenate(means)
+    assert coeffs.shape == (TRAIN, NN) and coeffs.dtype == torch.float32
+    assert mean.shape == (sum(len(r) for r in requests),)
+    assert np.isfinite(mean).all() and bool(torch.isfinite(coeffs).all())
+    # the neighbour sets against the exact index's (the K3 contract)
+    batch_nn, _ = nn_kernel.get_batch_nns(np.arange(TRAIN))
+    assert np.array_equal(nn_fast[:, 1:].cpu().numpy(), batch_nn[:, :-1])
+    exact_nn, _ = nbrs.get_batch_nns(np.arange(TRAIN))
+    same = (np.sort(batch_nn, 1) == np.sort(exact_nn, 1)).all(1).mean()
+    log(f"fast mean: NN_Wrapper(nn_method='kernel').get_batch_nns "
+        f"neighbour sets equal the exact index's on {same:.6f} of "
+        f"{TRAIN} rows; launches on the path (make_fast_regressor + 3 "
+        f"requests) {launches}")
+    assert same >= 0.98
+    totals, stages = [], []
+    for _ in range(FAST_ROUNDS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        make_fast_regressor(restored, nn_kernel, train_d, y_d)
+        torch.cuda.synchronize()
+        totals.append(time.perf_counter() - t0)
+        c, st = fast_stages(torch, restored, nn_kernel, train_d, y_d)
+        assert torch.equal(c, coeffs), "the stages are another path"
+        stages.append(st)
+    out["precompute_s"] = dict(
+        total_s=statistics.median(totals),
+        **{k: statistics.median(s[k] for s in stages) for k in stages[0]})
+    out["precompute_runs_s"] = dict(total_s=totals, stages=stages)
+    kin_mb = TRAIN * NN * NN * 4 / 1e6
+    log(f"fast mean precompute ({card}): median of {FAST_ROUNDS} "
+        f"make_fast_regressor calls and of its steps called alone "
+        f"{json.dumps(out['precompute_s'])} (neighbours: get_batch_nns, "
+        f"K3p + re-rank + the indices to the host; tensors: fast_nn_update "
+        f"+ the deformation's pairwise distances + kernel, Kin "
+        f"{kin_mb:.0f} MB; factorization: {TRAIN} x {NN} x {NN} Cholesky "
+        f"+ solves); runs {json.dumps(out['precompute_runs_s'])}")
+
+    # (c) the fast state through a file, bit for bit
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "fast.npz")
+        checkpoint.save_fast_state(path, coeffs, nn_fast)
+        c2, n2 = checkpoint.load_fast_state(path)
+    assert torch.equal(c2, coeffs) and torch.equal(n2, nn_fast)
+    assert c2.device.type == "cuda"
+
+    # (d) gates: f32 against the f64 precompute of the same neighbourhoods
+    # and the f64 fast mean on the same indices
+    train64 = train_d.double()
+    coeffs64, nn64 = make_fast_regressor(restored, nn_kernel, train64,
+                                         y_d.double())
+    assert torch.equal(nn64, nn_fast)
+    c_scale = float(coeffs64.abs().max())
+    c_err = float((coeffs.double() - coeffs64).abs().max()) / c_scale
+    mean64 = []
+    for r, near in zip(requests, nears):
+        m64, near64 = serve_fast(restored, train64, nn_fast, coeffs64, r)
+        assert np.array_equal(near64, near)
+        mean64.append(m64)
+    m_err = float(np.abs(mean - np.concatenate(mean64)).max())
+    fused_mean = np.concatenate(
+        [servers[1].predict(r)[0][:, 0] for r in requests]
+    )
+    corr = float(np.corrcoef(mean, fused_mean)[0, 1])
+    gap = float(np.abs(mean - fused_mean).max())
+    out.update(coeff_rel_err=c_err, coeff_max_abs_f64=c_scale,
+               mean_max_abs_err=m_err, corr_with_fused=corr,
+               max_abs_gap_to_fused=gap)
+    log(f"fast mean gates: f32 coefficients against the f64 precompute "
+        f"{c_err:.3e} of the largest |C| {c_scale:.3e} (limit "
+        f"{FAST_COEFF_REL_F32}); f32 fast mean against the f64 fast mean "
+        f"on the same indices {m_err:.3e} (limit {MEAN_TOL_F32}); against "
+        f"the fused engine's full posterior mean: correlation {corr:.6f} "
+        f"(limit > {FAST_CORR_MIN}), largest absolute gap {gap:.3e}")
+    assert c_err <= FAST_COEFF_REL_F32, "f32 coefficients off the f64 ones"
+    assert m_err <= MEAN_TOL_F32, "the f32 fast mean is off the f64 one"
+    assert corr > FAST_CORR_MIN, "the fast mean does not track the full one"
+
+    # (e) predictions/s, host numpy in and out, alternated with the
+    # captured fused engine of the same model (fast, fused, fused, fast,
+    # FAST_ROUNDS times)
+    rates = {"fast": [], "fused": []}
+    count = sum(len(r) for r in requests)
+    for mode in ("fast", "fused", "fused", "fast") * FAST_ROUNDS:
+        if mode == "fused":
+            rates[mode].append(serve(torch, servers[1], requests)[2])
+            continue
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for r in requests:
+            serve_fast(restored, train_d, nn_fast, coeffs, r)
+        rates[mode].append(count / (time.perf_counter() - t0))
+    out["preds_per_s"] = {k: statistics.median(v) for k, v in rates.items()}
+    out["rates"] = rates
+    trace = device_trace(torch, lambda: [
+        serve_fast(restored, train_d, nn_fast, coeffs, r) for r in requests
+    ])
+    out["serve_trace"] = trace
+    log(f"fast mean serving ({card}): median {out['preds_per_s']['fast']:.1f}"
+        f" predictions/s over {count} queries in 3 requests (host numpy in "
+        f"and out; {2 * FAST_ROUNDS} rounds {rates['fast']}), the captured "
+        f"fused engine {out['preds_per_s']['fused']:.1f} ({rates['fused']}),"
+        f" alternated; fast-mean device trace {json.dumps(trace)}")
+
+    # (f) a two-response MultivariateMuyGPS (nu 3/2 and 5/2 at the trained
+    # length scale and noise) over the same self-inclusive sets
+    vals = arrays_from_muygps(restored)
+    spec = dict(length_scale=vals["length_scale"], noise=vals["noise"],
+                scale=vals["scale"])
+    mm = mmuygps_from_arrays([dict(spec, smoothness=1.5),
+                              dict(spec, smoothness=2.5)])
+    y2 = np.concatenate([
+        y_train,
+        (np.cos(2 * np.pi * train[:, :1]) * np.sin(2 * np.pi * train[:, 1:])
+         + 0.1 * np.random.default_rng(4).standard_normal((TRAIN, 1))),
+    ], axis=1)
+    got = {}
+    for dtype in (torch.float32, torch.float64):
+        x = train_d.to(dtype)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c, nn_mm = make_fast_multivariate_regressor(
+            mm, nn_kernel, x, torch.as_tensor(y2, dtype=dtype, device="cuda"))
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        assert torch.equal(nn_mm, nn_fast)
+        m, _ = fast_posterior_mean_serve(mm, nn_kernel, requests[0], x,
+                                         nn_mm, c)
+        got[dtype] = (c, m, seconds)
+    c32, m32, s32 = got[torch.float32]
+    c64, m64, _ = got[torch.float64]
+    assert c32.shape == (TRAIN, NN, 2) and m32.shape == (len(requests[0]), 2)
+    mm_c = float((c32.double() - c64).abs().max() / c64.abs().max())
+    mm_m = float((m32.double() - m64).abs().max())
+    out["multivariate"] = dict(coeff_rel_err=mm_c, mean_max_abs_err=mm_m,
+                               precompute_s=s32)
+    log(f"fast mean, MultivariateMuyGPS (nu 3/2, 5/2): "
+        f"make_fast_multivariate_regressor {tuple(c32.shape)} in {s32:.4f} "
+        f"s ({card}); f32 against f64: coefficients {mm_c:.3e} of the "
+        f"largest (limit {FAST_COEFF_REL_F32}), the first request's means "
+        f"{mm_m:.3e} (limit {MEAN_TOL_F32})")
+    assert mm_c <= FAST_COEFF_REL_F32 and mm_m <= MEAN_TOL_F32
+    assert np.isfinite(m32.cpu().numpy()).all()
+
+    # (g) K3p at the precompute's shape: every training point a query
+    prep = K.prepare_pruned(train_sorted, train_d, NN + 1 + 32, bins=1024)
+    row = k3_case(torch, "knn_candidates_pruned[fast_mean]", prep,
+                  NN + 1 + 32, train_d, train_sorted)
+    return out, launches, row
+
+
 def main() -> int:
     import torch
 
@@ -3056,10 +3357,21 @@ def main() -> int:
     )
     log("shear trained served: " + json.dumps(shear_served))
 
-    # 16. kernels line: launches on each kernel's path (serving: fused and
+    # 16. the fast posterior mean of phase 7's trained model: checkpoint,
+    # precompute over every training point (K3p), three requests, a
+    # MultivariateMuyGPS
+    t_fast = time.perf_counter()
+    fast_numbers, launches_by_path["fast_mean"], fast_row = phase_fast_mean(
+        torch, card, trained, train, y_train, nbrs, requests, train_sorted
+    )
+    rows["knn_candidates_pruned[fast_mean]"] = fast_row
+    fast_numbers["phase_s"] = time.perf_counter() - t_fast
+    log("fast mean: " + json.dumps(fast_numbers))
+
+    # 17. kernels line: launches on each kernel's path (serving: fused and
     # fused_gen; the distance workflow: dists; training: train and
-    # train_gen; shear serving: shear), counted from zero just before the
-    # path ran
+    # train_gen; shear serving: shear; the fast posterior mean: fast_mean),
+    # counted from zero just before the path ran
     k1_src = "muygpys_torch/gpu/csrc/fused_predict.cu"
     k4_src = "muygpys_torch/gpu/csrc/matern_nu.cuh"
     k4_tpu = "muygpys_tpu/pallas/matern_nu.py:273"
@@ -3086,6 +3398,12 @@ def main() -> int:
         "knn_candidates_pruned[bins1024]": (
             "muygpys_torch/gpu/csrc/knn.cu", "muygpys_tpu/pallas/knn.py:451",
             "nn_kernel",
+        ),
+        # K3 pruned on the fast posterior mean's path: get_batch_nns over
+        # every training point (the row's shape) and the requests' get_nns
+        "knn_candidates_pruned[fast_mean]": (
+            "muygpys_torch/gpu/csrc/knn.cu", "muygpys_tpu/pallas/knn.py:451",
+            "fast_mean",
         ),
         "fused_train_stats": (
             "muygpys_torch/gpu/csrc/fused_train.cu",

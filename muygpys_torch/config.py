@@ -1,4 +1,5 @@
-"""Runtime configuration: float width and device selection.
+"""Runtime configuration: float width, index type, command-line flags and
+device selection.
 
 Environment variables (read once at import):
 
@@ -52,6 +53,37 @@ def update(key: str, value) -> None:
 def ftype() -> torch.dtype:
     """The current default float dtype."""
     return torch.float64 if state.ftype == 64 else torch.float32
+
+
+def itype() -> torch.dtype:
+    """The index dtype of :mod:`muygpys_tpu.config` (``int32``).  The
+    port's own gathers take ``int64`` indices, PyTorch's gather type."""
+    return torch.int32
+
+
+def parse_flags(argv=None):
+    """Consume ``--muygpys_*`` command-line flags; returns the remaining
+    arguments.
+
+    Recognized: ``--muygpys_ftype={32,64}``, as in
+    :func:`muygpys_tpu.config.parse_flags`; any other ``--muygpys_`` flag
+    raises.  ``argv`` defaults to ``sys.argv[1:]``.
+    """
+    import sys
+
+    args = list(sys.argv[1:] if argv is None else argv)
+    remaining = []
+    for arg in args:
+        if arg.startswith("--muygpys_ftype"):
+            val = arg.split("=", 1)[1] if "=" in arg else None
+            if val is None:
+                raise ValueError("--muygpys_ftype requires =32 or =64")
+            update("ftype", val)
+        elif arg.startswith("--muygpys_"):
+            raise ValueError(f"unknown flag {arg.split('=')[0]!r}")
+        else:
+            remaining.append(arg)
+    return remaining
 
 
 def device(device=None) -> torch.device:

@@ -5,13 +5,15 @@ through its own getters ``deformation.length_scale()``, ``get_bounds()``,
 ``kernel.smoothness()``, ``noise()``, ``scale()``) is rebuilt here from
 numpy numbers and strings, so no object of the other package crosses over:
 a trained model with fixed values, or a model still to be trained with its
-free parameters' bounds and an analytic scale.  :func:`arrays_from_muygps`
-returns a model's values as numpy numbers.
+free parameters' bounds and an analytic or down-sampled scale.
+:func:`arrays_from_muygps` returns a model's values as numpy numbers.
+:func:`mmuygps_from_arrays` and :func:`arrays_from_mmuygps` do the same for
+a :class:`MultivariateMuyGPS`, one spec per response.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -24,6 +26,7 @@ from muygpys_torch.gp.deformation import (
 )
 from muygpys_torch.gp.hyperparameter import (
     AnalyticScale,
+    DownSampleScale,
     FixedScale,
     Parameter,
     VectorParameter,
@@ -33,16 +36,23 @@ from muygpys_torch.gp.kernels.experimental import (
     ShearKernel,
     ShearKernel2in3out,
 )
+from muygpys_torch.gp.multivariate_muygps import MultivariateMuyGPS
 from muygpys_torch.gp.muygps import MuyGPS
 from muygpys_torch.gp.noise import (
     HeteroscedasticNoise,
     HomoscedasticNoise,
+    NullNoise,
     ShearNoise33,
 )
 
 _METRICS = {"l2": l2, "F2": F2}
 _SHEAR_KERNELS = {"shear": ShearKernel, "shear_2in3out": ShearKernel2in3out}
-_NOISE_MODELS = {"homoscedastic": HomoscedasticNoise, "shear33": ShearNoise33}
+_NOISE_MODELS = {
+    "homoscedastic": HomoscedasticNoise,
+    "shear33": ShearNoise33,
+    "null": NullNoise,
+}
+_SCALE_MODELS = {"analytic": AnalyticScale, "downsample": DownSampleScale}
 
 
 def _bounds(b):
@@ -63,6 +73,7 @@ def muygps_from_arrays(
     noise_bounds="fixed",
     smoothness_bounds="fixed",
     noise_model: str = "homoscedastic",
+    scale_kwargs: Optional[Dict] = None,
 ) -> MuyGPS:
     """Build a :class:`MuyGPS` from numbers.
 
@@ -72,7 +83,8 @@ def muygps_from_arrays(
         noise: homoscedastic nugget; ignored when ``measurement_noise`` is
             given.
         scale: a trained variance scale sigma^2 (a ``FixedScale`` carrying
-            it), or ``"analytic"`` for an ``AnalyticScale`` to be optimized.
+            it), or ``"analytic"`` / ``"downsample"`` for an
+            ``AnalyticScale`` / ``DownSampleScale`` to be optimized.
         smoothness: Matern nu, any positive order (0.5, 1.5, 2.5 and inf
             use their closed forms when fixed); unused for RBF.
         kernel: ``"matern"``, ``"rbf"``, or a lensing shear kernel,
@@ -88,13 +100,17 @@ def muygps_from_arrays(
         noise_bounds: ``"fixed"`` or ``(lower, upper)``.
         smoothness_bounds: ``"fixed"`` or ``(lower, upper)``: a free Matern
             smoothness, trained with the other free parameters.
-        noise_model: ``"homoscedastic"`` or ``"shear33"``
+        noise_model: ``"homoscedastic"``, ``"shear33"``
             (:class:`ShearNoise33`, twice the nugget on the convergence
-            block of a ``"shear"`` model).
+            block of a ``"shear"`` model) or ``"null"`` (:class:`NullNoise`,
+            no nugget; ``noise`` is ignored).
+        scale_kwargs: constructor arguments of the ``"analytic"`` or
+            ``"downsample"`` scale (``iteration_count``, ``down_count``).
     """
     if noise_model not in _NOISE_MODELS:
         raise ValueError(
-            f"unknown noise model {noise_model!r} (homoscedastic, shear33)"
+            f"unknown noise model {noise_model!r} (homoscedastic, shear33, "
+            "null)"
         )
     if metric not in _METRICS:
         raise ValueError(f"unknown metric {metric!r} (l2, F2)")
@@ -139,14 +155,19 @@ def muygps_from_arrays(
         )
     if measurement_noise is not None:
         noise_fn = HeteroscedasticNoise(np.asarray(measurement_noise))
+    elif noise_model == "null":
+        noise_fn = NullNoise()
     else:
         noise_fn = _NOISE_MODELS[noise_model](
             float(np.asarray(noise)), _bounds(noise_bounds)
         )
     if isinstance(scale, str):
-        if scale != "analytic":
-            raise ValueError(f"unknown scale {scale!r} (a number, 'analytic')")
-        scale_fn = AnalyticScale()
+        if scale not in _SCALE_MODELS:
+            raise ValueError(
+                f"unknown scale {scale!r} (a number, 'analytic', "
+                "'downsample')"
+            )
+        scale_fn = _SCALE_MODELS[scale](**(scale_kwargs or {}))
     else:
         scale_fn = FixedScale()
         scale_fn._set(float(np.asarray(scale).reshape(-1)[0]))
@@ -159,7 +180,7 @@ def arrays_from_muygps(muygps: MuyGPS) -> Dict[str, object]:
     array), ``scale`` and, for Matern, ``smoothness``; and the strings
     ``kernel`` and ``noise_model`` as :func:`muygps_from_arrays` takes
     them (``"heteroscedastic"`` for a model built from
-    ``measurement_noise``)."""
+    ``measurement_noise``, ``"null"`` for :class:`NullNoise`)."""
     kernel = muygps.kernel
     ls = np.asarray(kernel.deformation.length_scale(), dtype=float)
     noise = muygps.noise()
@@ -182,6 +203,23 @@ def arrays_from_muygps(muygps: MuyGPS) -> Dict[str, object]:
         "shear33" if isinstance(muygps.noise, ShearNoise33)
         else "heteroscedastic"
         if isinstance(muygps.noise, HeteroscedasticNoise)
+        else "null" if isinstance(muygps.noise, NullNoise)
         else "homoscedastic"
     )
     return out
+
+
+def mmuygps_from_arrays(specs: Sequence[Dict]) -> MultivariateMuyGPS:
+    """A :class:`MultivariateMuyGPS` with one model per response, each
+    built by :func:`muygps_from_arrays` from one dict of its arguments."""
+    models = [muygps_from_arrays(**spec) for spec in specs]
+    return MultivariateMuyGPS(*(
+        {"kernel": m.kernel, "noise": m.noise, "scale": m.scale}
+        for m in models
+    ))
+
+
+def arrays_from_mmuygps(mmuygps: MultivariateMuyGPS) -> List[Dict]:
+    """Each response model's values, as :func:`arrays_from_muygps` gives
+    them."""
+    return [arrays_from_muygps(m) for m in mmuygps.models]

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from muygpys_torch.gp.deformation.deformation_fn import DeformationFn
 from muygpys_torch.gp.deformation.metric import MetricFn
 from muygpys_torch.gp.hyperparameter import (
     NamedVectorParameter,
@@ -17,7 +18,7 @@ from muygpys_torch.gp.hyperparameter import (
 )
 
 
-class Anisotropy:
+class Anisotropy(DeformationFn):
     """Vector-length-scale deformation over feature-difference tensors."""
 
     def __init__(self, metric: MetricFn, length_scale: VectorParameter):

@@ -11,11 +11,12 @@ not ported yet.
 
 from __future__ import annotations
 
+from muygpys_torch.gp.deformation.deformation_fn import DeformationFn
 from muygpys_torch.gp.deformation.metric import MetricFn
 from muygpys_torch.gp.hyperparameter import NamedParameter, Parameter
 
 
-class Isotropy:
+class Isotropy(DeformationFn):
     """Scalar-length-scale deformation over a distance tensor."""
 
     def __init__(self, metric: MetricFn, length_scale: Parameter):

@@ -106,6 +106,9 @@ class Parameter:
         return self._fixed
 
 
+ScalarParam = Parameter
+
+
 class NamedParameter(Parameter):
     """A ``Parameter`` with a name: the key under which optimizers pass a
     proposed value."""
@@ -191,6 +194,13 @@ class NamedVectorParameter(VectorParameter):
     def name(self) -> str:
         return self._name
 
+    def set_defaults(self, **params) -> Dict:
+        """``params`` with each element's stored value filled in where its
+        name is absent."""
+        for p in self._params:
+            params.setdefault(p.name(), p())
+        return params
+
     def values(self, **kwargs) -> list:
         """Element values in order, proposed kwargs taking precedence (a
         list, so tensors that require grad stay in their graph)."""
@@ -200,9 +210,7 @@ class NamedVectorParameter(VectorParameter):
         mine = {p.name() for p in self._params}
         params = {k: v for k, v in kwargs.items() if k in mine}
         rest = {k: v for k, v in kwargs.items() if k not in mine}
-        for p in self._params:
-            params.setdefault(p.name(), p())
-        return params, rest
+        return self.set_defaults(**params), rest
 
     def apply_embedding_fn(
         self, fn: Callable, deformation_fn: Callable

@@ -25,6 +25,12 @@ class KernelFn:
     def _make(self):
         raise NotImplementedError("_make is not implemented for base KernelFn")
 
+    def set_params(self, **kwargs) -> None:
+        """Replace named hyperparameters' values and bounds in place:
+        ``set_params(length_scale=Parameter(0.3, (0.1, 1.0)))``."""
+        for name in kwargs:
+            self._hyperparameters[name]._set(kwargs[name])
+
     def __call__(self, diffs, **kwargs):
         """Evaluate the kernel on a (pairwise or crosswise) distance or
         difference tensor, as dictated by the deformation; free parameters
@@ -53,3 +59,9 @@ class KernelFn:
         bounds: List[Tuple[float, float]] = []
         self.deformation.length_scale.append_lists(names, params, bounds)
         return names, params, bounds
+
+    def __str__(self) -> str:
+        return "\n".join(
+            f"{name} : {param()} - {param.get_bounds()}"
+            for name, param in self._hyperparameters.items()
+        )

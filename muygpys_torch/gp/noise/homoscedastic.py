@@ -12,9 +12,11 @@ from typing import Callable, Optional, Tuple, Union
 import torch
 
 from muygpys_torch.gp.hyperparameter import NamedParameter, Parameter
+from muygpys_torch.gp.noise.noise_fn import NoiseFn
+from muygpys_torch.ops.noise import homoscedastic_perturb
 
 
-class HomoscedasticNoise(NamedParameter):
+class HomoscedasticNoise(NamedParameter, NoiseFn):
     """A shared noise prior variance tau^2, named ``"noise"``."""
 
     def __init__(
@@ -36,19 +38,7 @@ class HomoscedasticNoise(NamedParameter):
         ``(batch, in, nn, in, nn)``."""
         if noise is None:
             noise = self._val
-        if Kin.ndim == 5:
-            b, in_count, nn_count, in2, nn2 = Kin.shape
-            if (in_count, nn_count) != (in2, nn2):
-                raise ValueError(
-                    "homoscedastic perturbation takes (b, in, nn, in, nn), "
-                    f"got {tuple(Kin.shape)}"
-                )
-            all_count = in_count * nn_count
-            eye = torch.eye(all_count, dtype=Kin.dtype, device=Kin.device)
-            flat = Kin.reshape(b, all_count, all_count) + noise * eye
-            return flat.reshape(Kin.shape)
-        eye = torch.eye(Kin.shape[-1], dtype=Kin.dtype, device=Kin.device)
-        return Kin + noise * eye
+        return homoscedastic_perturb(Kin, noise)
 
     def perturb_fn(self, fn: Callable) -> Callable:
         def perturbed_fn(Kin, *args, noise=None, **kwargs):

@@ -6,10 +6,15 @@ Counterpart of :mod:`muygpys_tpu.ops.scale`:
 
 through one batched Cholesky, ``y^T K^{-1} y = |L^{-1} y|^2``, for
 ``Kin (b, n, n)`` and for the multi-output block layout ``(b, i, n, i, n)``
-(flattened to ``i * n`` rows; the normalization stays ``b * n``).
+(flattened to ``i * n`` rows; the normalization stays ``b * n``).  Optional
+``row_weights`` (0/1 per batch row) mask rows out of the numerator, and
+``batch_count_global`` replaces the batch count of the normalization, as in
+the JAX package.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -33,19 +38,41 @@ def _flatten(Kin, nn_targets):
     )
 
 
-def analytic_scale_optim_unnormalized(Kin, nn_targets, **kwargs):
-    """``sum_i |L_i^{-1} Y_i|^2`` for ``Kin (b, n, n)``, ``nn_targets
+def analytic_scale_optim_unnormalized(Kin, nn_targets, row_weights=None,
+                                      **kwargs):
+    """``sum_i w_i |L_i^{-1} Y_i|^2`` for ``Kin (b, n, n)``, ``nn_targets
     (b, n)`` or ``(b, n, r)``."""
     if nn_targets.ndim == 2:
         nn_targets = nn_targets[:, :, None]
     L = _solve.cholesky(Kin)
     W = torch.linalg.solve_triangular(L, nn_targets, upper=False)
-    return torch.sum(W * W)
+    terms = W * W
+    if row_weights is not None:
+        terms = terms * torch.as_tensor(
+            row_weights, dtype=terms.dtype, device=terms.device
+        ).reshape(-1, 1, 1)
+    return torch.sum(terms)
 
 
-def analytic_scale_optim(Kin, nn_targets, **kwargs):
-    """sigma^2 = numerator / (batch_count * nn_count)."""
+def analytic_scale_optim(
+    Kin,
+    nn_targets,
+    batch_count_global: Optional[float] = None,
+    row_weights=None,
+    **kwargs,
+):
+    """sigma^2 = numerator / (batch_count_global * nn_count).
+
+    Without ``batch_count_global`` the count is the batch size, or the sum
+    of ``row_weights`` where they are given."""
     Kin_flat, y_flat, nn_count = _flatten(Kin, nn_targets)
-    return analytic_scale_optim_unnormalized(Kin_flat, y_flat) / (
-        Kin.shape[0] * nn_count
-    )
+    if batch_count_global is None:
+        if row_weights is not None:
+            batch_count_global = torch.sum(torch.as_tensor(
+                row_weights, dtype=Kin.dtype, device=Kin.device
+            ))
+        else:
+            batch_count_global = Kin.shape[0]
+    return analytic_scale_optim_unnormalized(
+        Kin_flat, y_flat, row_weights=row_weights
+    ) / (batch_count_global * nn_count)

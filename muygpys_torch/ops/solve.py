@@ -9,6 +9,12 @@ Counterpart of :mod:`muygpys_tpu.ops.solve`.  Shape conventions:
   flattened into one observation axis of ``i * n`` rows, and the variance is
   the full ``(o, o)`` block per neighborhood.
 
+The fast posterior mean's offline coefficients
+(:func:`fast_posterior_mean_precompute`) and its serve-time contraction
+(:func:`fast_posterior_mean`, :func:`mmuygps_fast_posterior_mean`) are here
+too, as are the fused mean, variance and analytic scale of
+:func:`posterior_mean_variance_scale`.
+
 Factorizations and solves go through :func:`cholesky` and :func:`solve`.
 Outside :func:`sync_free` they raise on a matrix that is not positive
 definite (or singular), which costs a read of the device's status on a
@@ -21,7 +27,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -199,3 +205,58 @@ def serve_mean_and_variance(
     mean = torch.einsum("bn,bnr->br", Kcross, sol[:, :, 1:])
     var = Kout - torch.einsum("bn,bn->b", Kcross, sol[:, :, 0])
     return (mean[:, 0] if squeeze else mean), var
+
+
+def posterior_mean_variance_scale(
+    Kin, Kcross, Kout, nn_targets, batch_count_global: Optional[float] = None,
+    **kwargs,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Mean, unscaled variance and the analytic sigma^2 from ONE Cholesky
+    factorization, any layout: ``sigma^2 = sum |L^{-1} Y|^2 / (count *
+    in_size)``, where ``count`` is ``batch_count_global`` (the global batch
+    count of a sharded batch) or the batch size."""
+    Kf, Kc, y, batch, out, extra = _flatten_blocks(Kin, Kcross, nn_targets)
+    L = cholesky(Kf)
+    V = torch.linalg.solve_triangular(L, Kc, upper=False)
+    W = torch.linalg.solve_triangular(L, y, upper=False)
+    mean = (V.transpose(-2, -1) @ W).reshape(batch + out + extra)
+    var = _like(Kout, Kin) - (V.transpose(-2, -1) @ V).reshape(
+        batch + out + out
+    )
+    if batch_count_global is None:
+        batch_count_global = math.prod(batch)
+    scale = torch.sum(W * W) / (batch_count_global * Kf.shape[-1])
+    return mean, var, scale
+
+
+def fast_posterior_mean(Kcross, coeffs, **kwargs) -> torch.Tensor:
+    """Serve-time fast mean ``Kcross . C`` (no solve): ``Kcross (b, n)``,
+    ``coeffs (b, n)`` or ``(b, n, r)``.  Every unit axis of the result is
+    squeezed, as ``jnp.squeeze`` does: one query gives ``(r,)``, one query
+    and one response a 0-d tensor."""
+    if coeffs.ndim == 2:
+        coeffs = coeffs[:, :, None]
+    return torch.einsum("ij,ijk->ik", Kcross, coeffs).squeeze()
+
+
+def mmuygps_fast_posterior_mean(Kcross, coeffs, **kwargs) -> torch.Tensor:
+    """Multivariate fast mean with one Kcross per response:
+    ``(b, n, r), (b, n, r) -> (b, r)``."""
+    return torch.einsum("ijk,ijk->ik", Kcross, coeffs)
+
+
+def fast_posterior_mean_precompute(
+    Kin, train_nn_targets_fast, **kwargs
+) -> torch.Tensor:
+    """Offline coefficients ``C = Kin^{-1} Y`` over self-inclusive
+    neighborhoods: ``Kin (b, n, n)``, ``Y (b, n)`` or ``(b, n, r)``.  A
+    neighborhood whose factorization fails gets NaN coefficients and
+    nothing raises (JAX's factorization returns NaN); the device is not
+    read.  Every unit axis of the result is squeezed, as ``jnp.squeeze``
+    does."""
+    y = train_nn_targets_fast
+    if y.ndim == 2:
+        y = y[:, :, None]
+    with sync_free():
+        C = cholesky_solve(y, cholesky(Kin))
+    return C.squeeze()

@@ -3,11 +3,15 @@
 Counterpart of :mod:`muygpys_tpu.ops.tensors`: feature differences, the
 ``F2``/``l2`` collapses, ``safe_sqrt`` and the Gram-identity distance
 assembly (``|a-b|^2 = |a|^2 + |b|^2 - 2 a.b``) that never materializes the
-``(batch, nn, nn, feat)`` difference tensor.  Index tensors are ``int64``
-(PyTorch's gather type).
+``(batch, nn, nn, feat)`` difference tensor; and the fast posterior mean's
+self-inclusive neighborhoods (``fast_nn_update``,
+``make_fast_predict_tensors``).  Index tensors are ``int64`` (PyTorch's
+gather type).
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
@@ -29,6 +33,26 @@ def pairwise_diffs(data, nn_indices) -> torch.Tensor:
     shape ``(batch, nn, nn, feat)``."""
     points = _atleast_feature_dim(data)[nn_indices]
     return points[..., :, None, :] - points[..., None, :, :]
+
+
+def crosswise_differences(locations, points) -> torch.Tensor:
+    """Raw point-set crosswise differences ``(n, m, feat)``."""
+    locations = _atleast_feature_dim(locations)
+    points = _atleast_feature_dim(points)
+    return locations[:, None, :] - points
+
+
+def pairwise_differences(points) -> torch.Tensor:
+    """Raw point-set pairwise differences: ``(n, n, 1)`` for ``(n,)``
+    points, ``(n, n, feat)`` for ``(n, feat)``, ``(b, n, n, feat)`` for
+    ``(b, n, feat)``."""
+    if points.ndim == 1:
+        return (points[:, None] - points[None, :])[:, :, None]
+    if points.ndim == 2:
+        return points[:, None, :] - points[None, :, :]
+    if points.ndim == 3:
+        return points[:, :, None, :] - points[:, None, :, :]
+    raise ValueError(f"points shape {tuple(points.shape)} is not supported")
 
 
 def F2(diffs: torch.Tensor) -> torch.Tensor:
@@ -79,3 +103,28 @@ def crosswise_F2(data, nn_data, data_indices, nn_indices) -> torch.Tensor:
 def make_heteroscedastic_tensor(measurement_noise, batch_nn_indices):
     """Per-neighbor noise variances ``(batch, nn)``."""
     return measurement_noise[batch_nn_indices]
+
+
+def fast_nn_update(train_nn_indices: torch.Tensor) -> torch.Tensor:
+    """Self-inclusive neighborhoods: row ``i`` becomes ``[i, nn_0, ...,
+    nn_{k-2}]`` (the last neighbor drops out)."""
+    train_count = train_nn_indices.shape[0]
+    self_col = torch.arange(
+        train_count, dtype=train_nn_indices.dtype,
+        device=train_nn_indices.device,
+    )[:, None]
+    return torch.cat((self_col, train_nn_indices[:, :-1]), dim=1)
+
+
+def make_fast_predict_tensors(
+    batch_nn_indices, train_features, train_targets
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pairwise differences ``(batch, nn, nn, feat)`` and targets over the
+    self-inclusive neighborhoods of ``batch_nn_indices``."""
+    nn_fast = fast_nn_update(batch_nn_indices)
+    return pairwise_diffs(train_features, nn_fast), train_targets[nn_fast]
+
+
+def batch_features_tensor(features, batch_indices) -> torch.Tensor:
+    """The batch's feature rows ``(batch, feat)``."""
+    return _atleast_feature_dim(features)[batch_indices]

@@ -115,6 +115,44 @@ def test_convert_errors():
         muygps_from_arrays(0.5, noise=1e-3, smoothness=0.7, smoothness_bounds="free")
 
 
+def test_null_noise_and_downsample_scale_carry_across():
+    """A JAX model with NullNoise and a DownSampleScale crosses over as
+    numbers and strings (``noise_model="null"``, ``scale="downsample"``
+    with its counts) and reads back out."""
+    from muygpys_tpu.gp import MuyGPS as JaxMuyGPS
+    from muygpys_tpu.gp.deformation import Isotropy as JIso, l2 as jl2
+    from muygpys_tpu.gp.hyperparameter import (
+        DownSampleScale as JDS,
+        Parameter as JP,
+    )
+    from muygpys_tpu.gp.kernels import Matern as JMatern
+    from muygpys_tpu.gp.noise import NullNoise as JNull
+
+    from muygpys_torch.gp.hyperparameter import DownSampleScale
+    from muygpys_torch.gp.noise import NullNoise
+
+    jm = JaxMuyGPS(
+        kernel=JMatern(smoothness=JP(2.5), deformation=JIso(
+            jl2, length_scale=JP(0.3))),
+        noise=JNull(), scale=JDS(down_count=6, iteration_count=4),
+    )
+    tm = muygps_from_arrays(
+        length_scale=np.asarray(jm.kernel.deformation.length_scale()),
+        smoothness=np.asarray(jm.kernel.smoothness()), noise_model="null",
+        scale="downsample",
+        scale_kwargs=dict(down_count=jm.scale._down_count,
+                          iteration_count=jm.scale._iteration_count),
+    )
+    assert isinstance(tm.noise, NullNoise) and tm.noise() == jm.noise() == 0
+    assert isinstance(tm.scale, DownSampleScale) and not tm.scale.trained
+    assert (tm.scale._down_count, tm.scale._iteration_count) == (6, 4)
+    vals = arrays_from_muygps(tm)
+    assert vals["noise_model"] == "null" and vals["noise"] == 0.0
+    assert vals["smoothness"] == 2.5 and vals["scale"] == 1.0
+    with pytest.raises(ValueError, match="unknown scale"):
+        muygps_from_arrays(0.3, noise=1e-3, smoothness=1.5, scale="median")
+
+
 def jax_model_to_train(kernel="matern", nu=1.5, ls=0.4, ls_bounds=(0.01, 5.0),
                        noise=1e-3, noise_bounds=(1e-6, 1e-1), metric="l2",
                        hetero=None, nu_bounds="fixed"):

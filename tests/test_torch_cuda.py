@@ -1098,3 +1098,76 @@ def test_generic_device_chassis_on_the_card_matches_cpu():
         ))
     np.testing.assert_allclose(got["cuda"]["length_scale"],
                                got["cpu"]["length_scale"], rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_fast_posterior_mean_on_the_card_matches_cpu(tmp_path, dtype):
+    """The fast posterior mean's path on the card through
+    examples.fast_posterior_mean: NN_Wrapper(nn_method="kernel") (K3
+    pruned, counted) -> make_fast_regressor (a singular neighbourhood gives
+    NaN, nothing raises) -> checkpoint -> fast_posterior_mean_serve, one
+    contraction a query, against the same path on the CPU in f64 over the
+    card's neighbours."""
+    _need_card()
+    from muygpys_torch import checkpoint
+    from muygpys_torch.convert import muygps_from_arrays
+    from muygpys_torch.examples.fast_posterior_mean import (
+        fast_posterior_mean_serve,
+        make_fast_regressor,
+    )
+    from muygpys_torch.neighbors import NN_Wrapper
+
+    rng = np.random.default_rng(0)
+    train = rng.uniform(size=(4096, 2))
+    y = np.sin(6 * train[:, :1]) + 0.05 * rng.standard_normal((4096, 1))
+    test = rng.uniform(size=(500, 2))
+    model = muygps_from_arrays(length_scale=0.1, noise=1e-2, smoothness=1.5)
+
+    nbrs = NN_Wrapper(train, 12, nn_method="kernel")
+    before = _build.launches["knn_candidates_pruned"]
+    coeffs, nn_fast = make_fast_regressor(
+        model, nbrs, torch.as_tensor(train, dtype=dtype, device="cuda"),
+        torch.as_tensor(y, dtype=dtype, device="cuda"))
+    mean, closest = fast_posterior_mean_serve(model, nbrs, test, train,
+                                              nn_fast, coeffs)
+    assert _build.launches["knn_candidates_pruned"] >= before + 2
+    nn_idx = nbrs.get_batch_nns(np.arange(4096))[0]
+    exact = NN_Wrapper(train, 12, device="cpu").get_batch_nns(
+        np.arange(4096))[0]
+    assert (np.sort(nn_idx, 1) == np.sort(exact, 1)).all(1).mean() >= 0.98
+
+    class CardNeighbours:
+        """The card's neighbours, for the CPU reference."""
+
+        def get_batch_nns(self, batch_indices):
+            return nn_idx[batch_indices], None
+
+        def get_nns(self, queries):
+            return closest[:, None], None
+
+    ref_c, ref_nn = make_fast_regressor(model, CardNeighbours(), train, y,
+                                        device="cpu")
+    ref_m, _ = fast_posterior_mean_serve(model, CardNeighbours(), test,
+                                         train, ref_nn, ref_c)
+    assert torch.equal(nn_fast.cpu(), ref_nn)
+    assert coeffs.device.type == "cuda" and mean.shape == (500,)
+    # f64: the same arithmetic in another order; f32: the posterior mean's
+    # f32 floor (MEAN_TOL_F32 of chip_smoke.py) and the solve's rounding
+    # times the conditioning (noise 1e-2) relative to the largest
+    # coefficient
+    tol = 1e-9 if dtype == torch.float64 else 5e-3
+    np.testing.assert_allclose(mean.cpu().double().numpy(), ref_m.numpy(),
+                               atol=tol)
+    scale = float(ref_c.abs().max())
+    assert float((coeffs.cpu().double() - ref_c).abs().max()) <= tol * scale
+    # the fast state through a file, bit for bit, on the card
+    checkpoint.save_fast_state(str(tmp_path / "f.npz"), coeffs,
+                               torch.arange(3, device="cuda"))
+    c2, _ = checkpoint.load_fast_state(str(tmp_path / "f.npz"))
+    assert c2.device.type == "cuda" and torch.equal(c2, coeffs)
+    # a singular neighbourhood: NaN there, the rest as before
+    Kin = torch.eye(4, dtype=dtype, device="cuda").repeat(3, 1, 1)
+    Kin[1] = -Kin[1]
+    out = model.fast_coefficients(Kin, torch.ones((3, 4), dtype=dtype,
+                                                  device="cuda"))
+    assert torch.isnan(out[1]).all() and torch.isfinite(out[[0, 2]]).all()

@@ -209,3 +209,30 @@ def test_shear_modules_import_without_jax(module):
         [sys.executable, "-c", code], check=True, cwd=str(ROOT),
         env={**os.environ, "PYTHONPATH": str(ROOT)},
     )
+
+
+@pytest.mark.parametrize(
+    "module",
+    ["checkpoint", "convert", "gp.multivariate_muygps", "gp.fast_mean",
+     "gp.fast_precompute", "ops.noise", "gp.noise.null",
+     "gp.deformation.null", "gp.hyperparameter.tensor",
+     "gp.hyperparameter.vector", "examples.fast_posterior_mean"],
+)
+def test_fast_mean_slice_modules_import_without_jax(module):
+    """The fast-mean, multivariate and checkpoint modules import in a fresh
+    interpreter that has neither jax nor the JAX package loaded
+    afterwards (the checkpoint format is the JAX package's, but the code
+    is the port's own copy)."""
+    import subprocess
+    import sys
+
+    code = (
+        f"import sys, muygpys_torch.{module}\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'muygpys_tpu')]\n"
+        "assert not bad, bad"
+    )
+    subprocess.run(
+        [sys.executable, "-c", code], check=True, cwd=str(ROOT),
+        env={**os.environ, "PYTHONPATH": str(ROOT)},
+    )
