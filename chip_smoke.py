@@ -145,13 +145,45 @@ Phases (any failure raises and the script exits non-zero):
    fused engine's, and a trace; a two-response MultivariateMuyGPS (nu 3/2
    and 5/2) precomputing (50000, 30, 2) coefficients and serving one
    request against f64; K3p checked and timed at the precompute's shape;
-17. the kernels line: one JSON object with every kernel's launches on its
+17. the user workflows at the headlines' sizes (f32 on the card, each held
+   against f64 on the CPU): (a) every NN_Wrapper method on 8192 queries
+   against the 50,000 points ("exact", the train-tile scan, "brute",
+   "kernel" (K3p), "hnsw"; "sklearn" where scikit-learn is installed),
+   build and query seconds, sets against the exact f64 sets, and the scan
+   in tiles of 16,384 at 1,000,000 training rows against the same search
+   in one tile (seconds, peak device memory, the same neighbours); (b)
+   examples.regress.do_regress at the training headline (Matern 3/2, the
+   length scale free, the noise fixed at 1e-3; NN_Wrapper(nn_method=
+   "kernel"), Bayes_optimize with 5 + 20 probes, batch 2048, one request
+   of 8192) against the same call on the CPU in f64 (the f64 objective at
+   the card's f32 optimum, one-sided, and at its f64 optimum; mean and
+   variance at the CPU's parameters on the same neighbours), seconds by
+   stage, regress_any's predictions/s alternated with the captured fused
+   engine's; (c) do_classify and do_classify_uq on the half-moons at
+   50,000 training points (accuracy, classes against CPU f64 at its
+   optimum, the masks' shape); (d) optimize_from_tensors_mini_batch
+   (engine="device-lbfgs", three epochs of 2048, keep_state: one capture,
+   seconds per epoch, the last epoch's f64 objective against the CPU's);
+   (e) a hierarchical length scale on the nonstationary field (4,000
+   points, batch 1024) through make_device_trainer(...,
+   batch_features=), in f32 and in f64: the field's ordering on two
+   batches, the second a replay with its own features; in f64 the
+   objective against the CPU's and the replay against the CPU's eager
+   run (in f32 both are logged);
+18. the kernels line: one JSON object with every kernel's launches on its
    path and each design's launches there, error against its plain version,
    times (for K1, K1b and K3 also the kept design's) and bound; for K2 and
    K5 each design's launches over the run (both must have run) and
    registers; K4's constructor with its launches on the free-nu path;
    each kernel's paths that ran it inside a captured graph (in_graph);
-18. the last line: {"ok": true, "device": {...}}.
+19. the last line: {"ok": true, "device": {...}}.
+
+With ``--exact-bench ROOT`` the script instead times the exact search of
+the muygpys_torch package found at ROOT (this checkout's, or another's, to
+compare two versions on one card) at the headline size:
+NN_Wrapper("exact").get_nns on one request of 8192 against the 50,000
+points, and phase 14's shear serving rate (its engine searches through such
+an index); it prints one JSON line.
 
 Kernel times are CUDA-event medians over back-to-back launches (time_ms);
 for K1, K1b, K2, K3, K4's constructor and K5 also the kernel's own device time, each call queued
@@ -175,6 +207,7 @@ FP32_FLOPS = 67e12
 # the launch-count paths whose kernels run inside a captured CUDA graph: the
 # serving buckets (FastServer on a card) and the device chassis
 CAPTURED_PATHS = ("fused", "kernel", "fused_gen", "shear", "device_train",
+                  "workflow_fused",
                   "device_train_gen")
 
 TRAIN, QUERIES, D, NN = 50_000, 8192, 2, 30
@@ -199,11 +232,12 @@ VAR_TOL_F32 = 2e-6
 # the distance-tensor workflow in f64 against the f64 reference engine (the
 # same distance assembly, so K1b's f64 limits against its plain version)
 DISTS_F64_TOL = (1e-7, 1e-9)
-# the same workflow in f32 against the f64 reference engine: the floor of the
-# Gram-identity distance assembly in f32 (|a|^2 + |b|^2 - 2 a.b loses
+# the same workflow in f32 against the f64 reference engine: set at the
+# floor of the uncentred Gram-identity assembly (|a|^2 + |b|^2 - 2 a.b loses
 # ~eps_f32 absolute on squared distances of ~2e-5 between neighbours of the
-# 50k set), 1.6x and 2.2x the mean and variance spread measured on the H100
-# (1.224e-2, 1.796e-6; PERF.md, Findings)
+# 50k set), 1.6x and 2.2x the spread measured on the H100 then (1.224e-2,
+# 1.796e-6); the centred assembly reads 1.117e-3, 1.808e-7 (PERF.md,
+# Findings)
 DISTS_F32_GRAM_FLOOR = (2e-2, 4e-6)
 
 # training headline: LOO batch, start values and bounds of the free
@@ -315,10 +349,12 @@ K5_SINGULAR_REL = {"float64": 1e-12, "float32": 1e-6}
 SHEAR_MEAN_REL_F32, SHEAR_COV_REL_F32 = 1.25e-8, 2e-6
 # the fast posterior mean (phase 16): the f32 coefficients against the f64
 # precompute of the same neighbourhoods, as a share of the largest f64
-# coefficient: the f32 rounding of the Gram-identity distances (eps |x|^2
-# on d^2, 6e-8 on unit coordinates) times a neighbourhood's condition
-# number (~1e3 at the trained noise 0.034 and nn = 30); the CPU's f32 gave
-# 1.4e-4 on the headline set; the f32 fast mean against the f64 fast mean
+# coefficient: set at the f32 rounding of the uncentred Gram-identity
+# distances (eps |x|^2 on d^2, 6e-8 on unit coordinates) times a
+# neighbourhood's condition number (~1e3 at the trained noise 0.034 and
+# nn = 30), 1.4e-4 on the headline set then; the centred assembly reads
+# 1.2e-5 on the H100 (PERF.md, Findings); the f32 fast mean against the f64
+# fast mean
 # on the same indices is held to MEAN_TOL_F32
 FAST_COEFF_REL_F32 = 1e-3
 # the fast mean against the fused engine's full posterior mean (another
@@ -329,6 +365,30 @@ FAST_CORR_MIN = 0.99
 # (fast, fused, fused, fast) serving rates (two rounds a side read 0.94M
 # and 1.72M fast-mean predictions/s in two runs on the same card)
 FAST_ROUNDS = 5
+# phase 17, the user workflows.  (a) the exact search past one train tile
+# scanned at a million training rows (the JAX package's million-point sky);
+# the f32 exact methods' sets against the f64 exact sets (near-ties at the
+# f32 rounding are ~1e-6 of queries at the headline's spacing); K3's
+# contract; tests/test_neighbors.py's HNSW recall gate
+SCAN_ROWS = 1_000_000
+EXACT_SETS_MIN = 0.999
+KERNEL_SETS_MIN = 0.98
+HNSW_RECALL_MIN = 0.9
+# (c) tests/test_examples.py's half-moons widened to 50,000 training points
+# (and as many test points) and its accuracy gate; the classes of the f32
+# surrogate at the CPU's f64 optimum against the f64 classes on the same
+# neighbours
+CLASSIFY_POINTS = 100_000
+CLASSIFY_ACCURACY_MIN = 0.85
+CLASSIFY_AGREE_MIN = 0.999
+# (d) epochs of the mini-batch chassis
+MINI_BATCH_EPOCHS = 3
+# (e) tests/test_nonstationary.py's field widened to 4,000 points, its
+# ordering gate; a replayed f64 trajectory against the CPU's eager one at
+# tests/test_torch_cuda.py's device-trainer tolerance
+HIER_POINTS, HIER_BATCH = 4000, 1024
+HIER_RATIO_MIN = 1.5
+HIER_REPLAY_RTOL = 1e-6
 # shear training: tests/test_shear_objective.py's tolerance on the length
 # scale, and the f64 objective at the card's optimum against the CPU's
 SHEAR_LS_RTOL, SHEAR_OBJECTIVE_RTOL = 5e-3, 1e-3
@@ -2964,6 +3024,651 @@ def phase_fast_mean(torch, card, trained, train, y_train, nbrs, requests,
     return out, launches, row
 
 
+# ---- phase 17: the user workflows (examples, NN_Wrapper methods, Bayes,
+# the mini-batch chassis, hierarchical length scales) ----
+
+
+def sync(torch, dev):
+    """Wait for ``dev``: phase 17's functions take ``dev="cpu"`` (and
+    smaller sizes) to rehearse the phase on a machine without a card."""
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def same_sets(a, b):
+    """Per query: the two index arrays hold the same set."""
+    import numpy as np
+
+    return (np.sort(a, 1) == np.sort(b, 1)).all(1)
+
+
+def phase_nn_methods(torch, train, queries, dev="cuda",
+                     scan_rows=SCAN_ROWS):
+    """(a) every NN_Wrapper method at the serving headline (build and
+    query seconds, sets against the exact f64 sets on the same device),
+    then the exact search in tiles of 16,384 at ``scan_rows`` rows against
+    the same search in one tile (seconds, peak device memory, the same
+    sets after the re-rank)."""
+    import importlib.util
+
+    import numpy as np
+
+    from muygpys_torch.gpu import _build
+    from muygpys_torch.neighbors import (
+        NN_Wrapper,
+        _brute_force_knn,
+        _refine_knn,
+        _train_tiles,
+    )
+
+    t64 = torch.as_tensor(train, dtype=torch.float64, device=dev)
+    q64 = torch.as_tensor(queries, dtype=torch.float64, device=dev)
+    cand, _ = _brute_force_knn(t64, q64, NN + 32)
+    exact = _refine_knn(t64, q64, cand, NN)[0].cpu().numpy()
+    methods = [("exact", {}), ("brute", {}), ("kernel", {}),
+               ("hnsw", {"random_seed": 0})]
+    if importlib.util.find_spec("sklearn") is None:
+        log("phase 17 (a): nn_method='sklearn' not run: scikit-learn is not "
+            "installed on this machine (not counted as a pass)")
+    else:
+        methods.append(("sklearn", {}))
+    out, launches = {}, {}
+    for method, kw in methods:
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        nbrs = NN_Wrapper(train, NN, nn_method=method, device=dev, **kw)
+        sync(torch, dev)
+        build_s = time.perf_counter() - t0
+        nbrs.get_nns(queries[:64])  # warm-up
+        sync(torch, dev)
+        _build.reset_launches()
+        t0 = time.perf_counter()
+        idx, d2 = nbrs.get_nns(queries)
+        query_s = time.perf_counter() - t0
+        launches[method] = dict(_build.launches)
+        recall = float(np.mean([len(set(a) & set(b)) / NN
+                                for a, b in zip(idx, exact)]))
+        out[method] = dict(build_s=build_s, query_s=query_s,
+                           exact_share=float(same_sets(idx, exact).mean()),
+                           recall=recall)
+        assert idx.shape == (len(queries), NN) and np.isfinite(d2).all()
+    log(f"phase 17 (a) NN_Wrapper methods, {len(queries)} queries against "
+        f"{len(train)} points: " + json.dumps(out))
+    for method in ("exact", "brute", "sklearn"):
+        if method in out:
+            assert out[method]["exact_share"] >= EXACT_SETS_MIN, method
+    assert out["kernel"]["exact_share"] >= KERNEL_SETS_MIN
+    assert out["hnsw"]["recall"] > HNSW_RECALL_MIN
+    # the plain versions on the CPU count no launch
+    if torch.device(dev).type == "cuda":
+        assert launches["kernel"]["knn_candidates_pruned"] > 0
+    assert launches["exact"]["knn_candidates_pruned"] == 0
+
+    # the scan against the one-block search at scan_rows training rows
+    big = np.random.default_rng(5).uniform(size=(scan_rows, D)).astype(
+        np.float32)
+    big_d = torch.as_tensor(big, device=dev)
+    q_d = torch.as_tensor(queries, device=dev)
+    scan = {}
+    results = {}
+    # the train side of each is built once per index, as NN_Wrapper does
+    for name, tile in (("scan", None), ("one_block", scan_rows)):
+        tiles = _train_tiles(big_d, *(() if tile is None else (tile,)))
+        _brute_force_knn(big_d, q_d[:512], NN + 32, tiles=tiles)  # warm-up
+        sync(torch, dev)
+        if torch.device(dev).type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        cand, _ = _brute_force_knn(big_d, q_d, NN + 32, tiles=tiles)
+        idx, d2 = _refine_knn(big_d, q_d, cand, NN)
+        sync(torch, dev)
+        scan[name] = dict(seconds=time.perf_counter() - t0)
+        if torch.device(dev).type == "cuda":
+            scan[name]["max_memory_allocated_bytes"] = (
+                torch.cuda.max_memory_allocated())
+            scan[name]["above_inputs_bytes"] = (
+                torch.cuda.max_memory_allocated() - base)
+        results[name] = (idx.cpu().numpy(), d2.cpu().numpy())
+    scan["same_sets"] = float(same_sets(results["scan"][0],
+                                        results["one_block"][0]).mean())
+    log(f"phase 17 (a) exact search over {scan_rows} rows, one request of "
+        f"{len(queries)}: " + json.dumps(scan))
+    # the same neighbours after the re-rank: equal distances everywhere
+    # (a set may differ only among equal distances)
+    assert np.array_equal(results["scan"][1], results["one_block"][1])
+    out["scan_1m"] = scan
+    return out, launches["kernel"]
+
+
+def regress_kwargs():
+    """(b)'s model: Matern 3/2, the length scale free (0.5 in 0.01-5), the
+    noise fixed at 1e-3, analytic scale.  Its f64 optimum lies at a
+    length scale of 0.02-0.035, where neighbourhood matrices are only
+    positive definite in f32 because the distance assembly centres each
+    neighbourhood first (ops/tensors.pairwise_F2)."""
+    from muygpys_torch.gp.deformation import Isotropy, l2
+    from muygpys_torch.gp.hyperparameter import AnalyticScale, Parameter
+    from muygpys_torch.gp.kernels import Matern
+    from muygpys_torch.gp.noise import HomoscedasticNoise
+
+    return {
+        "kernel": Matern(smoothness=Parameter(NU), deformation=Isotropy(
+            l2, length_scale=Parameter(LS, LS_BOUNDS))),
+        "noise": HomoscedasticNoise(NOISE),
+        "scale": AnalyticScale(),
+    }
+
+
+def at_params(k_kwargs, params, scale=1.0):
+    """A fresh model of ``k_kwargs`` at the named parameter values and
+    sigma^2."""
+    from muygpys_torch.gp import MuyGPS
+
+    model = MuyGPS(**k_kwargs)
+    for name, value in params.items():
+        if name == "noise":
+            model.noise._set_val(value)
+        else:
+            model.kernel._hyperparameters[name]._set_val(value)
+    model.scale._set(scale)
+    model._make()
+    return model
+
+
+def opt_values(model):
+    """The model's free parameters by name."""
+    names, values, _ = model.get_opt_params()
+    return {n: float(v) for n, v in zip(names, values)}
+
+
+def phase_do_regress(torch, train, y_train, request, dev="cuda",
+                     batch=TRAIN_BATCH):
+    """(b) do_regress at the training headline on the card (K3p through
+    NN_Wrapper(nn_method="kernel"), Bayes_optimize), the same call on the
+    CPU in f64, the gates, seconds by stage and regress_any's rate beside
+    the captured fused engine's."""
+    import contextlib
+    import io
+    import re
+    import statistics
+
+    import numpy as np
+
+    from muygpys_torch import config
+    from muygpys_torch.examples.regress import do_regress, regress_any
+    from muygpys_torch.gp import MuyGPS
+    from muygpys_torch.gpu import _build
+    from muygpys_torch.optimize import L_BFGS_B_optimize, lool_fn, sample_batch
+    from muygpys_torch.serve import FastServer
+
+    kw = dict(nn_count=NN, batch_count=batch,
+              nn_kwargs={"nn_method": "kernel"},
+              opt_kwargs={"random_state": 0})
+    # warm-up: imports and first launches, on a tenth of the data
+    do_regress(request[:256], train[:4096], y_train[:4096],
+               k_kwargs=regress_kwargs(), device=dev,
+               rng=np.random.default_rng(0),
+               **dict(kw, batch_count=256,
+                      opt_kwargs={"init_points": 1, "n_iter": 1}))
+    sync(torch, dev)
+    _build.reset_launches()
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        model, nbrs, mean, var = do_regress(
+            request, train, y_train, k_kwargs=regress_kwargs(), device=dev,
+            rng=np.random.default_rng(2), verbose=True, **kw)
+    sync(torch, dev)
+    total_s = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    text = printed.getvalue()
+    stage = {key: float(re.search(rf"{pattern}[: ]*([0-9.e+-]+)s", text)[1])
+             for key, pattern in (("nn_build", "nn build time"),
+                                  ("opt", "opt time"),
+                                  ("pred_nn", "\tnn time"),
+                                  ("pred", "\tpred time"))}
+    p_card = opt_values(model)
+    assert mean.shape == (len(request), 1) and np.isfinite(mean).all()
+    assert np.isfinite(var).all() and (var > 0).all()
+
+    # the same call in f64 on the card and on the CPU.  The training gate
+    # holds the card's f32 optimum to the CPU's, one-sided (Bayes may land
+    # above the f64 optimum: the f32 and f64 probe sequences part once
+    # rounding moves an expected-improvement argmax); the card's f64 run is
+    # held to the CPU's both ways (the same probes)
+    config.update("ftype", 64)
+    card64, _, _, _ = do_regress(
+        request, train, y_train, k_kwargs=regress_kwargs(), device=dev,
+        rng=np.random.default_rng(2), **kw)
+    p_card64 = opt_values(card64)
+    t0 = time.perf_counter()
+    ref, ref_nbrs, _, _ = do_regress(
+        request, train, y_train, k_kwargs=regress_kwargs(), device="cpu",
+        rng=np.random.default_rng(2), **kw)
+    cpu_s = time.perf_counter() - t0
+    p_cpu = opt_values(ref)
+    sigma2 = float(ref.scale())
+    # the f64 objective of the CPU run's batch at both optima
+    bi, bnn = sample_batch(ref_nbrs, batch, len(train),
+                           rng=np.random.default_rng(2))
+    start = MuyGPS(**regress_kwargs())
+    cw, pw, bt, bnt = start.make_train_tensors(
+        bi, bnn, torch.as_tensor(train, dtype=torch.float64),
+        torch.as_tensor(y_train, dtype=torch.float64))
+    obj = L_BFGS_B_optimize.make_obj_fn(start, bt, bnt, cw, pw,
+                                        loss_fn=lool_fn)
+    with torch.no_grad():
+        v_card = float(obj(**p_card64))
+        v_cpu = float(obj(**p_cpu))
+        v_f32 = float(obj(**p_card))
+    rel = abs(v_card - v_cpu) / abs(v_cpu)
+    rel_f32 = (v_cpu - v_f32) / abs(v_cpu)
+    # serving at the CPU's parameters on the card's neighbours, both ways
+    m64, v64, _ = regress_any(ref, request, train, nbrs, y_train,
+                              device="cpu")
+    config.update("ftype", 32)
+    served = at_params(regress_kwargs(), p_cpu, sigma2)
+    m32, v32, timing = regress_any(served, request, train, nbrs, y_train,
+                                   device=dev)
+    err_m = float(np.abs(m32 - m64).max())
+    err_v = float(np.abs(v32 - v64).max())
+    tol_v = VAR_TOL_F32 * sigma2
+    out = dict(
+        total_s=total_s, stage_s=stage, cpu_f64_s=cpu_s,
+        parameters=dict(card_f32=p_card, card_f64=p_card64, cpu=p_cpu),
+        scale=sigma2,
+        objective_f64=dict(card_f64=v_card, cpu=v_cpu, relative=rel,
+                           card_f32=v_f32, f32_short_by=rel_f32),
+        mean_max_abs_err=err_m, var_max_abs_err=err_v,
+        regress_any_preds_per_s=len(request) / (timing["nn"]
+                                                + timing["pred"]),
+    )
+    log(f"phase 17 (b) do_regress ({len(train)} points, batch {batch}, "
+        f"Bayes 5 + 20 probes, {len(request)} queries): "
+        + json.dumps(out) + f"; var limit {tol_v:.3e}, smallest f64 "
+        f"variance {float(v64.min()):.3e}")
+    if torch.device(dev).type == "cuda":
+        assert launches["knn_candidates_pruned"] > 0
+    assert rel_f32 <= OBJECTIVE_RTOL, "the card's f32 optimum is short"
+    assert rel <= OBJECTIVE_RTOL, "do_regress's f64 optimum is off the CPU's"
+    assert err_m <= MEAN_TOL_F32 and err_v <= tol_v
+    assert tol_v <= 0.1 * float(np.abs(v64).min()), "variance gate too loose"
+
+    # regress_any's predictions/s beside the captured fused engine's for
+    # the trained model, alternated (regress_any, fused, fused,
+    # regress_any) twice
+    if torch.device(dev).type != "cuda":
+        return out, launches, {}
+    server = FastServer(model, nbrs, train, y_train, bucket=QUERIES,
+                        engine="fused")
+    server.predict(request)  # capture
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    serve(torch, server, [request])
+    fused_launches = dict(_build.launches)
+    rates = {"regress_any": [], "fused": []}
+    for mode in ("regress_any", "fused", "fused", "regress_any") * 2:
+        if mode == "fused":
+            rates[mode].append(serve(torch, server, [request])[2])
+            continue
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        regress_any(model, request, train, nbrs, y_train)
+        rates[mode].append(len(request) / (time.perf_counter() - t0))
+    out["preds_per_s"] = {k: statistics.median(v) for k, v in rates.items()}
+    out["rates"] = rates
+    log("phase 17 (b) predictions/s, one request, alternated: "
+        + json.dumps(rates))
+    assert fused_launches["fused_predict_coords"] > 0
+    return out, launches, fused_launches
+
+
+def two_class_data(np, n, seed):
+    """tests/test_examples.py's two noisy interleaved half-moons (one-hot
+    -1/1 labels), n points, half of them for training."""
+    rng = np.random.default_rng(seed)
+    t = rng.uniform(0, np.pi, n)
+    cls = rng.integers(0, 2, n)
+    x = np.stack([
+        np.cos(t) * (1 - 2 * cls) + 0.3 * rng.standard_normal(n) + cls,
+        np.sin(t) * (1 - 2 * cls) + 0.3 * rng.standard_normal(n) + 0.5 * cls,
+    ], axis=1)
+    labels = np.full((n, 2), -1.0)
+    labels[np.arange(n), cls] = 1.0
+    ntr = n // 2
+    return x[:ntr], labels[:ntr], x[ntr:], labels[ntr:]
+
+
+def classify_kwargs():
+    """tests/test_examples.py's surrogate classifier: RBF on F2, free
+    length scale, noise 1e-3."""
+    from muygpys_torch.gp.deformation import F2, Isotropy
+    from muygpys_torch.gp.hyperparameter import Parameter
+    from muygpys_torch.gp.kernels import RBF
+    from muygpys_torch.gp.noise import HomoscedasticNoise
+
+    return {
+        "kernel": RBF(deformation=Isotropy(
+            F2, length_scale=Parameter(0.5, (0.05, 2.0)))),
+        "noise": HomoscedasticNoise(1e-3),
+    }
+
+
+def phase_classify(torch, dev="cuda", n=CLASSIFY_POINTS):
+    """(c) do_classify and do_classify_uq on the half-moons (n/2 training
+    points), cross-entropy, NN_Wrapper(nn_method="kernel"), 3 + 5 Bayes
+    probes; the classes at the CPU f64 optimum on the same neighbours."""
+    import numpy as np
+
+    from muygpys_torch import config
+    from muygpys_torch.examples.classify import classify_any, do_classify
+    from muygpys_torch.examples.from_indices import optimize_from_indices
+    from muygpys_torch.examples.two_class_classify_uq import (
+        do_classify_uq,
+        do_uq,
+    )
+    from muygpys_torch.gp import MuyGPS
+    from muygpys_torch.gpu import _build
+    from muygpys_torch.optimize import cross_entropy_fn, get_balanced_batch
+
+    xtr, ytr, xte, yte = (a.astype(np.float32)
+                          for a in two_class_data(np, n, 7))
+    kw = dict(nn_count=NN, nn_kwargs={"nn_method": "kernel"},
+              opt_kwargs={"init_points": 3, "n_iter": 5, "random_state": 0})
+    sync(torch, dev)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    model, nbrs, preds = do_classify(xte, xtr, ytr, k_kwargs=classify_kwargs(),
+                                     device=dev, rng=np.random.default_rng(3),
+                                     **kw)
+    sync(torch, dev)
+    classify_s = time.perf_counter() - t0
+    launches = dict(_build.launches)
+    accuracy = float(np.mean(np.argmax(preds, 1) == np.argmax(yte, 1)))
+
+    # the same optimization on the CPU in f64, on the same batch (the card
+    # index's balanced batch, drawn as make_classifier draws it)
+    labels = np.argmax(ytr, axis=1)
+    bi, bnn = get_balanced_batch(nbrs, labels, 200,
+                                 rng=np.random.default_rng(3))
+    config.update("ftype", 64)
+    ref = optimize_from_indices(
+        MuyGPS(**classify_kwargs()), bi, bnn, xtr, ytr,
+        loss_fn=cross_entropy_fn, device="cpu", **kw["opt_kwargs"])
+    ls_cpu = float(ref.kernel.deformation.length_scale())
+    p64, _ = classify_any(ref, xte, xtr, nbrs, ytr, device="cpu")
+    config.update("ftype", 32)
+    at_cpu = at_params(classify_kwargs(), opt_values(ref))
+    p32, _ = classify_any(at_cpu, xte, xtr, nbrs, ytr, device=dev)
+    agree = float(np.mean(np.argmax(p32, 1) == np.argmax(p64, 1)))
+
+    t0 = time.perf_counter()
+    _, _, uq_preds, masks = do_classify_uq(
+        xte, xtr, ytr, k_kwargs=classify_kwargs(), device=dev,
+        rng=np.random.default_rng(11), **kw)
+    uq_s = time.perf_counter() - t0
+    uq_accuracy, uq = do_uq(uq_preds, yte, masks)
+    out = dict(
+        train_points=len(xtr), test_points=len(xte), accuracy=accuracy,
+        classify_s=classify_s,
+        length_scale=dict(card=float(model.kernel.deformation.length_scale()),
+                          cpu=ls_cpu),
+        classes_agree_with_cpu_f64=agree, uq_accuracy=uq_accuracy,
+        uq=uq.tolist(), mask_shape=list(masks.shape), uq_s=uq_s,
+    )
+    log("phase 17 (c) classification: " + json.dumps(out))
+    if torch.device(dev).type == "cuda":
+        assert launches["knn_candidates_pruned"] > 0
+    assert accuracy > CLASSIFY_ACCURACY_MIN and uq_accuracy > (
+        CLASSIFY_ACCURACY_MIN)
+    assert agree >= CLASSIFY_AGREE_MIN
+    assert masks.shape == (5, len(xte))
+    return out, launches
+
+
+def traced_trainers(torch, dev):
+    """A context that records every make_device_trainer the mini-batch
+    chassis makes, and the seconds and batch of each of its calls."""
+    import contextlib
+
+    from muygpys_torch.optimize import device_chassis
+
+    made = []
+    real = device_chassis.make_device_trainer
+
+    def recording(*args, **kwargs):
+        trainer = real(*args, **kwargs)
+        calls = []
+
+        def timed(*batch, **options):
+            sync(torch, dev)
+            t0 = time.perf_counter()
+            result = trainer(*batch, **options)
+            sync(torch, dev)
+            calls.append((time.perf_counter() - t0, batch, result[1]))
+            return result
+
+        timed.captures, timed.calls = trainer.captures, calls
+        made.append(timed)
+        return timed
+
+    @contextlib.contextmanager
+    def patched():
+        device_chassis.make_device_trainer = recording
+        try:
+            yield made
+        finally:
+            device_chassis.make_device_trainer = real
+
+    return patched()
+
+
+def phase_mini_batch(torch, train, y_train, dev="cuda", batch=TRAIN_BATCH,
+                     epochs=MINI_BATCH_EPOCHS):
+    """(d) optimize_from_tensors_mini_batch(engine="device-lbfgs") at the
+    training headline, keep_state=True: one capture, seconds per epoch,
+    the last epoch's f64 objective against the same call on the CPU in
+    f64."""
+    import numpy as np
+
+    from muygpys_torch import config
+    from muygpys_torch.convert import arrays_from_muygps
+    from muygpys_torch.gpu import _build
+    from muygpys_torch.optimize import make_fast_loo_objective
+    from muygpys_torch.optimize.experimental import (
+        optimize_from_tensors_mini_batch,
+    )
+
+    kw = dict(num_epochs=epochs, keep_state=True, engine="device-lbfgs",
+              nn_kwargs={"nn_method": "kernel"})
+    sync(torch, dev)
+    _build.reset_launches()
+    with traced_trainers(torch, dev) as made:
+        trained, _, seconds, _, steps = optimize_from_tensors_mini_batch(
+            train_model(), train, y_train, NN, batch, len(train),
+            rng=np.random.default_rng(6), device=dev, **kw)
+    launches = dict(_build.launches)
+    (trainer,) = made
+    config.update("ftype", 64)
+    with traced_trainers(torch, "cpu") as made64:
+        ref, _, cpu_s, _, cpu_steps = optimize_from_tensors_mini_batch(
+            train_model(), train, y_train, NN, batch, len(train),
+            rng=np.random.default_rng(6), device="cpu", **kw)
+    config.update("ftype", 32)
+    bt, bnt, cw, pw = made64[0].calls[-1][1][:4]
+    obj, names = make_fast_loo_objective(
+        train_model(), bt, bnt, cw, pw, layout="batched", device="cpu")
+    got, want = arrays_from_muygps(trained), arrays_from_muygps(ref)
+    with torch.no_grad():
+        v_card = float(obj({n: got[n] for n in names}))
+        v_cpu = float(obj({n: want[n] for n in names}))
+    rel = abs(v_card - v_cpu) / abs(v_cpu)
+    epoch_s = [c[0] for c in trainer.calls]
+    out = dict(
+        epochs=epochs, batch=batch, seconds=seconds, steps=steps,
+        first_epoch_s=epoch_s[0], later_epochs_s=epoch_s[1:],
+        captures=trainer.captures(),
+        capture_ms=[c[2]["capture_ms"] for c in trainer.calls],
+        replays=[c[2]["replays"] for c in trainer.calls],
+        parameters=dict(card={n: got[n] for n in names},
+                        cpu={n: want[n] for n in names}),
+        cpu_f64=dict(seconds=cpu_s, steps=cpu_steps),
+        objective_f64=dict(card=v_card, cpu=v_cpu, relative=rel),
+    )
+    log("phase 17 (d) mini-batch chassis (device-lbfgs): " + json.dumps(out))
+    assert len(trainer.calls) == epochs
+    if torch.device(dev).type == "cuda":
+        assert trainer.captures() == 1, "an epoch captured a new graph"
+    assert rel <= OBJECTIVE_RTOL, "the last epoch is off the f64 optimum"
+    return out, launches
+
+
+def nonstationary_field(np, n, seed):
+    """tests/test_nonstationary.py's field: length scale 0.08 left of 0.5,
+    0.6 right of it, a Gibbs-kernel draw."""
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(size=(n, 1))
+    ls_true = np.where(x[:, 0] < 0.5, 0.08, 0.6)
+    lsi, lsj = ls_true[:, None], ls_true[None, :]
+    pref = np.sqrt(2 * lsi * lsj / (lsi**2 + lsj**2))
+    d2 = (x[:, 0:1] - x[None, :, 0]) ** 2
+    K = pref * np.exp(-d2 / (lsi**2 + lsj**2)) + 1e-8 * np.eye(n)
+    y = (np.linalg.cholesky(K) @ rng.standard_normal(n))[:, None]
+    return x, y
+
+
+def hierarchical_model():
+    """tests/test_nonstationary.py's model: four knots, Matern 3/2."""
+    import numpy as np
+
+    from muygpys_torch.gp import MuyGPS
+    from muygpys_torch.gp.deformation import Isotropy, l2
+    from muygpys_torch.gp.hyperparameter import (
+        AnalyticScale,
+        Parameter,
+        VectorParameter,
+    )
+    from muygpys_torch.gp.hyperparameter.experimental import (
+        HierarchicalParameter,
+    )
+    from muygpys_torch.gp.kernels import RBF, Matern
+    from muygpys_torch.gp.noise import HomoscedasticNoise
+
+    knots = np.array([[0.15], [0.35], [0.65], [0.85]])
+    values = VectorParameter(*[Parameter(0.3, (0.02, 1.5))
+                               for _ in range(4)])
+    return MuyGPS(
+        kernel=Matern(smoothness=Parameter(1.5), deformation=Isotropy(
+            l2, length_scale=HierarchicalParameter(knots, values, RBF()))),
+        noise=HomoscedasticNoise(1e-5), scale=AnalyticScale(),
+    )
+
+
+def phase_hierarchical(torch, dev="cuda", n=HIER_POINTS, batch=HIER_BATCH,
+                       dtype=None):
+    """(e) the nonstationary field through make_device_trainer(...,
+    batch_features=) in ``dtype`` (torch.float32 or torch.float64): the
+    field's ordering and the f64 objective against the CPU's f64 optimum;
+    then a second batch through the same trainer with its own features, a
+    replay.  In f64 the replay is held to the CPU's eager run on that
+    batch (a stale-buffer replay would give the first batch's knots), and
+    the first batch's f64 objective to the CPU's optimum; in f32 both
+    batches are held to the field's ordering and the objectives are
+    logged."""
+    import numpy as np
+
+    from muygpys_torch.neighbors import NN_Wrapper
+    from muygpys_torch.optimize import (
+        make_device_trainer,
+        make_fast_loo_objective,
+    )
+
+    x, y = nonstationary_field(np, n, 8)
+    nbrs = NN_Wrapper(x, NN, device=dev)
+    batches = []
+    for seed in (0, 1):
+        bi = np.random.default_rng(seed).choice(n, batch, replace=False)
+        batches.append((bi, nbrs.get_batch_nns(bi)[0]))
+    model = hierarchical_model()
+    names = model.get_opt_params()[0]
+
+    def tensors(k, device, dt):
+        """The k-th batch's (bt, bnt, cw, pw) and its features."""
+        bi, bni = batches[k]
+        xd = torch.as_tensor(x, dtype=dt, device=device)
+        yd = torch.as_tensor(y, dtype=dt, device=device)
+        cw, pw, bt, bnt = model.make_train_tensors(bi, bni, xd, yd)
+        return (bt, bnt, cw, pw), xd[torch.as_tensor(bi, device=device)]
+
+    def knots(m):
+        return m.get_opt_params()[1]
+
+    def cpu_f64(k):
+        """The CPU's f64 eager optimum on batch k, and that batch's f64
+        objective."""
+        batch64, bf64 = tensors(k, "cpu", torch.float64)
+        ref, _ = make_device_trainer(model, device="cpu")(
+            *batch64, batch_features=bf64)
+        obj, _ = make_fast_loo_objective(model, *batch64, layout="batched",
+                                         batch_features=bf64, device="cpu")
+        return knots(ref), lambda kn: float(obj(dict(zip(names, kn))))
+
+    trainer = make_device_trainer(model, device=dev)
+    batch0, bf0 = tensors(0, dev, dtype)
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    card, info = trainer(*batch0, batch_features=bf0)
+    sync(torch, dev)
+    train_s = time.perf_counter() - t0
+    k_card = knots(card)
+    ratio = float(np.mean(k_card[2:]) / np.mean(k_card[:2]))
+    k_cpu, obj0 = cpu_f64(0)
+    with torch.no_grad():
+        v_card, v_cpu = obj0(k_card), obj0(k_cpu)
+    rel = abs(v_card - v_cpu) / abs(v_cpu)
+    # the second batch through the same trainer, with its own features
+    batch1, bf1 = tensors(1, dev, dtype)
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    replay, info1 = trainer(*batch1, batch_features=bf1)
+    sync(torch, dev)
+    replay_s = time.perf_counter() - t0
+    k_replay = knots(replay)
+    ratio1 = float(np.mean(k_replay[2:]) / np.mean(k_replay[:2]))
+    k_eager, obj1 = cpu_f64(1)
+    replay_rel = float(np.max(np.abs(k_replay / k_eager - 1)))
+    with torch.no_grad():
+        v_replay, v_eager = obj1(knots(replay)), obj1(k_eager)
+    replay_obj_rel = abs(v_replay - v_eager) / abs(v_eager)
+    out = dict(
+        dtype=str(dtype), points=n, batch=batch, train_s=train_s,
+        iterations=info["iterations"], evaluations=info["evaluations"],
+        replays=info["replays"], capture_ms=info["capture_ms"],
+        knots_card=k_card.tolist(), knots_cpu_f64=k_cpu.tolist(),
+        right_over_left=ratio,
+        objective_f64=dict(card=v_card, cpu=v_cpu, relative=rel),
+        second_batch=dict(seconds=replay_s, captures=trainer.captures(),
+                          capture_ms=info1["capture_ms"],
+                          replays=info1["replays"],
+                          right_over_left=ratio1,
+                          knots_relative_to_eager=replay_rel,
+                          objective_f64_relative=replay_obj_rel),
+    )
+    log("phase 17 (e) hierarchical length scale: " + json.dumps(out))
+    assert min(ratio, ratio1) > HIER_RATIO_MIN, "the ordering is not recovered"
+    if torch.device(dev).type == "cuda":
+        assert trainer.captures() == 1 and info1["capture_ms"] == 0
+    # in f32 the objectives are readings: at the knots' upper bound a
+    # neighbourhood (30 points within ~0.0075 under a length scale of 1.5,
+    # nugget 1e-5) has a condition number near 3e6, which f32's Cholesky
+    # cannot resolve (PERF.md, Findings)
+    if dtype == torch.float64:
+        assert rel <= OBJECTIVE_RTOL, "the card's knots are off the f64 optimum"
+        assert replay_rel <= HIER_REPLAY_RTOL, "the replay used stale features"
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3253,10 +3958,10 @@ def main() -> int:
     assert (launches_by_path["dists"]["fused_predict/registers"]
             == launches_by_path["dists"]["fused_predict"] > 0)
     assert np.isfinite(m_b).all() and np.isfinite(v_b).all()
-    # f32: the distance tensors themselves are the Gram identity's, so K1b
-    # is held to the f64 plain version on the SAME tensors, and the whole
-    # workflow to the reference engine (the same assembly in f64) under the
-    # assembly's f32 floor
+    # f32: the distance tensors themselves carry the assembly's f32
+    # rounding, so K1b is held to the f64 plain version on the SAME
+    # tensors, and the whole workflow to the reference engine (the same
+    # assembly in f64) under the assembly's f32 floor
     err_m = float(np.abs(m_b - m_p).max())
     err_v = float(np.abs(v_b - v_p).max())
     off_m = float(np.abs(m_b - ref[0][:QUERIES]).max())
@@ -3266,7 +3971,7 @@ def main() -> int:
         f"{err_m:.3e} (tol {MEAN_TOL_F32}), var {err_v:.3e} (tol "
         f"{VAR_TOL_F32}); vs the f64 reference engine mean {off_m:.3e} (tol "
         f"{DISTS_F32_GRAM_FLOOR[0]}), var {off_v:.3e} (tol "
-        f"{DISTS_F32_GRAM_FLOOR[1]}; the f32 Gram-identity distances)")
+        f"{DISTS_F32_GRAM_FLOOR[1]}; the f32 distance assembly)")
     assert err_m <= MEAN_TOL_F32 and err_v <= VAR_TOL_F32
     assert (off_m <= DISTS_F32_GRAM_FLOOR[0]
             and off_v <= DISTS_F32_GRAM_FLOOR[1]), (
@@ -3368,10 +4073,30 @@ def main() -> int:
     fast_numbers["phase_s"] = time.perf_counter() - t_fast
     log("fast mean: " + json.dumps(fast_numbers))
 
-    # 17. kernels line: launches on each kernel's path (serving: fused and
+    # 17. the user workflows: every NN_Wrapper method, do_regress (beside
+    # the captured fused engine), classification with UQ, the mini-batch
+    # chassis and a hierarchical length scale, each against f64 on the CPU
+    t_workflows = time.perf_counter()
+    _, launches_by_path["workflow_nn_kernel"] = phase_nn_methods(
+        torch, train, requests[0]
+    )
+    (_, launches_by_path["workflow_regress"],
+     launches_by_path["workflow_fused"]) = phase_do_regress(
+        torch, train, y_train, requests[0]
+    )
+    _, launches_by_path["workflow_classify"] = phase_classify(torch)
+    _, launches_by_path["workflow_mini_batch"] = phase_mini_batch(
+        torch, train, y_train
+    )
+    for dtype in (torch.float32, torch.float64):
+        phase_hierarchical(torch, dtype=dtype)
+    log(f"phase 17 (workflows): {time.perf_counter() - t_workflows:.1f} s")
+
+    # 18. kernels line: launches on each kernel's path (serving: fused and
     # fused_gen; the distance workflow: dists; training: train and
-    # train_gen; shear serving: shear; the fast posterior mean: fast_mean),
-    # counted from zero just before the path ran
+    # train_gen; shear serving: shear; the fast posterior mean: fast_mean;
+    # the workflows of phase 17: workflow_*), counted from zero just before
+    # the path ran
     k1_src = "muygpys_torch/gpu/csrc/fused_predict.cu"
     k4_src = "muygpys_torch/gpu/csrc/matern_nu.cuh"
     k4_tpu = "muygpys_tpu/pallas/matern_nu.py:273"
@@ -3493,5 +4218,46 @@ def main() -> int:
     return 0
 
 
+def exact_bench(root) -> int:
+    """``--exact-bench ROOT``: five timings each of the exact search
+    (NN_Wrapper("exact").get_nns, one request of 8192 against the 50,000
+    headline points) and of phase 14's three shear requests, with the
+    muygpys_torch package at ROOT."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.abspath(root))
+    import numpy as np
+
+    import muygpys_torch
+    from muygpys_torch.neighbors import NN_Wrapper
+    from muygpys_torch.serve import FastServer
+
+    rng = np.random.default_rng(1)
+    train = rng.uniform(size=(TRAIN, D)).astype(np.float32)
+    rng.standard_normal((TRAIN, 1))
+    request = rng.uniform(size=(QUERIES, D)).astype(np.float32)
+    nbrs = NN_Wrapper(train, NN)
+    nbrs.get_nns(request[:64])
+    get_nns_s = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        nbrs.get_nns(request)  # numpy out: synchronised
+        get_nns_s.append(time.perf_counter() - t0)
+    sky, sky_targets, shear_requests = shear_sky(np)
+    server = FastServer(shear_model(), NN_Wrapper(sky, SHEAR_NN), sky,
+                        sky_targets, bucket=SHEAR_BATCH, engine="kernel")
+    server.predict(shear_requests[-1])
+    rates = [serve(torch, server, shear_requests)[2] for _ in range(5)]
+    print(json.dumps({"package": os.path.dirname(muygpys_torch.__file__),
+                      "get_nns_s": get_nns_s,
+                      "shear_preds_per_s": rates}), flush=True)
+    return 0
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--exact-bench"]:
+        sys.exit(exact_bench(sys.argv[2]))
     sys.exit(main())

@@ -11,7 +11,8 @@ Entry points (:class:`muygpys_torch.serve.FastServer`,
 ``device="cpu"``; without a CUDA device they raise instead of falling back.
 
 Importing the package compiles nothing: the CUDA sources under
-``muygpys_torch/gpu/csrc`` are built with ``nvcc`` on first use.
+``muygpys_torch/gpu/csrc`` are built with ``nvcc``, and the HNSW index's
+``muygpys_torch/native/hnsw.cpp`` with ``g++``, on first use.
 """
 
 from muygpys_torch import config

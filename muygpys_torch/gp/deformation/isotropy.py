@@ -5,11 +5,15 @@ Counterpart of :mod:`muygpys_tpu.gp.deformation.isotropy`.  ``Isotropy``'s
 tensors are *distances*, assembled from indices through the metric's
 Gram-identity path; ``DifferenceIsotropy``'s are the feature-wise
 *differences* the shear kernels need.  The length scale is the named
-parameter ``length_scale``; hierarchical (nonstationary) length scales are
-not ported yet.
+parameter ``length_scale``, or a hierarchical (nonstationary) one
+(:class:`muygpys_torch.gp.hyperparameter.experimental.HierarchicalParameter`),
+whose knot values are the named parameters ``length_scale0``, ... and whose
+per-point values need ``batch_features=`` at every kernel evaluation.
 """
 
 from __future__ import annotations
+
+import torch
 
 from muygpys_torch.gp.deformation.deformation_fn import DeformationFn
 from muygpys_torch.gp.deformation.metric import MetricFn
@@ -20,17 +24,32 @@ class Isotropy(DeformationFn):
     """Scalar-length-scale deformation over a distance tensor."""
 
     def __init__(self, metric: MetricFn, length_scale: Parameter):
-        if not isinstance(length_scale, Parameter):
+        from muygpys_torch.gp.hyperparameter.experimental import (
+            HierarchicalParameter,
+            NamedHierarchicalParameter,
+        )
+
+        if isinstance(length_scale, Parameter):
+            self.length_scale = NamedParameter("length_scale", length_scale)
+        elif isinstance(length_scale, HierarchicalParameter):
+            self.length_scale = NamedHierarchicalParameter(
+                "length_scale", length_scale
+            )
+        else:
             raise ValueError(
                 "expected Parameter type for length_scale, not "
                 f"{type(length_scale)}"
             )
         self.metric = metric
-        self.length_scale = NamedParameter("length_scale", length_scale)
 
     def __call__(self, dists, length_scale=None, **kwargs):
         if length_scale is None:
-            length_scale = self.length_scale()
+            length_scale = self.length_scale(**kwargs)
+        # a hierarchical length scale is one value per batch element
+        if torch.is_tensor(length_scale) and length_scale.ndim > 0:
+            length_scale = length_scale.reshape(
+                (-1,) + (1,) * (dists.ndim - 1)
+            )
         return self.metric.apply_length_scale(dists, length_scale)
 
     def pairwise_tensor(self, data, nn_indices):

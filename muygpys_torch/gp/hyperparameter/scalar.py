@@ -212,6 +212,13 @@ class NamedVectorParameter(VectorParameter):
         rest = {k: v for k, v in kwargs.items() if k not in mine}
         return self.set_defaults(**params), rest
 
+    def apply_fn(self, fn: Callable) -> Callable:
+        def applied_fn(*args, **kwargs):
+            params, kwargs = self.filter_kwargs(**kwargs)
+            return fn(*args, **params, **kwargs)
+
+        return applied_fn
+
     def apply_embedding_fn(
         self, fn: Callable, deformation_fn: Callable
     ) -> Callable:

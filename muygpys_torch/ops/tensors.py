@@ -78,8 +78,16 @@ def l2(diffs: torch.Tensor) -> torch.Tensor:
 
 def pairwise_F2(data, nn_indices) -> torch.Tensor:
     """Squared-l2 distances ``(batch, nn, nn)`` among each neighborhood via
-    the Gram identity, clamped at 0 against cancellation."""
+    the Gram identity, clamped at 0 against cancellation.
+
+    Each neighborhood is first moved to its first point.  The identity
+    loses ~eps * |a|^2 absolute, which in f32 on unit-scale coordinates is
+    a few 1e-7 against squared neighbor distances of ~1e-4: enough to make
+    a neighborhood's kernel matrix indefinite at a short length scale and a
+    small noise.  The shift is exact for nearby points (Sterbenz), so the
+    loss falls to ~eps * |a - b|^2."""
     points = _atleast_feature_dim(data)[nn_indices]
+    points = points - points[..., :1, :]
     sq = torch.sum(points * points, dim=-1)
     gram = points @ points.transpose(-2, -1)
     d2 = sq[..., :, None] + sq[..., None, :] - 2.0 * gram
@@ -88,16 +96,13 @@ def pairwise_F2(data, nn_indices) -> torch.Tensor:
 
 def crosswise_F2(data, nn_data, data_indices, nn_indices) -> torch.Tensor:
     """Squared-l2 distances ``(batch, nn)`` between batch points and their
-    neighbors via the Gram identity."""
+    neighbors, by direct differences (the ``(batch, nn, feat)`` neighbor
+    tensor is gathered either way, so the Gram identity would save nothing
+    and lose the precision :func:`pairwise_F2` keeps); 1-D ``nn_indices``
+    give one candidate set shared by every location (a knot grid)."""
     locations = _atleast_feature_dim(data)[data_indices]  # (batch, feat)
-    points = _atleast_feature_dim(nn_data)[nn_indices]  # (batch, nn, feat)
-    gram = torch.einsum("bf,bnf->bn", locations, points)
-    d2 = (
-        torch.sum(locations * locations, dim=-1)[..., None]
-        + torch.sum(points * points, dim=-1)
-        - 2.0 * gram
-    )
-    return torch.clamp_min(d2, 0.0)
+    points = _atleast_feature_dim(nn_data)[nn_indices]  # ([batch,] nn, feat)
+    return F2(points - locations[..., None, :])
 
 
 def make_heteroscedastic_tensor(measurement_noise, batch_nn_indices):

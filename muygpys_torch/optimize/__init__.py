@@ -1,9 +1,10 @@
 """LOO training: batch sampling, objectives, losses and the chassis.
 
-Counterpart of :mod:`muygpys_tpu.optimize` for the training slices, the
-device chassis (:mod:`muygpys_torch.optimize.device_chassis`: whole L-BFGS
-trajectories replayed as CUDA graphs) included.  Not ported yet:
-``Bayes_optimize``.
+Counterpart of :mod:`muygpys_tpu.optimize`: the Bayesian, L-BFGS-B, Adam
+and fused chassis, the device chassis
+(:mod:`muygpys_torch.optimize.device_chassis`: whole L-BFGS trajectories
+replayed as CUDA graphs), and the mini-batch loop of
+:mod:`muygpys_torch.optimize.experimental`.
 """
 
 from muygpys_torch.optimize.batch import (
@@ -14,6 +15,7 @@ from muygpys_torch.optimize.batch import (
 )
 from muygpys_torch.optimize.chassis import (
     Adam_optimize,
+    Bayes_optimize,
     L_BFGS_B_optimize,
     OptimizeFn,
 )
@@ -45,6 +47,7 @@ from muygpys_torch.optimize.shear_objective import (
 
 __all__ = [
     "Adam_optimize",
+    "Bayes_optimize",
     "Device_LBFGS_optimize",
     "Fused_Device_LBFGS_optimize",
     "Fused_L_BFGS_B_optimize",

@@ -1,11 +1,22 @@
 """Outer-loop optimization chassis.
 
 Counterpart of :mod:`muygpys_tpu.optimize.chassis`: ``OptimizeFn``,
-``L_BFGS_B_optimize`` and ``Adam_optimize``.  Both optimize in the
-unconstrained z-space of :mod:`muygpys_torch.optimize.bijectors`, on exact
-``torch.autograd`` gradients through the whole objective (kernel ->
-Cholesky -> loss), eagerly: one objective evaluation is one forward and one
-backward pass.
+``Bayes_optimize``, ``L_BFGS_B_optimize`` and ``Adam_optimize``.  The two
+gradient chassis optimize in the unconstrained z-space of
+:mod:`muygpys_torch.optimize.bijectors`, on exact ``torch.autograd``
+gradients through the whole objective (kernel -> Cholesky -> loss),
+eagerly: one objective evaluation is one forward and one backward pass.
+
+``Bayes_optimize`` is derivative-free: the Gaussian-process surrogate and
+expected improvement of :mod:`muygpys_torch.optimize.bayes` over the
+parameters' box bounds (5 random probes and 20 suggested ones by default,
+after a probe at the model's current values), one objective evaluation a
+probe with no gradient.  A probe whose Cholesky fails scores as a
+non-finite one does (``-1e12``), as in JAX, where the factorization
+returns NaN.
+
+A hierarchical (nonstationary) length scale needs the batch's features:
+pass ``batch_features=`` to the chassis or to ``make_obj_fn``.
 
 ``L_BFGS_B_optimize`` is scipy's L-BFGS-B.  A proposal whose objective or
 gradient is not finite scores a large finite penalty, so the line search
@@ -16,11 +27,12 @@ finite at the initial point, the chassis runs derivative-free.
 
 ``Adam_optimize`` is a ``torch.optim.Adam`` loop with the JAX package's
 defaults (learning rate 0.05, 200 steps), the counterpart of its
-``lax.scan`` over optax Adam.  ``Bayes_optimize`` is not ported yet.
+``lax.scan`` over optax Adam.
 """
 
 from __future__ import annotations
 
+import math
 from copy import deepcopy
 from typing import Callable, Dict, Optional
 
@@ -28,6 +40,7 @@ import numpy as np
 import torch
 
 from muygpys_torch.optimize import bijectors
+from muygpys_torch.optimize.bayes import BayesianOptimization
 from muygpys_torch.optimize.loss import LossFn, lool_fn
 from muygpys_torch.optimize.objective import make_loo_crossval_fn
 
@@ -123,6 +136,44 @@ def _scipy_optimize(muygps, obj_fn, like, verbose: bool = False, **kwargs):
     )
 
 
+def scalar_objective(obj_fn: Callable) -> Callable:
+    """``obj_fn`` as a function of floats returning a float, without
+    gradients; a failed Cholesky gives NaN, which the Bayesian optimizer
+    scores ``-1e12`` (as a NaN factor is in JAX)."""
+
+    def scalar_obj(**params):
+        with torch.no_grad():
+            try:
+                return float(obj_fn(**params))
+            except torch.linalg.LinAlgError:
+                return math.nan
+
+    return scalar_obj
+
+
+def _bayes_opt_optimize(muygps, obj_fn, like, verbose: bool = False,
+                        **kwargs):
+    """Bayesian optimization over the box bounds (``init_points`` random
+    probes and ``n_iter`` suggested ones, 5 and 20 by default, after a
+    probe at the current values; ``random_state`` seeds the draws)."""
+    x0_names, x0, bounds = _get_opt_lists(muygps, verbose=verbose)
+    maximize_kwargs = {
+        k: kwargs[k] for k in kwargs if k in {"init_points", "n_iter"}
+    }
+    maximize_kwargs.setdefault("init_points", 5)
+    maximize_kwargs.setdefault("n_iter", 20)
+    optimizer_kwargs = {k: kwargs[k] for k in kwargs if k in {"random_state"}}
+    optimizer = BayesianOptimization(
+        f=scalar_objective(obj_fn),
+        pbounds={n: tuple(bounds[i]) for i, n in enumerate(x0_names)},
+        verbose=1 if verbose else 0,
+        **optimizer_kwargs,
+    )
+    optimizer.probe({n: x0[i] for i, n in enumerate(x0_names)}, lazy=True)
+    optimizer.maximize(**maximize_kwargs)
+    return _new_muygps(muygps, x0_names, bounds, optimizer.max["params"])
+
+
 def _adam_optimize(
     muygps,
     obj_fn,
@@ -169,6 +220,7 @@ class OptimizeFn:
         batch_nn_targets,
         crosswise_diffs,
         pairwise_diffs,
+        batch_features=None,
         loss_fn: LossFn = lool_fn,
         loss_kwargs: Optional[Dict] = None,
         target_mask=None,
@@ -176,7 +228,9 @@ class OptimizeFn:
         **kwargs,
     ):
         """Optimize the model's free parameters over a fixed training batch
-        (tensors on any device; the optimization runs where they are)."""
+        (tensors on any device; the optimization runs where they are).
+        ``batch_features`` (the batch points' features) is needed by a
+        hierarchical length scale."""
         pairwise_diffs = torch.as_tensor(pairwise_diffs)
         obj_fn = self.make_obj_fn(
             muygps,
@@ -184,6 +238,7 @@ class OptimizeFn:
             batch_nn_targets,
             crosswise_diffs,
             pairwise_diffs,
+            batch_features=batch_features,
             target_mask=target_mask,
             loss_fn=loss_fn,
             loss_kwargs=loss_kwargs,
@@ -199,9 +254,11 @@ class OptimizeFn:
         batch_nn_targets,
         crosswise_diffs,
         pairwise_diffs,
+        batch_features=None,
         target_mask=None,
         loss_fn: LossFn = lool_fn,
         loss_kwargs: Optional[Dict] = None,
+        **kwargs,
     ) -> Callable:
         pairwise_diffs = torch.as_tensor(pairwise_diffs)
 
@@ -220,9 +277,16 @@ class OptimizeFn:
             like(crosswise_diffs),
             like(batch_nn_targets),
             like(batch_targets),
+            batch_features=(
+                None if batch_features is None else like(batch_features)
+            ),
             target_mask=target_mask,
             loss_kwargs=loss_kwargs,
         )
+
+
+Bayes_optimize = OptimizeFn(_bayes_opt_optimize, make_loo_crossval_fn)
+"""Bayesian-optimization chassis (GP surrogate + expected improvement)."""
 
 
 L_BFGS_B_optimize = OptimizeFn(_scipy_optimize, make_loo_crossval_fn)

@@ -358,21 +358,26 @@ def Fused_Device_LBFGS_optimize(
     maxiter: int = 200,
     gtol: float = 1e-7,
     ftol: float = 2.22e-9,
+    batch_features=None,
     device=None,
     info: Optional[dict] = None,
     **kwargs,
 ):
     """The fused objective on the device chassis; returns the optimized
     model.  ``engine="kernel"`` evaluates K2 (value and analytic gradient;
-    free smoothness and anisotropy included), ``"lanes"`` the batched-layout
-    objective (:func:`make_fast_loo_objective`) under autograd; a shear
-    model trains on the batched shear assembly whatever ``engine`` says.
+    free smoothness and anisotropy included; a hierarchical length scale
+    raises a ``ValueError`` naming ``engine="lanes"``), ``"lanes"`` the
+    batched-layout objective (:func:`make_fast_loo_objective`, a
+    hierarchical field at ``batch_features`` included) under autograd; a
+    shear model trains on the batched shear assembly whatever ``engine``
+    says.
     Runs on ``device`` (default ``"cuda"``); pass a dict as ``info`` to
     receive the run's counts (iterations, evaluations, replays, capture
     and wall milliseconds)."""
     run, names, bounds, z0 = _fused_trajectory(
         muygps, batch_targets, batch_nn_targets, crosswise_dists,
         pairwise_dists, loss, engine, verbose, maxiter, gtol, ftol, device,
+        batch_features,
     )
     result = run.run(z0)
     if info is not None:
@@ -383,7 +388,7 @@ def Fused_Device_LBFGS_optimize(
 def _fused_trajectory(muygps, batch_targets, batch_nn_targets,
                       crosswise_dists, pairwise_dists, loss="lool",
                       engine="kernel", verbose=False, maxiter=200, gtol=1e-7,
-                      ftol=2.22e-9, device=None):
+                      ftol=2.22e-9, device=None, batch_features=None):
     """``(Trajectory, names, bounds, z0)`` of
     :func:`Fused_Device_LBFGS_optimize`: a second ``run`` of the same
     trajectory replays its graph without a new capture (the smoke script
@@ -406,6 +411,7 @@ def _fused_trajectory(muygps, batch_targets, batch_nn_targets,
         vag = _analytic_vag(obj, bounds, dev)
     else:
         obj, _ = make_fast_loo_objective(*args, loss=loss, layout="batched",
+                                         batch_features=batch_features,
                                          device=dev)
         vag = _autograd_vag(obj, names, bounds, dtype)
     run = Trajectory(vag, len(names), dev, maxiter, gtol, ftol)
@@ -438,10 +444,14 @@ def make_device_trainer(
     of that shape.
 
     Returns ``trainer(batch_targets, batch_nn_targets, crosswise_dists,
-    pairwise_dists, z_init=None) -> (MuyGPS, info)``.  The first batch of a
-    shape builds the objective over static buffers (and on a card captures
-    its steps once); a later batch of the same shape is copied into the
-    buffers and replays the same graph.  ``info["z"]`` is the final
+    pairwise_dists, z_init=None, batch_features=None) -> (MuyGPS, info)``.
+    The first batch of a shape builds the objective over static buffers
+    (and on a card captures its steps once); a later batch of the same
+    shape is copied into the buffers and replays the same graph.
+    ``batch_features`` (a hierarchical length scale's field is evaluated
+    there) is a fifth buffer, refilled with each batch's features like the
+    other four: the captured steps read the buffer, never the first
+    batch's features.  ``info["z"]`` is the final
     unconstrained iterate: pass it as ``z_init`` to warm-start the next
     epoch.  ``trainer.cache_size()`` counts the programs built,
     ``trainer.captures()`` the graphs captured (0 on the CPU).
@@ -466,11 +476,12 @@ def make_device_trainer(
     programs = {}
 
     def build(buffers):
-        bt, bnt, cw, pw = buffers
+        bt, bnt, cw, pw = buffers[:4]
+        bf = buffers[4] if len(buffers) > 4 else None
         if use_fast:
             obj, _ = make_fast_loo_objective(
                 muygps, bt, bnt, cw, pw, loss=loss, layout="batched",
-                device=dev,
+                batch_features=bf, device=dev,
             )
         elif use_shear:
             obj, _ = make_shear_loo_objective(
@@ -479,7 +490,7 @@ def make_device_trainer(
             )
         else:
             raw = L_BFGS_B_optimize.make_obj_fn(
-                muygps, bt, bnt, cw, pw, loss_fn=loss_obj
+                muygps, bt, bnt, cw, pw, batch_features=bf, loss_fn=loss_obj
             )
 
             def obj(theta):
@@ -490,11 +501,12 @@ def make_device_trainer(
                           memory_size)
 
     def trainer(batch_targets, batch_nn_targets, crosswise_dists,
-                pairwise_dists, z_init=None):
-        batch = [
-            torch.as_tensor(t, device=dev) for t in
-            (batch_targets, batch_nn_targets, crosswise_dists, pairwise_dists)
-        ]
+                pairwise_dists, z_init=None, batch_features=None):
+        arrays = (batch_targets, batch_nn_targets, crosswise_dists,
+                  pairwise_dists)
+        if batch_features is not None:
+            arrays += (batch_features,)
+        batch = [torch.as_tensor(t, device=dev) for t in arrays]
         dtype = batch[3].dtype
         batch = [t.to(dtype) for t in batch]
         key = tuple((tuple(t.shape), t.dtype) for t in batch)

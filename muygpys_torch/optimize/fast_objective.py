@@ -12,8 +12,11 @@ that does not depend on JAX.
 Covered: Matern with a fixed closed-form nu (its closed form) or any other
 fixed or free nu (the exact Bessel path of :mod:`muygpys_torch.ops.bessel`,
 differentiable in nu), or RBF; Isotropy or Anisotropy;
-homoscedastic (optionally free) or heteroscedastic noise; loss lool, mse,
-looph or huber (unnormalized pseudo-Huber on the mean).  The reference's
+a hierarchical (nonstationary) length scale under Isotropy, its field
+re-solved from the knot values at every evaluation (pass
+``batch_features``); homoscedastic (optionally free) or heteroscedastic
+noise; loss lool, mse, looph or huber (unnormalized pseudo-Huber on the
+mean).  The reference's
 stored-noise sigma^2 quirk is carried over exactly: sigma^2 perturbs Kin
 with the model's STORED noise, so a free noise costs a second
 factorization and d sigma^2 / d noise = 0.
@@ -51,9 +54,7 @@ LOSSES = ("lool", "mse", "looph", "huber")
 
 def check_model(muygps, loss: str) -> str:
     """Raise a clear error for a model class or loss the fast objectives do
-    not take, before anything runs; returns the canonical loss name.
-    (Hierarchical length scales cannot reach here: ``Isotropy`` refuses them
-    when the model is built.)"""
+    not take, before anything runs; returns the canonical loss name."""
     loss = _LOSS_ALIASES.get(loss, loss)
     kernel = muygps.kernel
     if not isinstance(kernel, (Matern, RBF)):
@@ -115,6 +116,41 @@ def batch_last(muygps, batch_targets, batch_nn_targets, crosswise_dists,
     return pw_bl, cw_bl, y.permute(1, 2, 0), t.permute(1, 0), d_feat
 
 
+def is_hierarchical(muygps) -> bool:
+    """True iff the model's length scale is a hierarchical (nonstationary)
+    parameter."""
+    from muygpys_torch.gp.hyperparameter.experimental import (
+        NamedHierarchicalParameter,
+    )
+
+    deformation = muygps.kernel.deformation
+    return isinstance(deformation, Isotropy) and isinstance(
+        deformation.length_scale, NamedHierarchicalParameter
+    )
+
+
+def _hierarchical_field(muygps, batch_features, like):
+    """``params -> (B,)`` length scales of a hierarchical model at the
+    batch's features (the knot values by name in ``params``), or ``None``
+    for any other model.  The features are read at every call, so a
+    caller may refill their tensor between calls."""
+    if not is_hierarchical(muygps):
+        return None
+    if batch_features is None:
+        raise ValueError(
+            "hierarchical (nonstationary) length scales need batch_features"
+        )
+    hier = muygps.kernel.deformation.length_scale
+    hname = hier.name()
+    bf = torch.as_tensor(batch_features, dtype=like.dtype, device=like.device)
+
+    def field(params):
+        knots = {k: v for k, v in params.items() if k.startswith(hname)}
+        return hier(bf, **knots)
+
+    return field
+
+
 def fast_objective_supports(muygps, loss: str = "lool") -> bool:
     """True iff :func:`make_fast_loo_objective` covers this model class."""
     loss = _LOSS_ALIASES.get(loss, loss)
@@ -138,6 +174,7 @@ def make_fast_loo_objective(
     loss: str = "lool",
     layout: str = "lanes",
     boundary_scale: float = None,
+    batch_features=None,
     device=None,
 ) -> Tuple[Callable, list]:
     """Build ``obj_fn(params_dict) -> -loss`` in lane layout.
@@ -153,6 +190,9 @@ def make_fast_loo_objective(
             ``(B, n, d)`` / ``(B, n, n, d)`` for Anisotropy.
         layout: ``"lanes"`` (the floored batch-last elimination) or
             ``"batched"`` (batch first, one batched Cholesky).
+        batch_features: ``(B, f)`` the batch points' features, needed by a
+            hierarchical length scale (its field is evaluated there at
+            every call, from the tensor as it then is).
         device: where the objective runs (default ``"cuda"``).
 
     Returns:
@@ -185,7 +225,8 @@ def make_fast_loo_objective(
     if layout == "batched":
         return _batched_objective(muygps, batch_targets, batch_nn_targets,
                                   crosswise_dists, pairwise_dists, loss,
-                                  boundary_scale, dev, kfn, nu0), names
+                                  boundary_scale, dev, kfn, nu0,
+                                  batch_features), names
     pw_bl, cw_bl, y_bl, t_bl, d_feat = batch_last(
         muygps, batch_targets, batch_nn_targets, crosswise_dists,
         pairwise_dists, dev,
@@ -193,6 +234,7 @@ def make_fast_loo_objective(
     n, B = pw_bl.shape[0], pw_bl.shape[-1]
     metric_name = kernel.deformation.metric.name
     ls_param = kernel.deformation.length_scale
+    field = _hierarchical_field(muygps, batch_features, pw_bl)
 
     if d_feat:
         ls_names = [p.name() for p in ls_param]
@@ -210,6 +252,14 @@ def make_fast_loo_objective(
             if metric_name == "l2":
                 return safe_sqrt(u_p), safe_sqrt(u_c)
             return u_p, u_c
+
+    elif field is not None:
+        apply_ls = kernel.deformation.metric.apply_length_scale
+
+        def scaled_dists(params):
+            ls_b = field(params)  # (B,) nonstationary field
+            return (apply_ls(pw_bl, ls_b[None, None, :]),
+                    apply_ls(cw_bl, ls_b[None, :]))
 
     else:
         apply_ls = kernel.deformation.metric.apply_length_scale
@@ -264,7 +314,7 @@ def make_fast_loo_objective(
 
 def _batched_objective(muygps, batch_targets, batch_nn_targets,
                        crosswise_dists, pairwise_dists, loss, boundary_scale,
-                       dev, kfn, nu0):
+                       dev, kfn, nu0, batch_features=None):
     """``obj_fn`` of the batched layout: the JAX package's batched branch,
     operation for operation."""
     kernel = muygps.kernel
@@ -281,6 +331,7 @@ def _batched_objective(muygps, batch_targets, batch_nn_targets,
     B, n = pw.shape[0], pw.shape[1]
     metric_name = kernel.deformation.metric.name
     ls_param = kernel.deformation.length_scale
+    field = _hierarchical_field(muygps, batch_features, pw)
     if isinstance(kernel.deformation, Anisotropy):
         d_feat = len(ls_param)
         if pw.ndim != 4 or pw.shape[-1] != d_feat:
@@ -301,6 +352,14 @@ def _batched_objective(muygps, batch_targets, batch_nn_targets,
             if metric_name == "l2":
                 return safe_sqrt(u_p), safe_sqrt(u_c)
             return u_p, u_c
+
+    elif field is not None:
+        apply_ls = kernel.deformation.metric.apply_length_scale
+
+        def scaled_dists(params):
+            ls_b = field(params)  # (B,) nonstationary field
+            return (apply_ls(pw, ls_b[:, None, None]),
+                    apply_ls(cw, ls_b[:, None]))
 
     else:
         if pw.ndim != 3:

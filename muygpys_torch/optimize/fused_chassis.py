@@ -26,8 +26,10 @@ every evaluation) and raises a ``ValueError`` that names the generic
 Unlike the JAX chassis there is no fallback: on a CUDA device a kernel that
 does not build or launch, or a probe at the initial point that is not
 finite, raises.  An unsupported model class raises ``ValueError`` before any
-launch; hierarchical length scales never get that far (``Isotropy`` refuses
-them when the model is built).
+launch.  A hierarchical (nonstationary) length scale is such a class for
+K2: ``engine="kernel"`` raises a ``ValueError`` naming ``engine="lanes"``
+(where JAX falls back to its lanes engine), and ``engine="lanes"`` trains
+it, given ``batch_features=`` (the batch points' features).
 
     model = Fused_L_BFGS_B_optimize(model, bt, bnt, cw, pw, loss="lool")
 """
@@ -65,12 +67,15 @@ def Fused_L_BFGS_B_optimize(
     loss: str = "lool",
     engine: str = "kernel",
     verbose: bool = False,
+    batch_features=None,
     device=None,
     **kwargs,
 ):
     """L-BFGS-B over the fused LOO objective on ``device`` (default
     ``"cuda"``; ``"cpu"`` runs K2's plain version); returns the optimized
-    model.  Extra keyword arguments go to ``scipy.optimize.minimize``."""
+    model.  ``batch_features`` is read by a hierarchical length scale
+    (``engine="lanes"``).  Extra keyword arguments go to
+    ``scipy.optimize.minimize``."""
     from scipy import optimize as opt
 
     if engine not in ("kernel", "lanes"):
@@ -96,7 +101,9 @@ def Fused_L_BFGS_B_optimize(
                 *args, loss=loss, layout="batched", device=dev
             )
         else:
-            obj_fn, _ = make_fast_loo_objective(*args, loss=loss, device=dev)
+            obj_fn, _ = make_fast_loo_objective(
+                *args, loss=loss, batch_features=batch_features, device=dev
+            )
         dtype = torch.as_tensor(pairwise_dists).dtype
 
         def vag(params):

@@ -31,7 +31,11 @@ from muygpys_torch.gpu.fused_train import (
     fused_train_stats_bl,
 )
 from muygpys_torch.gpu.matern_nu import NU_MAX, NU_MIN, matern_nu_coeffs
-from muygpys_torch.optimize.fast_objective import batch_last, check_model
+from muygpys_torch.optimize.fast_objective import (
+    batch_last,
+    check_model,
+    is_hierarchical,
+)
 
 
 class FusedTrainObjective:
@@ -102,7 +106,8 @@ def make_fused_train_objective(
     tensors ``(B, n)`` / ``(B, n, n)``) or Anisotropy (per-feature
     differences ``(B, n, d)`` / ``(B, n, n, d)``, one derivative group per
     feature); homoscedastic or heteroscedastic noise; loss in {lool, mse,
-    looph, huber}.  ``boundary_scale`` defaults per loss: 3.0 for looph,
+    looph, huber}.  A hierarchical length scale raises ``ValueError``,
+    naming ``engine="lanes"``, before anything runs.  ``boundary_scale`` defaults per loss: 3.0 for looph,
     1.5 for huber.  Runs on ``device`` (default ``"cuda"``; ``"cpu"`` runs
     K2's plain version).
 
@@ -111,6 +116,13 @@ def make_fused_train_objective(
     ``objective.value(theta)`` the ``torch.autograd`` form.
     """
     loss = check_model(muygps, loss)
+    if is_hierarchical(muygps):
+        raise ValueError(
+            "K2 takes one length scale (or one per feature), not a "
+            "hierarchical field; train a hierarchical model with "
+            "engine=\"lanes\" (or the generic chassis), passing "
+            "batch_features="
+        )
     if boundary_scale is None:
         boundary_scale = 3.0 if loss == "looph" else 1.5
     dev = config.device(device)

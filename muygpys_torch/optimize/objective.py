@@ -31,10 +31,13 @@ def make_loo_crossval_fn(
     crosswise_diffs,
     batch_nn_targets,
     batch_targets,
+    batch_features=None,
     target_mask=None,
     loss_kwargs: Optional[Dict] = None,
 ) -> Callable:
-    """Assemble ``obj_fn(**free_params) -> -loss`` over a fixed batch."""
+    """Assemble ``obj_fn(**free_params) -> -loss`` over a fixed batch;
+    ``batch_features`` goes to every kernel evaluation (a hierarchical
+    length scale reads it) unless the caller passes its own."""
     kernels_fn = make_kernels_fn(kernel_fn, pairwise_diffs, crosswise_diffs)
     predict_and_loss_fn = loss_fn.make_predict_and_loss_fn(
         mean_fn,
@@ -47,6 +50,8 @@ def make_loo_crossval_fn(
     )
 
     def obj_fn(*args, **kwargs):
+        if batch_features is not None:
+            kwargs.setdefault("batch_features", batch_features)
         Kin, Kcross = kernels_fn(*args, **kwargs)
         return predict_and_loss_fn(Kin, Kcross, *args, **kwargs)
 

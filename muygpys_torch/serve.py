@@ -72,7 +72,11 @@ from muygpys_torch.gpu.knn import (
 )
 from muygpys_torch.gpu.matern_nu import NU_MAX, NU_MIN, matern_nu_coeffs_host
 from muygpys_torch.gpu.multiout_solve import multiout_serve_cuda
-from muygpys_torch.neighbors import NN_Wrapper, _brute_force_knn
+from muygpys_torch.neighbors import (
+    NN_Wrapper,
+    _brute_force_knn,
+    _train_tiles,
+)
 from muygpys_torch.ops import tensors as _t
 from muygpys_torch.ops.lanes_solver import serve_mean_and_variance_bl
 
@@ -388,6 +392,7 @@ class FastServer:
             build_index(train, bins=knn_kwargs.get("bins", 512), pruned=spatial)
             if use_kernel else None
         )
+        tiles = None if use_kernel else _train_tiles(train)
 
         def core(queries):
             if use_kernel:
@@ -396,7 +401,8 @@ class FastServer:
                     train_index=knn_index, **knn_kwargs
                 )
             else:
-                cand, _ = _brute_force_knn(train, queries, cand_count)
+                cand, _ = _brute_force_knn(train, queries, cand_count,
+                                           tiles=tiles)
             rows = table[cand]  # (B, C, cols)
             if self.rerank:
                 d2 = torch.sum((rows[:, :, :d] - queries[:, None, :]) ** 2, -1)

@@ -1171,3 +1171,145 @@ def test_fast_posterior_mean_on_the_card_matches_cpu(tmp_path, dtype):
     out = model.fast_coefficients(Kin, torch.ones((3, 4), dtype=dtype,
                                                   device="cuda"))
     assert torch.isnan(out[1]).all() and torch.isfinite(out[[0, 2]]).all()
+
+
+def test_nn_wrapper_methods_on_the_card():
+    """Every NN_Wrapper method with its index on the card: "exact" past
+    one train tile (the scan) and "brute" give the CPU's exact sets,
+    "kernel" (K3 pruned, counted) >= 0.98 of them, "hnsw" recall > 0.9."""
+    _need_card()
+    from muygpys_torch.neighbors import NN_Wrapper
+
+    rng = np.random.default_rng(0)
+    train = rng.uniform(size=(20000, 2)).astype(np.float32)
+    test = rng.uniform(size=(600, 2)).astype(np.float32)
+    exact_cpu = np.sort(
+        NN_Wrapper(train, 30, device="cpu").get_nns(test)[0], 1
+    )
+    for method in ("exact", "brute"):
+        idx, d2 = NN_Wrapper(train, 30, nn_method=method).get_nns(test)
+        assert idx.shape == (600, 30) and np.all(np.diff(d2, axis=1) >= 0)
+        assert (np.sort(idx, 1) == exact_cpu).all(1).mean() >= 0.999
+    before = _build.launches["knn_candidates_pruned"]
+    idx, _ = NN_Wrapper(train, 30, nn_method="kernel").get_nns(test)
+    assert _build.launches["knn_candidates_pruned"] == before + 1
+    assert (np.sort(idx, 1) == exact_cpu).all(1).mean() >= 0.98
+    idx, d2 = NN_Wrapper(train, 30, nn_method="hnsw",
+                         random_seed=0).get_nns(test)
+    assert idx.dtype == np.int64 and d2.dtype == np.float64
+    recall = np.mean([len(set(a) & set(b)) / 30
+                      for a, b in zip(idx, exact_cpu)])
+    assert recall > 0.9, recall
+
+
+def test_do_regress_on_the_card_matches_cpu():
+    """do_regress through NN_Wrapper(nn_method="kernel") and
+    Bayes_optimize on the card (f32), then the CPU's parameters served on
+    the card against the CPU in f64 on the same neighbours."""
+    _need_card()
+    from muygpys_torch import config
+    from muygpys_torch.examples.regress import do_regress, regress_any
+    from muygpys_torch.gp import MuyGPS
+    from muygpys_torch.gp.deformation import Isotropy, l2
+    from muygpys_torch.gp.hyperparameter import AnalyticScale, Parameter
+    from muygpys_torch.gp.kernels import Matern
+    from muygpys_torch.gp.noise import HomoscedasticNoise
+
+    rng = np.random.default_rng(1)
+    x = rng.uniform(size=(8000, 2))
+    y = (np.sin(2 * np.pi * x[:, 0]) * np.cos(2 * np.pi * x[:, 1])
+         + 0.1 * rng.standard_normal(8000))[:, None]
+    test = rng.uniform(size=(1000, 2))
+
+    def k_kwargs():
+        return {
+            "kernel": Matern(smoothness=Parameter(1.5), deformation=Isotropy(
+                l2, length_scale=Parameter(0.5, (0.01, 5.0)))),
+            "noise": HomoscedasticNoise(1e-3), "scale": AnalyticScale(),
+        }
+
+    kw = dict(nn_count=30, batch_count=512,
+              opt_kwargs={"init_points": 3, "n_iter": 4, "random_state": 0})
+    old = config.state.ftype
+    try:
+        config.update("ftype", 32)
+        before = _build.launches["knn_candidates_pruned"]
+        model, nbrs, mean, var = do_regress(
+            test, x, y, nn_kwargs={"nn_method": "kernel"},
+            k_kwargs=k_kwargs(), rng=np.random.default_rng(2), **kw)
+        assert _build.launches["knn_candidates_pruned"] > before
+        assert mean.shape == (1000, 1) and np.isfinite(mean).all()
+        assert np.isfinite(var).all() and (var > 0).all()
+        config.update("ftype", 64)
+        ref, ref_nbrs, _, _ = do_regress(
+            test, x, y, nn_kwargs={"nn_method": "kernel"},
+            k_kwargs=k_kwargs(), rng=np.random.default_rng(2), device="cpu",
+            **kw)
+        config.update("ftype", 32)
+        at_ref = MuyGPS(**k_kwargs())
+        at_ref.kernel._hyperparameters["length_scale"]._set_val(
+            float(ref.kernel.deformation.length_scale()))
+        at_ref._make()
+        at_ref.scale._set(float(ref.scale()))
+        m32, v32, _ = regress_any(at_ref, test, x, nbrs, y)
+        m64, v64, _ = regress_any(ref, test, x, nbrs, y, device="cpu")
+    finally:
+        config.update("ftype", old)
+    # chip_smoke.py's serving gates: MEAN_TOL_F32 and VAR_TOL_F32 x sigma^2
+    sigma2 = float(ref.scale())
+    np.testing.assert_allclose(m32, m64, atol=5e-3)
+    np.testing.assert_allclose(v32, v64, atol=2e-6 * sigma2)
+
+
+def test_hierarchical_trainer_replays_a_second_batch_on_the_card():
+    """make_device_trainer(..., batch_features=) captures once; a second
+    batch with new features replays the graph and equals an eager run
+    (the CPU's, f64) with those features."""
+    _need_card()
+    from muygpys_torch.gp import MuyGPS
+    from muygpys_torch.gp.deformation import Isotropy, l2
+    from muygpys_torch.gp.hyperparameter import (
+        AnalyticScale,
+        Parameter,
+        VectorParameter,
+    )
+    from muygpys_torch.gp.hyperparameter.experimental import (
+        HierarchicalParameter,
+    )
+    from muygpys_torch.gp.kernels import RBF, Matern
+    from muygpys_torch.gp.noise import HomoscedasticNoise
+    from muygpys_torch.neighbors import NN_Wrapper
+    from muygpys_torch.optimize import make_device_trainer
+
+    rng = np.random.default_rng(3)
+    x = rng.uniform(size=(1500, 1))
+    y = np.sin(12 * x) * (x < 0.5) + np.sin(2 * x) + 0.05 * rng.standard_normal(
+        (1500, 1))
+    knots = np.array([[0.15], [0.35], [0.65], [0.85]])
+    model = MuyGPS(
+        kernel=Matern(smoothness=Parameter(1.5), deformation=Isotropy(
+            l2, length_scale=HierarchicalParameter(knots, VectorParameter(
+                *[Parameter(0.3, (0.02, 1.5)) for _ in range(4)]), RBF()))),
+        noise=HomoscedasticNoise(1e-4), scale=AnalyticScale(),
+    )
+    nbrs = NN_Wrapper(x, 20, device="cpu")
+    batches = []
+    for seed in (0, 1):
+        bi = np.random.default_rng(seed).choice(1500, 256, replace=False)
+        bni, _ = nbrs.get_batch_nns(bi)
+        batches.append((bi, bni))
+    xt, yt = torch.as_tensor(x), torch.as_tensor(y)
+
+    def run(trainer, dev, k):
+        bi, bni = batches[k]
+        xd, yd = xt.to(dev), yt.to(dev)
+        cw, pw, bt, bnt = model.make_train_tensors(bi, bni, xd, yd)
+        return trainer(bt, bnt, cw, pw, batch_features=xd[bi])
+
+    card = make_device_trainer(model, device="cuda")
+    run(card, "cuda", 0)
+    m2, info2 = run(card, "cuda", 1)
+    assert card.captures() == 1 and info2["capture_ms"] == 0
+    ref, _ = run(make_device_trainer(model, device="cpu"), "cpu", 1)
+    np.testing.assert_allclose(m2.get_opt_params()[1],
+                               ref.get_opt_params()[1], rtol=1e-6)

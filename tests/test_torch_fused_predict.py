@@ -224,12 +224,13 @@ def test_wrapper_defaults_to_cuda(monkeypatch):
 
 
 def test_f32_distance_workflow_floor_is_the_assembly_in_both_packages():
-    """The f32 distance workflow (make_predict_tensors' Gram-identity
-    assembly -> K1b) against the same workflow in f64, on dense 2-D
-    neighbourhoods (20,000 points, squared distances ~1e-4): the port's f32
-    error and the JAX package's are the same floor (within 2x of each
-    other), and it comes from the assembly, not from K1b: f32 K1b on
-    distances assembled in f64 is 5x closer."""
+    """The f32 distance workflow (make_predict_tensors' distance assembly
+    -> K1b) against the same workflow in f64, on dense 2-D neighbourhoods
+    (20,000 points, squared distances ~1e-4).  The JAX package's f32 floor
+    comes from its Gram-identity assembly: f32 K1b on distances assembled
+    in f64 is 5x closer.  The port centres each neighbourhood before the
+    identity (and takes crosswise distances by direct differences), so its
+    f32 workflow sits at that closer floor, K1b's own."""
     import jax
 
     from muygpys_tpu.ops import tensors as jax_tensors
@@ -286,10 +287,9 @@ def test_f32_distance_workflow_floor_is_the_assembly_in_both_packages():
                          zip(port(torch.float64, torch.float32), (m64, v64))],
     }
     for k in (0, 1):  # mean, variance
-        assert err["port"][k] <= 2.0 * err["jax"][k], err
-        assert err["jax"][k] <= 2.0 * err["port"][k], err
-        assert err["f64 assembly"][k] <= 0.2 * err["port"][k], err
-    assert 1e-3 < err["port"][0] < 2e-2, err
+        assert err["f64 assembly"][k] <= 0.2 * err["jax"][k], err
+        assert err["port"][k] <= 1.5 * err["f64 assembly"][k], err
+    assert 1e-3 < err["jax"][0] < 2e-2, err
 
 
 @pytest.mark.parametrize(

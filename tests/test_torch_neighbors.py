@@ -57,10 +57,146 @@ def test_one_dimensional_and_small(data):
 
 
 def test_unported_methods_and_device(data, monkeypatch):
+    """An unknown method raises NotImplementedError naming it, as in JAX;
+    without a card every method refuses to start unless the caller asks for
+    the CPU."""
     train, _ = data
-    for method in ("sklearn", "hnsw"):
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            NN_Wrapper(train, 5, nn_method=method, device="cpu")
+    with pytest.raises(NotImplementedError, match="kdtree-foo"):
+        NN_Wrapper(train, 5, nn_method="kdtree-foo", device="cpu")
+    with pytest.raises(NotImplementedError):
+        JaxNN(train, 5, nn_method="kdtree-foo")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        NN_Wrapper(train, 5)
+    for method in ("exact", "brute", "kernel", "sklearn", "hnsw"):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            NN_Wrapper(train, 5, nn_method=method)
+
+
+def test_sklearn_matches_jax(data):
+    """scikit-learn's exact index through both wrappers, index for index,
+    squared distances; only JAX's keyword set reaches it."""
+    train, test = data
+    i_t, d_t = NN_Wrapper(train, 15, nn_method="sklearn", device="cpu",
+                          leaf_size=20, spatial_sort=True).get_nns(test)
+    i_j, d_j = JaxNN(train, 15, nn_method="sklearn",
+                     leaf_size=20).get_nns(test)
+    np.testing.assert_array_equal(i_t, i_j)
+    np.testing.assert_array_equal(d_t, d_j)
+    i_e, d_e = NN_Wrapper(train, 15, device="cpu").get_nns(test)
+    np.testing.assert_array_equal(i_t, i_e)
+    np.testing.assert_allclose(d_t, d_e, rtol=1e-10, atol=1e-14)
+    b_t, _ = NN_Wrapper(train, 10, nn_method="sklearn",
+                        device="cpu").get_batch_nns(np.arange(40))
+    b_j, _ = JaxNN(train, 10, nn_method="sklearn").get_batch_nns(
+        np.arange(40)
+    )
+    np.testing.assert_array_equal(b_t, b_j)
+
+
+def test_sklearn_missing_names_it(data, monkeypatch):
+    import builtins
+
+    real = builtins.__import__
+
+    def no_sklearn(name, *args, **kwargs):
+        if name.split(".")[0] == "sklearn":
+            raise ImportError("No module named 'sklearn'")
+        return real(name, *args, **kwargs)
+
+    monkeypatch.setattr(builtins, "__import__", no_sklearn)
+    with pytest.raises(ImportError, match="scikit-learn"):
+        NN_Wrapper(data[0], 5, nn_method="sklearn", device="cpu")
+
+
+def test_brute_is_exact(data):
+    train, test = data
+    nb = NN_Wrapper(train, 12, nn_method="BRUTE", device="cpu")
+    assert nb.nn_method == "brute"
+    i_b, d_b = nb.get_nns(test)
+    i_e, d_e = NN_Wrapper(train, 12, device="cpu").get_nns(test)
+    np.testing.assert_array_equal(i_b, i_e)
+    np.testing.assert_array_equal(d_b, d_e)
+
+
+@pytest.fixture(scope="module")
+def scan_data(rng):
+    return rng.normal(size=(3000, 6)), rng.normal(size=(137, 6))
+
+
+def test_scan_equals_one_block_and_jax_after_rerank(scan_data):
+    """JAX's own scan test shape (query tiles of 64, train tiles of 512):
+    the scan's candidates (exact top-k per tile) re-rank to the one-block
+    search's sets and to JAX's exact path; the scan's own distances equal
+    the one block's."""
+    import jax.numpy as jnp
+
+    from muygpys_torch.neighbors import (
+        _brute_force_knn,
+        _refine_knn,
+        _train_tiles,
+    )
+    from muygpys_tpu.neighbors import _brute_force_knn_scan as jax_scan
+    from muygpys_tpu.neighbors import _refine_knn as jax_refine
+
+    train, queries = scan_data
+    t, q = torch.as_tensor(train), torch.as_tensor(queries)
+    assert _train_tiles(t, 512)[2] == 504  # six tiles, none padded
+    bi, bd = _brute_force_knn(t, q, 9 + 32, train_tile=len(train))
+    si, sd = _brute_force_knn(t, q, 9 + 32, query_tile=64, train_tile=512)
+    assert si.shape == (137, 41) and si.dtype == torch.int64
+    np.testing.assert_allclose(sd.numpy(), bd.numpy(), rtol=1e-12,
+                               atol=1e-12)
+    ri, rd = _refine_knn(t, q, si, 9)
+    oi, od = _refine_knn(t, q, bi, 9)
+    np.testing.assert_array_equal(ri.numpy(), oi.numpy())
+    np.testing.assert_array_equal(rd.numpy(), od.numpy())
+    jt, jq = jnp.asarray(train), jnp.asarray(queries)
+    ji, _ = jax_scan(jt, jq, 9 + 32, query_tile=64, train_tile=512)
+    ki, kd = jax_refine(jt, jq, ji, 9)
+    np.testing.assert_array_equal(ri.numpy(), np.asarray(ki))
+    np.testing.assert_allclose(rd.numpy(), np.asarray(kd), rtol=1e-12,
+                               atol=1e-14)
+
+
+def test_scan_pads_a_partial_tile(scan_data):
+    """530 rows in tiles of at most 512: two tiles of 272, the last padded
+    with 14 rows whose +inf norms keep them out of every set."""
+    from muygpys_torch.neighbors import _brute_force_knn, _train_tiles
+
+    train, queries = scan_data
+    t, q = torch.as_tensor(train[:530]), torch.as_tensor(queries[:20])
+    rows, norms, tile = _train_tiles(t, 512)
+    assert tile == 272 and rows.shape == (544, 6)
+    assert torch.isinf(norms[530:]).all() and torch.isfinite(norms[:530]).all()
+    si, sd = _brute_force_knn(t, q, 30, query_tile=8, train_tile=512)
+    bi, bd = _brute_force_knn(t, q, 30, train_tile=len(t))
+    assert int(si.max()) < 530
+    np.testing.assert_array_equal(np.sort(si.numpy(), 1),
+                                  np.sort(bi.numpy(), 1))
+    np.testing.assert_allclose(sd.numpy(), bd.numpy(), rtol=1e-12,
+                               atol=1e-12)
+
+
+def test_exact_scans_past_one_train_tile(monkeypatch, rng):
+    """NN_Wrapper("exact") over more than 16,384 rows scans two train
+    tiles, built once with the index and reused by every call, and gives
+    JAX's sets."""
+    import muygpys_torch.neighbors as port_neighbors
+
+    train = rng.uniform(size=(16385 + 300, 2))
+    test = rng.uniform(size=(50, 2))
+    calls = []
+    real = port_neighbors._brute_force_knn
+
+    def spy(*args, **kwargs):
+        rows, _, tile = kwargs["tiles"]
+        calls.append((id(kwargs["tiles"]), rows.shape[0], tile))
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(port_neighbors, "_brute_force_knn", spy)
+    nbrs = NN_Wrapper(train, 10, device="cpu")
+    i_t, d_t = nbrs.get_nns(test)
+    nbrs.get_nns(test[:5])
+    assert calls[0] == calls[1] == (id(nbrs._tiles), 2 * 8344, 8344)
+    i_j, d_j = JaxNN(train, 10).get_nns(test)
+    np.testing.assert_array_equal(i_t, np.asarray(i_j))
+    np.testing.assert_allclose(d_t, np.asarray(d_j), rtol=1e-12, atol=1e-15)

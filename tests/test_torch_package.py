@@ -236,3 +236,32 @@ def test_fast_mean_slice_modules_import_without_jax(module):
         [sys.executable, "-c", code], check=True, cwd=str(ROOT),
         env={**os.environ, "PYTHONPATH": str(ROOT)},
     )
+
+
+@pytest.mark.parametrize(
+    "module",
+    ["neighbors", "native", "native.hnsw", "optimize.bayes",
+     "optimize.experimental", "optimize.experimental.chassis",
+     "gp.hyperparameter.experimental",
+     "gp.hyperparameter.experimental.hierarchical", "examples",
+     "examples.from_indices", "examples.regress", "examples.classify",
+     "examples.two_class_classify_uq"],
+)
+def test_workflow_slice_modules_import_without_jax(module):
+    """The host KNN methods, HNSW, Bayes, hierarchical length scales, the
+    mini-batch chassis and the example workflows import in a fresh
+    interpreter that has neither jax nor the JAX package loaded afterwards
+    (hnsw.cpp and bayes.py are the port's own copies)."""
+    import subprocess
+    import sys
+
+    code = (
+        f"import sys, muygpys_torch.{module}\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'muygpys_tpu')]\n"
+        "assert not bad, bad"
+    )
+    subprocess.run(
+        [sys.executable, "-c", code], check=True, cwd=str(ROOT),
+        env={**os.environ, "PYTHONPATH": str(ROOT)},
+    )

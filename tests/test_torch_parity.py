@@ -586,6 +586,32 @@ NAMES = [
     ("checkpoint", "save_model"), ("checkpoint", "load_model"),
     ("checkpoint", "save_fast_state"), ("checkpoint", "load_fast_state"),
     ("config", "itype"), ("config", "parse_flags"),
+    ("optimize", "Bayes_optimize"), ("optimize.chassis", "OptimizeFn"),
+    ("optimize.chassis", "OptimizeFn.make_obj_fn"),
+    ("optimize.objective", "make_loo_crossval_fn"),
+    ("optimize.bayes", "BayesianOptimization"),
+    ("optimize.bayes", "BayesianOptimization.maximize"),
+    ("optimize.bayes", "BayesianOptimization.probe"),
+    ("gp.hyperparameter.experimental", "HierarchicalParameter"),
+    ("gp.hyperparameter.experimental", "NamedHierarchicalParameter"),
+    ("gp.hyperparameter.experimental", "NamedHierarchicalVectorParameter"),
+    ("gp.hyperparameter.experimental", "sample_knots"),
+    ("gp.hyperparameter.vector", "NamedVectorParameter.apply_fn"),
+    ("native", "HNSW"), ("native.hnsw", "HNSW.knn_query"),
+    ("examples.from_indices", "tensors_from_indices"),
+    ("examples.from_indices", "regress_from_indices"),
+    ("examples.from_indices", "fast_posterior_mean_from_indices"),
+    ("examples.regress", "make_regressor"),
+    ("examples.regress", "make_multivariate_regressor"),
+    ("examples.regress", "do_regress"), ("examples.regress", "regress_any"),
+    ("examples.classify", "make_classifier"),
+    ("examples.classify", "do_classify"),
+    ("examples.classify", "classify_any"),
+    ("examples.two_class_classify_uq", "do_classify_uq"),
+    ("examples.two_class_classify_uq", "classify_two_class_uq"),
+    ("examples.two_class_classify_uq", "make_masks"),
+    ("examples.two_class_classify_uq", "do_uq"),
+    ("examples.two_class_classify_uq", "train_two_class_interval"),
 ]
 
 

@@ -48,6 +48,40 @@ def test_gram_identity_distances(data):
     assert torch.all(torch.diagonal(pw, dim1=1, dim2=2) >= 0)
 
 
+@pytest.mark.parametrize("feat", [1, 2, 5])
+def test_f32_distances_keep_their_relative_precision(feat):
+    """Dense unit-scale neighbourhoods (squared distances ~1e-4): in f32
+    the centred pairwise assembly and the direct crosswise differences
+    stay within 1e-5 relative, or ~eps times a neighbourhood's squared
+    span (2e-9) absolute, of f64 on the same rounded coordinates (the
+    plain Gram identity loses ~eps |a|^2 = 1e-7 absolute), and a
+    neighbourhood's Matern 3/2 matrix at length scale 0.03 plus 1e-3 on
+    the diagonal factors in f32."""
+    rng = np.random.default_rng(4)
+    centres = rng.uniform(0.5, 1.0, size=(64, 1, feat))
+    x = (centres + 0.01 * rng.standard_normal((64, 31, feat))).reshape(-1, feat)
+    nn = np.arange(64 * 31).reshape(64, 31)
+    bi = nn[:, 0]
+    want_pw = ((x[nn][:, :, None] - x[nn][:, None]) ** 2).sum(-1)
+    want_cw = ((x[nn] - x[bi][:, None]) ** 2).sum(-1)
+    x32 = torch.as_tensor(x, dtype=torch.float32)
+    pw = tt.pairwise_F2(x32, torch.as_tensor(nn)).double().numpy()
+    cw = tt.crosswise_F2(x32, x32, torch.as_tensor(bi),
+                         torch.as_tensor(nn)).double().numpy()
+    # the f32 rounding of the coordinates themselves moves a squared
+    # distance by ~2 |a - b| eps |a|: the floor both are held to
+    rounding = ((x32.double().numpy()[nn][:, :, None]
+                 - x32.double().numpy()[nn][:, None]) ** 2).sum(-1)
+    _close(pw, rounding, rtol=1e-5, atol=2e-9)
+    _close(cw, rounding[:, 0], rtol=1e-5, atol=2e-9)
+    _close(pw, want_pw, rtol=1e-3, atol=5e-9)
+    _close(cw, want_cw, rtol=1e-3, atol=5e-9)
+    r = torch.sqrt(torch.as_tensor(pw, dtype=torch.float32)) / 0.03
+    kin = (1 + 3**0.5 * r) * torch.exp(-(3**0.5) * r)
+    kin = kin + 1e-3 * torch.eye(31)
+    assert torch.linalg.cholesky_ex(kin)[1].eq(0).all()
+
+
 def test_one_dimensional_features(data):
     x, nn, _ = data
     _close(
