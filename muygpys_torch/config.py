@@ -86,6 +86,13 @@ def parse_flags(argv=None):
     return remaining
 
 
+def kernel_alias(name: str) -> str:
+    """An engine or ``nn_method`` name with the JAX package's ``"pallas"``
+    read as the port's ``"kernel"`` (the hand-written CUDA kernels), so a
+    JAX script's arguments run unchanged."""
+    return "kernel" if name == "pallas" else name
+
+
 def device(device=None) -> torch.device:
     """Resolve an entry point's ``device=`` argument.
 

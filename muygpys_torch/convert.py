@@ -9,6 +9,8 @@ free parameters' bounds and an analytic or down-sampled scale.
 :func:`arrays_from_muygps` returns a model's values as numpy numbers.
 :func:`mmuygps_from_arrays` and :func:`arrays_from_mmuygps` do the same for
 a :class:`MultivariateMuyGPS`, one spec per response.
+:func:`deep_kernel_params_from_flax` carries a deep-kernel model's flax
+parameter tree (as numpy arrays) over to the port's parameter dict.
 """
 
 from __future__ import annotations
@@ -16,6 +18,9 @@ from __future__ import annotations
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
+import torch
+
+from muygpys_torch import config
 
 from muygpys_torch.gp.deformation import (
     Anisotropy,
@@ -223,3 +228,103 @@ def arrays_from_mmuygps(mmuygps: MultivariateMuyGPS) -> List[Dict]:
     """Each response model's values, as :func:`arrays_from_muygps` gives
     them."""
     return [arrays_from_muygps(m) for m in mmuygps.models]
+
+
+def _gp_layer_params(prefix: str, layer, tree: Dict) -> Dict:
+    names = set(layer.initial_values())
+    if set(tree) != names:
+        raise ValueError(
+            f"{prefix or 'the layer'}: flax parameters {sorted(tree)} are "
+            f"not the layer's {sorted(names)}"
+        )
+    out = {}
+    for name in names:
+        value = np.asarray(tree[name], dtype=np.float64)
+        if value.shape != ():
+            raise ValueError(f"{prefix}{name}: shape {value.shape}, not ()")
+        out[prefix + name] = torch.tensor(value, dtype=config.ftype())
+    return out
+
+
+def _dense_params(prefix: str, embedding, tree: Dict) -> Dict:
+    """flax's ``Dense_0``, ``Dense_1``, ... onto the embedding's
+    ``torch.nn.Linear`` modules in their registration order; a flax kernel
+    is ``(in, out)`` and a torch weight ``(out, in)``."""
+    linears = [(n, m) for n, m in embedding.named_modules()
+               if isinstance(m, torch.nn.Linear)]
+    keys = [f"Dense_{i}" for i in range(len(tree))]
+    if sorted(tree) != sorted(keys) or len(keys) != len(linears):
+        raise ValueError(
+            f"{prefix}: flax layers {sorted(tree)} do not map onto the "
+            f"module's {len(linears)} torch.nn.Linear layers"
+        )
+    mapped = {f"{n}.weight" if n else "weight" for n, _ in linears} | {
+        f"{n}.bias" if n else "bias" for n, m in linears if m.bias is not None
+    }
+    unmapped = [n for n, _ in embedding.named_parameters()
+                if n not in mapped]
+    if unmapped:
+        raise ValueError(f"{prefix}: no flax parameters for {unmapped}")
+    out = {}
+    for key, (name, linear) in zip(keys, linears):
+        dot = f"{prefix}{name}." if name else prefix
+        kernel = np.asarray(tree[key]["kernel"], dtype=np.float64).T
+        if kernel.shape != tuple(linear.weight.shape):
+            raise ValueError(
+                f"{prefix}{key}: kernel (in, out) = {kernel.T.shape} against "
+                f"the torch weight (out, in) = {tuple(linear.weight.shape)}"
+            )
+        out[dot + "weight"] = torch.tensor(kernel, dtype=config.ftype())
+        has_bias = "bias" in tree[key]
+        if has_bias != (linear.bias is not None):
+            raise ValueError(f"{prefix}{key}: bias in one model only")
+        if has_bias:
+            bias = np.asarray(tree[key]["bias"], dtype=np.float64)
+            if bias.shape != tuple(linear.bias.shape):
+                raise ValueError(
+                    f"{prefix}{key}: bias {bias.shape} against "
+                    f"{tuple(linear.bias.shape)}"
+                )
+            out[dot + "bias"] = torch.tensor(bias, dtype=config.ftype())
+    return out
+
+
+def deep_kernel_params_from_flax(flax_params: Dict, model) -> Dict:
+    """The port's parameter dict (name -> tensor in ``config.ftype()`` on
+    the CPU) for ``model`` from the JAX package's flax parameter tree of
+    the same model, its leaves as numpy arrays:
+    ``{"params": {"embedding": {"Dense_i": {"kernel", "bias"}},
+    "gp_layer": {"log_length_scale", "log_noise"[, "log_smoothness"]}}}``
+    for a :class:`~muygpys_torch.nn.DeepKernelMuyGPs`, ``{"params":
+    {"response_i": {...}}}`` for a
+    :class:`~muygpys_torch.nn.MultivariateMuyGPsLayer`, the layer's own
+    names for a :class:`~muygpys_torch.nn.MuyGPsLayer`.  Raises
+    ``ValueError`` when a count or shape does not match."""
+    from muygpys_torch.nn import (
+        DeepKernelMuyGPs,
+        MultivariateMuyGPsLayer,
+        MuyGPsLayer,
+    )
+
+    tree = flax_params.get("params", flax_params)
+    if isinstance(model, DeepKernelMuyGPs):
+        if set(tree) != {"embedding", "gp_layer"}:
+            raise ValueError(
+                f"flax tree {sorted(tree)}: expected embedding, gp_layer"
+            )
+        return {
+            **_dense_params("embedding.", model.embedding, tree["embedding"]),
+            **_gp_layer_params("gp_layer.", model.gp_layer, tree["gp_layer"]),
+        }
+    if isinstance(model, MultivariateMuyGPsLayer):
+        keys = [f"response_{i}" for i in range(len(model.muygps_model.models))]
+        if sorted(tree) != sorted(keys):
+            raise ValueError(f"flax tree {sorted(tree)}: expected {keys}")
+        out = {}
+        for key in keys:
+            out.update(_gp_layer_params(f"{key}.", getattr(model, key),
+                                        tree[key]))
+        return out
+    if isinstance(model, MuyGPsLayer):
+        return _gp_layer_params("", model, tree)
+    raise ValueError(f"no flax parameter layout for {type(model).__name__}")

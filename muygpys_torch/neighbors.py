@@ -18,7 +18,7 @@ Methods:
   Among neighbors at equal distances (points on a grid) the choice is the
   rounding's, each package its own: the sets agree with JAX's up to such
   ties;
-- ``"kernel"`` (JAX: ``"pallas"``): the K3 candidate kernel
+- ``"kernel"`` (alias ``"pallas"``, the JAX name): the K3 candidate kernel
   (:mod:`muygpys_torch.gpu.knn`, 1024 bins, Morton-sorted and pruned at
   ``d <= 4``; its train side built once per index) followed by the same
   exact re-rank;
@@ -132,7 +132,7 @@ class NN_Wrapper:
         train: ``(train_count, feature_count)`` training features.
         nn_count: number of neighbors returned per query.
         nn_method: ``"exact"`` (default), ``"brute"`` (its alias),
-            ``"kernel"``, ``"sklearn"`` or ``"hnsw"``.
+            ``"kernel"`` (alias ``"pallas"``), ``"sklearn"`` or ``"hnsw"``.
         device: where the device methods' index lives and searches
             (default ``"cuda"``); the host methods search on the CPU.
         **kwargs: the JAX package's keywords: ``spatial_sort``
@@ -160,7 +160,7 @@ class NN_Wrapper:
         self.train = train
         self.train_count, self.feature_count = train.shape
         self.nn_count = nn_count
-        self.nn_method = nn_method.lower()
+        self.nn_method = config.kernel_alias(nn_method.lower())
         if self.nn_method in ("exact", "brute", "kernel"):
             self._build_device_index(kwargs.get("spatial_sort"))
         elif self.nn_method == "sklearn":
@@ -188,7 +188,7 @@ class NN_Wrapper:
         else:
             raise NotImplementedError(
                 f"selected nn_method {nn_method} is not implemented "
-                "(exact, brute, kernel, sklearn, hnsw)"
+                "(exact, brute, kernel, pallas, sklearn, hnsw)"
             )
 
     def _build_device_index(self, spatial_sort) -> None:

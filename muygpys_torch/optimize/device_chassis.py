@@ -355,6 +355,7 @@ def Fused_Device_LBFGS_optimize(
     loss: str = "lool",
     engine: str = "kernel",
     verbose: bool = False,
+    interpret=None,
     maxiter: int = 200,
     gtol: float = 1e-7,
     ftol: float = 2.22e-9,
@@ -370,7 +371,8 @@ def Fused_Device_LBFGS_optimize(
     batched-layout objective (:func:`make_fast_loo_objective`, a
     hierarchical field at ``batch_features`` included) under autograd; a
     shear model trains on the batched shear assembly whatever ``engine``
-    says.
+    says; ``"pallas"`` (JAX's default) is ``"kernel"``, and JAX's
+    ``interpret`` is taken and unused.
     Runs on ``device`` (default ``"cuda"``); pass a dict as ``info`` to
     receive the run's counts (iterations, evaluations, replays, capture
     and wall milliseconds)."""
@@ -393,6 +395,7 @@ def _fused_trajectory(muygps, batch_targets, batch_nn_targets,
     :func:`Fused_Device_LBFGS_optimize`: a second ``run`` of the same
     trajectory replays its graph without a new capture (the smoke script
     traces one)."""
+    engine = config.kernel_alias(engine)
     if engine not in ("kernel", "lanes"):
         raise ValueError(f"unknown engine {engine!r} (kernel, lanes)")
     dev = config.device(device)

@@ -6,7 +6,7 @@ for the production model classes (Matern with any fixed or free smoothness,
 or RBF, Isotropy or Anisotropy, homo- or heteroscedastic noise, loss in lool,
 mse, looph, huber), with the objective evaluated by
 
-- ``engine="kernel"`` (the JAX ``"pallas"``): K2, one launch per evaluation
+- ``engine="kernel"`` (alias ``"pallas"``, the JAX name): K2, one launch per evaluation
   returning the value AND the analytic gradient
   (:func:`muygpys_torch.optimize.fused_objective.make_fused_train_objective`);
   a free smoothness, or a fixed one without a closed form, goes through the
@@ -67,17 +67,21 @@ def Fused_L_BFGS_B_optimize(
     loss: str = "lool",
     engine: str = "kernel",
     verbose: bool = False,
+    interpret=None,
     batch_features=None,
     device=None,
     **kwargs,
 ):
     """L-BFGS-B over the fused LOO objective on ``device`` (default
     ``"cuda"``; ``"cpu"`` runs K2's plain version); returns the optimized
-    model.  ``batch_features`` is read by a hierarchical length scale
-    (``engine="lanes"``).  Extra keyword arguments go to
-    ``scipy.optimize.minimize``."""
+    model.  ``engine="pallas"`` (JAX's default) is ``"kernel"``.
+    ``interpret`` is JAX's Pallas-interpreter switch, taken and unused: on
+    the CPU the kernels' plain versions run.  ``batch_features`` is read by
+    a hierarchical length scale (``engine="lanes"``).  Extra keyword
+    arguments go to ``scipy.optimize.minimize``."""
     from scipy import optimize as opt
 
+    engine = config.kernel_alias(engine)
     if engine not in ("kernel", "lanes"):
         raise ValueError(f"unknown engine {engine!r} (kernel, lanes)")
     dev = config.device(device)

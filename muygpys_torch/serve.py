@@ -93,7 +93,8 @@ class FastServer:
             multivariate targets).
         bucket: request size each solve runs at; queries are padded up to
             it.
-        engine: ``"fused"`` | ``"kernel"`` | ``"lanes"`` | ``"reference"``.
+        engine: ``"fused"`` | ``"kernel"`` (alias ``"pallas"``, the JAX
+            name) | ``"lanes"`` | ``"reference"``.
         measurement_noise: per-training-point noise variances
             ``(train_count,)``, required for heteroscedastic models.
         rerank: ``"fused"`` only.  ``True`` over-fetches 8 candidates and
@@ -136,6 +137,7 @@ class FastServer:
                     "FastServer requires an Isotropy or Anisotropy "
                     f"deformation, not {type(deformation)}"
                 )
+        engine = config.kernel_alias(engine)
         if engine not in ("fused", "kernel", "lanes", "reference"):
             raise ValueError(f"unknown engine {engine!r}")
         if shard not in ("queries", "train"):

@@ -306,3 +306,33 @@ def test_fused_chassis_shear_analytic_scale_names_the_generic_chassis(
     assert Fused_L_BFGS_B_optimize(tm, *data, loss="mse", device="cpu")
     trained = L_BFGS_B_optimize(tm, *data, loss_fn=lool_fn)
     assert 0.02 < arrays_from_muygps(trained)["length_scale"] < 0.5
+
+
+def test_jax_spelling_pallas_and_interpret(batch, monkeypatch):
+    """JAX's default ``engine="pallas"`` is the port's ``"kernel"``, and
+    ``interpret=`` is taken by name: it never reaches
+    ``scipy.optimize.minimize`` (which would raise on it)."""
+    from scipy import optimize as sopt
+
+    seen = []
+    minimize = sopt.minimize
+
+    def spy(*args, **kwargs):
+        seen.append(set(kwargs))
+        return minimize(*args, **kwargs)
+
+    monkeypatch.setattr(sopt, "minimize", spy)
+    jm = jax_model_to_train()
+    kernel = Fused_L_BFGS_B_optimize(
+        carried_for_training(jm), *batch, engine="kernel", device="cpu"
+    )
+    pallas = Fused_L_BFGS_B_optimize(
+        carried_for_training(jm), *batch, engine="pallas", interpret=True,
+        device="cpu",
+    )
+    assert _port_values(pallas) == _port_values(kernel)
+    assert all("interpret" not in kw for kw in seen) and len(seen) == 2
+    with pytest.raises(ValueError, match="unknown engine"):
+        Fused_L_BFGS_B_optimize(
+            carried_for_training(jm), *batch, engine="mosaic", device="cpu"
+        )

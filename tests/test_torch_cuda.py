@@ -1313,3 +1313,93 @@ def test_hierarchical_trainer_replays_a_second_batch_on_the_card():
     ref, _ = run(make_device_trainer(model, device="cpu"), "cpu", 1)
     np.testing.assert_allclose(m2.get_opt_params()[1],
                                ref.get_opt_params()[1], rtol=1e-6)
+
+
+def _deep_kernel_problem(train=3000, test=200):
+    """tests/test_deep_kernel.py's field with 3,000 training points: an
+    index of at least 2,048 rows runs K3p (below, the exact search)."""
+    rng = np.random.default_rng(0)
+    X = rng.uniform(size=(train + test, 6))
+    y = (np.sin(2 * np.pi * X[:, 0]) + np.cos(2 * np.pi * X[:, 1]))[:, None]
+    y += 0.05 * rng.standard_normal((train + test, 1))
+    return (X[:train], y[:train], X[train:],
+            rng.choice(train, 200, replace=False))
+
+
+def _deep_kernel_model():
+    from muygpys_torch.gp import MuyGPS
+    from muygpys_torch.gp.deformation import Isotropy, l2
+    from muygpys_torch.gp.hyperparameter import Parameter
+    from muygpys_torch.gp.kernels import Matern
+    from muygpys_torch.gp.noise import HomoscedasticNoise
+    from muygpys_torch.nn import DeepKernelMuyGPs
+
+    return DeepKernelMuyGPs(
+        torch.nn.Sequential(torch.nn.Linear(6, 16), torch.nn.Tanh(),
+                            torch.nn.Linear(16, 2)),
+        MuyGPS(kernel=Matern(smoothness=Parameter(1.5), deformation=Isotropy(
+            l2, length_scale=Parameter(1.0))), noise=HomoscedasticNoise(1e-3)),
+    )
+
+
+def test_deep_kernel_training_on_the_card_matches_cpu():
+    """Five f64 steps of the deep-kernel trainer on the card, rebuilding
+    the index through K3p (``nn_method="pallas"``) every two, equal the
+    CPU's run from the same start within 1e-8 of the largest parameter;
+    the rebuilt neighbour sets are equal and K3p ran."""
+    _need_card()
+    from muygpys_torch import config
+    from muygpys_torch.examples import deep_kernel as dk
+    from muygpys_torch.neighbors import NN_Wrapper
+
+    xtr, ytr, xte, batch = _deep_kernel_problem()
+    kept = config.state.ftype
+    config.update("ftype", 64)
+    try:
+        out = {}
+        for dev in ("cpu", "cuda"):
+            model = _deep_kernel_model()
+            before = _build.launches["knn_candidates_pruned"]
+            nbrs, params, info = dk.train_deep_kernel_muygps(
+                model, xtr, ytr, batch, NN_Wrapper(xtr, 20, device=dev),
+                training_iterations=5, learning_rate=1e-2, update_frequency=2,
+                nn_kwargs={"nn_method": "pallas"}, device=dev,
+            )
+            launched = _build.launches["knn_candidates_pruned"] - before
+            out[dev] = (nbrs.get_batch_nns(batch)[0], params, info, launched)
+            mean, var = dk.predict_model(model, params, xte, xtr, ytr, nbrs, 20)
+            assert mean.device.type == torch.device(dev).type
+            assert torch.all(torch.isfinite(mean)) and torch.all(var > 0)
+    finally:
+        config.update("ftype", kept)
+    cpu, card = out["cpu"], out["cuda"]
+    np.testing.assert_array_equal(card[0], cpu[0])
+    scale = max(float(p.abs().max()) for p in cpu[1].values())
+    for name, p in cpu[1].items():
+        if name == "embedding.2.bias":  # translation: rounding noise only
+            continue
+        np.testing.assert_allclose(card[1][name].cpu().numpy(), p.numpy(),
+                                   rtol=0, atol=1e-8 * scale)
+    assert card[3] > 0 and cpu[3] == 0
+
+
+def test_bench_torch_prints_the_headline_line(capsys):
+    """bench_torch.py's main on the card: one JSON line whose rates are
+    finite and positive, with the card's name and power limit."""
+    _need_card()
+    import json
+    import pathlib
+    import sys
+
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    import bench_torch
+
+    out = bench_torch.main()
+    line = capsys.readouterr().out.strip().splitlines()[-1]
+    assert json.loads(line) == out
+    rates = [v for k, v in out.items()
+             if k == "value" or k.endswith(("_per_sec", "_per_sec_gen",
+                                            "_per_sec_approx", "_per_sec_1m"))]
+    assert len(rates) == 8
+    assert all(np.isfinite(r) and r > 0 for r in rates)
+    assert torch.cuda.get_device_name(0).split()[0] in out["device"]

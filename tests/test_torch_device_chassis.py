@@ -269,7 +269,7 @@ def test_device_trainer_loss_registry():
 def test_refusals(data, monkeypatch):
     model = carried_for_training(jax_model())
     with pytest.raises(ValueError, match="unknown engine"):
-        Fused_Device_LBFGS_optimize(model, *data, engine="pallas",
+        Fused_Device_LBFGS_optimize(model, *data, engine="mosaic",
                                     device="cpu")
     # a start whose objective is not finite
     bad = muygps_from_arrays(
@@ -338,3 +338,16 @@ def test_device_trainer_second_batch_trains_on_its_own_data(route):
                                rtol=1e-10)
     assert info2["iterations"] == info_fresh["iterations"]
     assert not np.allclose(info2["z"].numpy(), info1["z"].numpy())
+
+
+def test_jax_spelling_pallas_and_interpret(data):
+    """``engine="pallas"`` (JAX's default) runs K2 as ``"kernel"`` does,
+    and JAX's ``interpret`` is taken and unused."""
+    model = carried_for_training(jax_model())
+    kernel = length_scale(Fused_Device_LBFGS_optimize(
+        model, *data, engine="kernel", device="cpu"
+    ))
+    pallas = length_scale(Fused_Device_LBFGS_optimize(
+        model, *data, engine="pallas", interpret=True, device="cpu"
+    ))
+    assert pallas == kernel

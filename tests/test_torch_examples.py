@@ -268,3 +268,77 @@ def test_from_indices_glue(sine):
                                          xtr, ytr, **opt_kw)
     np.testing.assert_allclose(port.get_opt_params()[1],
                                ref.get_opt_params()[1], rtol=0, atol=1e-8)
+
+
+# --- the fast-mean workflows (tests/test_examples.py:181,
+# tests/test_multivariate.py:77) ---
+
+
+def test_do_fast_posterior_mean(sine):
+    """The whole workflow (Bayes_optimize, lool) on a fixed model over one
+    shared index: JAX's means, its bar and its four timing keys."""
+    from muygpys_tpu.examples import fast_posterior_mean as jfast
+    from muygpys_torch.examples import fast_posterior_mean as tfast
+
+    xtr, ytr, xte, yte = sine
+    ref = jfast.do_fast_posterior_mean(
+        xte, xtr, ytr, nn_count=30, nn_kwargs=SK,
+        k_kwargs=_matern_kwargs(JAX),
+    )
+    model, nbrs, mean, coeffs, timing = tfast.do_fast_posterior_mean(
+        xte, xtr, ytr, nn_count=30, nn_kwargs=SK,
+        k_kwargs=_matern_kwargs(PORT), device="cpu",
+    )
+    assert isinstance(mean, np.ndarray) and mean.shape == ref[2].shape
+    np.testing.assert_allclose(mean, ref[2], rtol=0, atol=1e-8)
+    # each package assembles the grid's distances by its own Gram rounding
+    # (centred in the port), so coefficients agree to the largest one's
+    c_ref = np.asarray(ref[3])
+    np.testing.assert_allclose(coeffs.numpy(), c_ref, rtol=0,
+                               atol=1e-8 * np.abs(c_ref).max())
+    assert np.mean((mean.reshape(-1) - yte) ** 2) < 0.02
+    assert set(timing) == {"precompute", "agree", "nn", "pred"}
+    assert timing["agree"] == 0.0 and min(timing.values()) >= 0.0
+    assert nbrs.nn_method == "sklearn"
+
+
+def test_fast_posterior_mean_any_multivariate():
+    """A MultivariateMuyGPS through ``fast_posterior_mean_any`` on JAX's
+    multivariate problem: JAX's means and coefficients."""
+    from muygpys_tpu.examples import fast_posterior_mean as jfast
+    from muygpys_tpu.gp import MultivariateMuyGPS as JM
+    from muygpys_tpu.neighbors import NN_Wrapper as JaxNN
+    from muygpys_torch.examples import fast_posterior_mean as tfast
+    from muygpys_torch.gp import MultivariateMuyGPS as TM
+    from muygpys_torch.neighbors import NN_Wrapper
+
+    rng = np.random.default_rng(3)
+    train = rng.uniform(size=(150, 3))
+    test = rng.uniform(size=(40, 3))
+    y = rng.standard_normal((150, 2))
+
+    def args(pkg, nu):
+        d, h, k, n = pkg
+        return {
+            "kernel": k.Matern(smoothness=h.Parameter(nu), deformation=d.Isotropy(
+                d.l2, length_scale=h.Parameter(0.4))),
+            "noise": n.HomoscedasticNoise(1e-4),
+            "scale": h.AnalyticScale(),
+        }
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", DeprecationWarning)
+        jm = JM(args(JAX, 1.5), args(JAX, 2.5))
+        tm = TM(args(PORT, 1.5), args(PORT, 2.5))
+    m0, c0, _ = jfast.fast_posterior_mean_any(
+        jm, test, train, JaxNN(train, 12), y
+    )
+    mean, coeffs, timing = tfast.fast_posterior_mean_any(
+        tm, test, train, NN_Wrapper(train, 12, device="cpu"), y,
+        device="cpu",
+    )
+    assert mean.shape == (40, 2) and coeffs.shape == (150, 12, 2)
+    np.testing.assert_allclose(mean, np.asarray(m0), rtol=1e-8, atol=1e-10)
+    np.testing.assert_allclose(coeffs.numpy(), np.asarray(c0), rtol=1e-8,
+                               atol=1e-10)
+    assert set(timing) == {"precompute", "agree", "nn", "pred"}

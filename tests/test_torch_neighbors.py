@@ -200,3 +200,18 @@ def test_exact_scans_past_one_train_tile(monkeypatch, rng):
     i_j, d_j = JaxNN(train, 10).get_nns(test)
     np.testing.assert_array_equal(i_t, np.asarray(i_j))
     np.testing.assert_allclose(d_t, np.asarray(d_j), rtol=1e-12, atol=1e-15)
+
+
+def test_pallas_is_the_kernel_method(data):
+    """JAX's ``nn_method="pallas"`` builds the port's K3 index: the same
+    neighbors as ``"kernel"``, and JAX's exact sets."""
+    train, test = data
+    nb = NN_Wrapper(train, 15, nn_method="pallas", device="cpu")
+    assert nb.nn_method == "kernel" and nb._knn_index is not None
+    i_p, d_p = nb.get_nns(test)
+    i_k, d_k = NN_Wrapper(train, 15, nn_method="kernel",
+                          device="cpu").get_nns(test)
+    np.testing.assert_array_equal(i_p, i_k)
+    np.testing.assert_array_equal(d_p, d_k)
+    i_j, _ = JaxNN(train, 15).get_nns(test)
+    np.testing.assert_array_equal(np.sort(i_p, 1), np.sort(np.asarray(i_j), 1))

@@ -17,7 +17,7 @@ ROOT = pathlib.Path(__file__).resolve().parents[1]
 
 def _port_files():
     return sorted((ROOT / "muygpys_torch").rglob("*.py")) + [
-        ROOT / "chip_smoke.py"
+        ROOT / "chip_smoke.py", ROOT / "bench_torch.py"
     ]
 
 
@@ -25,8 +25,9 @@ def _port_files():
     "path", _port_files(), ids=lambda p: str(p.relative_to(ROOT))
 )
 def test_port_imports_no_jax(path):
-    """The port and its smoke script import neither JAX nor the JAX
-    package, at top level or inside functions."""
+    """The port, its smoke script and its headline benchmark import
+    neither JAX (nor flax or optax) nor the JAX package, at top level or
+    inside functions."""
     tree = ast.parse(path.read_text())
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
@@ -37,7 +38,8 @@ def test_port_imports_no_jax(path):
             continue
         for name in names:
             root = name.split(".")[0]
-            assert root not in ("jax", "jaxlib", "muygpys_tpu"), (
+            assert root not in ("jax", "jaxlib", "flax", "optax",
+                                "muygpys_tpu"), (
                 f"{path.name} imports {name}"
             )
 
@@ -259,6 +261,35 @@ def test_workflow_slice_modules_import_without_jax(module):
         f"import sys, muygpys_torch.{module}\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'muygpys_tpu')]\n"
+        "assert not bad, bad"
+    )
+    subprocess.run(
+        [sys.executable, "-c", code], check=True, cwd=str(ROOT),
+        env={**os.environ, "PYTHONPATH": str(ROOT)},
+    )
+
+
+@pytest.mark.parametrize(
+    "module",
+    ["muygpys_torch.nn", "muygpys_torch.nn.muygps_layer",
+     "muygpys_torch.examples.deep_kernel", "muygpys_torch.performance",
+     "muygpys_torch.performance.headline",
+     "muygpys_torch.performance.benchmark", "muygpys_torch._test",
+     "muygpys_torch._test.datasets", "muygpys_torch._test.oracle",
+     "muygpys_torch._test.sampler", "muygpys_torch._test.real_data",
+     "muygpys_torch.examples.fast_posterior_mean", "bench_torch"],
+)
+def test_deep_kernel_slice_modules_import_without_jax(module):
+    """The deep-kernel layer and trainer, the headline harness, the test
+    helpers and bench_torch.py import in a fresh interpreter that has
+    neither jax, flax, optax nor the JAX package loaded afterwards."""
+    import subprocess
+    import sys
+
+    code = (
+        f"import sys, {module}\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'muygpys_tpu')]\n"
         "assert not bad, bad"
     )
     subprocess.run(

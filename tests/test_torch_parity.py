@@ -612,26 +612,90 @@ NAMES = [
     ("examples.two_class_classify_uq", "make_masks"),
     ("examples.two_class_classify_uq", "do_uq"),
     ("examples.two_class_classify_uq", "train_two_class_interval"),
+    ("gp.kernels", "RBF"), ("gp.kernels", "Matern"),
+    ("gp.kernels.experimental", "ShearKernel"),
+    ("gp.kernels.experimental", "ShearKernel2in3out"),
+    ("optimize", "Fused_L_BFGS_B_optimize"),
+    ("optimize", "Fused_Device_LBFGS_optimize"),
+    ("neighbors", "NN_Wrapper"), ("serve", "FastServer"),
+    ("examples.fast_posterior_mean", "fast_posterior_mean_any"),
+    ("examples.fast_posterior_mean", "do_fast_posterior_mean"),
+    ("_test.datasets", "heaton_style"), ("_test.datasets", "stargal_style"),
+    *(("_test.oracle", n) for n in (
+        "crosswise_diffs", "pairwise_diffs", "crosswise_l2", "pairwise_l2",
+        "matern", "rbf", "posterior_mean", "diagonal_variance",
+        "analytic_scale", "dense_gp_sample")),
+    ("_test.sampler", "UnivariateSampler"),
+    ("_test.sampler", "UnivariateSampler.features"),
+    ("_test.sampler", "UnivariateSampler.sample"),
+    ("_test.sampler", "UnivariateSampler2D"),
+    ("_test.real_data", "data_dir"), ("_test.real_data", "load_heaton"),
+    ("_test.real_data", "load_stargal_embedded"),
+    ("performance.benchmark", "benchmark_fn"),
+    ("performance.benchmark", "BenchmarkPipeline"),
+    ("performance.benchmark", "BenchmarkPipeline.run"),
+    *(("performance.headline", n) for n in (
+        "make_inputs", "make_coords_inputs", "make_serve_inputs",
+        "make_train_inputs", "make_shear_inputs", "make_serve_1m_inputs",
+        "xla_loop", "pallas_loop", "pallas_coords_loop",
+        "pallas_coords_gen_loop", "knn_loop", "end_to_end_loop",
+        "fused_train_loop", "fused_train_loop_gen", "xla_train_loop",
+        "xla_train_loop_gen", "shear_serve_loop", "compile_loops",
+        "measure")),
+    ("nn", "MuyGPsLayer"), ("nn", "MultivariateMuyGPsLayer"),
+    ("nn", "DeepKernelMuyGPs"),
+    ("nn.muygps_layer", "DeepKernelMuyGPs.embed"),
+    *(("examples.deep_kernel", n) for n in (
+        "train_deep_kernel_muygps", "update_nearest_neighbors",
+        "predict_model", "predict_single_model", "predict_multiple_model")),
 ]
 
 
 # JAX parameters the port leaves out: private backend-injection arguments
-# with one value in use (each class calls its op directly)
+# with one value in use (each class calls its op directly; nothing in the
+# JAX package sets the kernels' either)
 LEFT_OUT = {
     "AnalyticScale": {"_backend_fn"},
     "HeteroscedasticNoise": {"_backend_fn"},
     "HomoscedasticNoise": {"_backend_fn"},
     "MuyGPS": {"_backend_mean_fn", "_backend_var_fn"},
+    "RBF": {"_backend_fn"},
+    "Matern": {"_backend_fns"},
+    "ShearKernel": {"_backend_fn"},
+    "ShearKernel2in3out": {"_backend_Kin_fn", "_backend_Kcross_fn",
+                           "_backend_Kout_fn"},
+    # flax's module-tree fields; a torch module registers its children
+    "MuyGPsLayer": {"parent", "name"},
+    "MultivariateMuyGPsLayer": {"parent", "name"},
+    "DeepKernelMuyGPs": {"parent", "name"},
 }
+
+# parameters only the port has, after the JAX ones: ``device`` everywhere,
+# and the features a hierarchical length scale reads (``batch_features``)
+# and the run's counts (``info``) on the chassis
+PORT_ONLY = {
+    "Fused_L_BFGS_B_optimize": {"batch_features"},
+    "Fused_Device_LBFGS_optimize": {"batch_features", "info"},
+}
+
+
+def _named_params(obj, drop=()):
+    """(the named parameters in order, whether it takes ``**kwargs``)."""
+    import inspect
+
+    params = [p for p in inspect.signature(obj).parameters.values()
+              if p.name not in drop]
+    return ([p.name for p in params if p.kind is not p.VAR_KEYWORD],
+            any(p.kind is p.VAR_KEYWORD for p in params))
 
 
 @pytest.mark.parametrize("module,name", NAMES, ids=lambda v: str(v))
 def test_public_names_match_jax_signatures(module, name):
     """Each name exists in both packages, and the JAX parameters are the
-    port's, in order (the port's loaders add ``device=`` after them), but
-    for the private backend arguments of ``LEFT_OUT``."""
+    port's, in order, for the private backend arguments of ``LEFT_OUT``;
+    after them the port adds ``device=`` and the ``PORT_ONLY`` names alone,
+    and takes ``**kwargs`` exactly where JAX does."""
     import importlib
-    import inspect
 
     def resolve(pkg):
         obj = importlib.import_module(f"{pkg}.{module}")
@@ -642,8 +706,28 @@ def test_public_names_match_jax_signatures(module, name):
     port, ref = resolve("muygpys_torch"), resolve("muygpys_tpu")
     if not callable(ref) or name in ("ScalarParam",):
         return
-    j = [p for p in inspect.signature(ref).parameters
-         if p not in LEFT_OUT.get(name, ())]
-    t = list(inspect.signature(port).parameters)
+    j, j_kwargs = _named_params(ref, LEFT_OUT.get(name, ()))
+    t, t_kwargs = _named_params(port)
     assert t[:len(j)] == j, (t, j)
-    assert set(t[len(j):]) <= {"device"}, t
+    assert set(t[len(j):]) <= {"device"} | PORT_ONLY.get(name, set()), t
+    assert t_kwargs == j_kwargs, (t_kwargs, j_kwargs)
+
+
+# JAX names the port leaves out, each with its reason
+LEFT_OUT_NAMES = {
+    ("performance.headline", "enable_persistent_cache"): (
+        "JAX's persistent compilation cache; the port's kernels are built "
+        "once by nvcc into the git-ignored build directory"
+    ),
+    ("performance.headline", "CACHE_DIR"): "that cache's directory",
+}
+
+
+@pytest.mark.parametrize("module,name", sorted(LEFT_OUT_NAMES),
+                         ids=lambda v: str(v))
+def test_left_out_names_exist_only_in_jax(module, name):
+    import importlib
+
+    assert hasattr(importlib.import_module(f"muygpys_tpu.{module}"), name)
+    assert not hasattr(importlib.import_module(f"muygpys_torch.{module}"),
+                       name)

@@ -188,7 +188,7 @@ def test_server_errors(data):
     with pytest.raises(NotImplementedError, match="not ported yet"):
         FastServer(tm, nbrs, xtr, ytr, shard="train", device="cpu")
     with pytest.raises(ValueError, match="unknown engine"):
-        FastServer(tm, nbrs, xtr, ytr, engine="pallas", device="cpu")
+        FastServer(tm, nbrs, xtr, ytr, engine="mosaic", device="cpu")
     hm = carried(jax_model(hetero=np.full((4, NN), 1e-3)))
     with pytest.raises(ValueError, match="measurement_noise"):
         FastServer(hm, nbrs, xtr, ytr, device="cpu")
@@ -278,7 +278,7 @@ def test_shear_server_errors(shear_data):
         with pytest.raises(ValueError, match="shear models serve via"):
             FastServer(tm, nbrs, pts, targets, engine=engine, device="cpu")
     with pytest.raises(ValueError, match="unknown engine"):
-        FastServer(tm, nbrs, pts, targets, engine="pallas", device="cpu")
+        FastServer(tm, nbrs, pts, targets, engine="mosaic", device="cpu")
     with pytest.raises(ValueError, match="measurement noise"):
         FastServer(tm, nbrs, pts, targets, measurement_noise=np.ones(250),
                    device="cpu")
@@ -322,3 +322,20 @@ def test_server_defaults_to_cuda(data, monkeypatch):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         FastServer(shear, NN_Wrapper(xtr, NN, device="cpu"), xtr,
                    np.zeros((2048, 3)), engine="kernel")
+
+
+def test_pallas_is_the_kernel_engine(data):
+    """``FastServer(engine="pallas")``, JAX's name, serves as the port's
+    ``"kernel"`` engine does, bit for bit."""
+    xtr, ytr, xte, _ = data
+    tm = carried(jax_model(kernel="matern", nu=1.5, metric="l2", ls=0.5))
+    out = {}
+    for engine in ("kernel", "pallas"):
+        server = FastServer(
+            tm, NN_Wrapper(xtr, NN, device="cpu"), xtr, ytr, bucket=BUCKET,
+            engine=engine, device="cpu",
+        )
+        assert server.engine == "kernel"
+        out[engine] = server.predict(xte)
+    for a, b in zip(out["kernel"], out["pallas"]):
+        np.testing.assert_array_equal(a, b)
