@@ -195,13 +195,31 @@ Phases (any failure raises and the script exits non-zero):
    beside phases 3/4's kernel ms), each of its kernel loops captured and
    replayed once against one eager call (equal), and BenchmarkPipeline
    with a torch.profiler trace;
-21. the kernels line: one JSON object with every kernel's launches on its
+21. the sharded paths, each world's ranks worker processes of this script
+   (``--sharded-rank``; any rank that exits non-zero fails the run): a
+   world of one over NCCL (servers captured, no collective issued) and two
+   ranks sharing the card over gloo (servers eager): FastServer(engine=
+   "fused", mesh=, shard="queries") at the serving headline against the
+   serial server (bit for bit), shard="train" (25,000 rows a rank at two
+   ranks, K3 pruned on each shard; its sets against the exact ones, its
+   mean and variance against the f64 reference where they equal; one
+   request at nu = 1.2 through K1 "gen" against the serial server), the
+   shear bucket (K5) under shard="queries" against the serial server, each
+   server's mode asserted; at two ranks the training headline's batch
+   sharded through Fused_L_BFGS_B_optimize(engine="kernel") under phase
+   7's gates, equal on both ranks; performance/scaling.py's three programs
+   (mechanics: the ranks share one card) and a reporting-only
+   shard="train" run at 1,000,000 rows beside phase 20's single-card rate.
+   With two cards or more the same again over NCCL, one rank a card;
+   with one, a line saying NCCL across cards did not run;
+22. the kernels line (its ``paths`` include the sharded ones, summed over
+   every rank): one JSON object with every kernel's launches on its
    path and each design's launches there, error against its plain version,
    times (for K1, K1b and K3 also the kept design's) and bound; for K2 and
    K5 each design's launches over the run (both must have run) and
    registers; K4's constructor with its launches on the free-nu path;
    each kernel's paths that ran it inside a captured graph (in_graph);
-22. the last line: {"ok": true, "device": {...}}.
+23. the last line: {"ok": true, "device": {...}}.
 
 With ``--exact-bench ROOT`` the script instead times the exact search of
 the muygpys_torch package found at ROOT (this checkout's, or another's, to
@@ -4596,10 +4614,30 @@ def main() -> int:
         f"{time.perf_counter() - t_phase:.1f} s")
     # 20. the headline harness (bench_torch.py) and the pipeline harness
     t_phase = time.perf_counter()
-    _, launches_by_path["headline"] = phase_headline(torch, card, rows)
+    headline_numbers, launches_by_path["headline"] = phase_headline(
+        torch, card, rows)
     log(f"phase 20 (headline harness): {time.perf_counter() - t_phase:.1f} s")
+    # 21. the sharded paths, in worker processes of this script: a world of
+    # one over NCCL (captured, no collective) and two ranks sharing the
+    # card over gloo (eager); with two cards or more also two NCCL ranks,
+    # one a card
+    t_phase = time.perf_counter()
+    worlds = [("nccl", 1), ("gloo", 2)]
+    if torch.cuda.device_count() >= 2:
+        worlds.append(("nccl", 2))
+    _, sharded_launches = phase_sharded(
+        torch,
+        sharded_payload(np, train, targets, requests, y_train, bi, bnn, sky,
+                        sky_targets, shear_requests),
+        judge, ref, exact_sets, headline_numbers["bench"],
+        worlds=worlds,
+    )
+    launches_by_path.update(sharded_launches)
+    if torch.cuda.device_count() < 2:
+        log("phase 21: NCCL across cards did not run (one card visible)")
+    log(f"phase 21 (sharded): {time.perf_counter() - t_phase:.1f} s")
 
-    # 21. kernels line: launches on each kernel's path (serving: fused and
+    # 22. kernels line: launches on each kernel's path (serving: fused and
     # fused_gen; the distance workflow: dists; training: train and
     # train_gen; shear serving: shear; the fast posterior mean: fast_mean;
     # the workflows of phase 17: workflow_*), counted from zero just before
@@ -4725,6 +4763,415 @@ def main() -> int:
     return 0
 
 
+# -- phase 21: the sharded paths (parallel/, FastServer(mesh=, shard=), the
+# sharded K2 objective, performance/scaling.py), in worker processes ------
+
+# the worlds of the sharded phase on one card: a world of one over NCCL
+# (its server captured, no collective issued) and two ranks sharing the card
+# over gloo (eager); with two cards or more, two NCCL ranks a card each
+SHARDED_BUCKET = QUERIES
+# the reporting-only train-sharded run: rows, queries (phase 20's 1M shape)
+SHARDED_1M, SHARDED_1M_QUERIES = 1_000_000, 4096
+# the launch-count paths of the sharded phase, summed over every rank
+SHARDED_PATHS = ("mesh_queries", "mesh_train", "mesh_train_gen",
+                 "mesh_shear", "mesh_train_k2")
+
+
+def _path(torch, dev, fn):
+    """``(fn(), the kernels' launches during it)``: counts zeroed just
+    before, read just after (the device synchronised on both sides)."""
+    from muygpys_torch.gpu import _build
+
+    sync(torch, dev)
+    _build.reset_launches()
+    out = fn()
+    sync(torch, dev)
+    return out, dict(_build.launches)
+
+
+def _serve_all(server, requests):
+    outs = [server.predict(r) for r in requests]
+    import numpy as np
+
+    return (np.concatenate([o[0] for o in outs]),
+            np.concatenate([o[1] for o in outs]))
+
+
+def _diff(a, b):
+    import numpy as np
+
+    return float(np.abs(np.asarray(a, np.float64) - b).max())
+
+
+def train_sharded_sets(torch, train_d, queries, mesh, cand_count, nn):
+    """The neighbour sets the ``shard="train"`` fused server conditions on,
+    by the same steps outside it (each rank's pruned K3 over its contiguous
+    shard of the Morton-sorted rows, the candidates' union all-gathered,
+    the exact top ``nn`` of the union), as global row numbers, sorted."""
+    from muygpys_torch.gpu.knn import build_index, knn_cuda_pruned, \
+        spatial_sort
+    from muygpys_torch.parallel import comm, local_chunk_slice
+    from muygpys_torch.parallel.mesh import mesh_group, mesh_size
+
+    perm = spatial_sort(train_d)
+    rows = local_chunk_slice(train_d.shape[0], mesh)
+    local = train_d[perm][rows].contiguous()
+    cand_count = min(cand_count, local.shape[0])
+    index = build_index(local, bins=512, pruned=True)
+    q = torch.as_tensor(queries, device=train_d.device)
+    cand, _ = knn_cuda_pruned(None, q, cand_count, device=train_d.device,
+                              train_index=index)
+    mine = perm[rows.start + cand]
+    union = comm.all_gather(mine[None], mesh_group(mesh))
+    union = union.transpose(0, 1).reshape(q.shape[0],
+                                          mesh_size(mesh) * cand_count)
+    d2 = torch.sum((train_d[union] - q[:, None, :]) ** 2, -1)
+    sel = torch.topk(d2, nn, dim=1, largest=False)[1]
+    import numpy as np
+
+    return np.sort(torch.gather(union, 1, sel).cpu().numpy(), 1)
+
+
+def sharded_rank(rank, world, port, backend, payload_path, out_path):
+    """One rank of a world of the sharded phase (``--sharded-rank``): (a)
+    the serving headline through ``FastServer(engine="fused", mesh=,
+    shard="queries")`` beside the serial server, ``shard="train"`` (and one
+    request at nu = 1.2), the shear bucket (K5) under ``shard="queries"``,
+    each server's mode asserted; (b) with two ranks, the training headline's
+    batch sharded through ``Fused_L_BFGS_B_optimize(engine="kernel")``; (c)
+    performance/scaling.py's three programs at this world's size, and the
+    reporting-only train-sharded run at 1,000,000 rows.  Writes its numbers
+    and outputs to ``out_path`` (.npz)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from muygpys_torch.convert import arrays_from_muygps, muygps_from_arrays
+    from muygpys_torch.neighbors import NN_Wrapper
+    from muygpys_torch.optimize import Fused_L_BFGS_B_optimize
+    from muygpys_torch.parallel import (
+        initialize_distributed,
+        make_mesh,
+        shard_batch,
+    )
+    from muygpys_torch.parallel.mesh import rank_device
+    from muygpys_torch.performance import scaling
+    from muygpys_torch.serve import FastServer
+
+    p = dict(np.load(payload_path))
+    dev = str(p["device"])
+    if dev == "cpu":
+        torch.set_num_threads(1)
+    initialize_distributed(
+        device=dev, backend=backend, coordinator_address=f"localhost:{port}",
+        num_processes=world, process_id=rank,
+    )
+    mesh, device = make_mesh(), rank_device()
+    mode = "captured" if dev == "cuda" and backend == "nccl" else "eager"
+    train, targets = p["train"], p["targets"]
+    requests = [p[f"request{i}"] for i in range(3)]
+    bucket, nn = int(p["bucket"]), int(p["nn"])
+    nbrs = NN_Wrapper(train, nn, device=device)
+    numbers, arrays, paths = {"rank": rank, "world": world,
+                              "backend": backend}, {}, {}
+
+    # (a) queries sharded, beside the serial (captured on a card) server
+    model = muygps_from_arrays(length_scale=LS, noise=NOISE, scale=1.0,
+                               smoothness=NU)
+    serial = FastServer(model, nbrs, train, targets, bucket=bucket,
+                        engine="fused", device=device)
+    serial.predict(requests[2])
+    m0, v0 = _serve_all(serial, requests)
+    sharded = FastServer(model, nbrs, train, targets, bucket=bucket,
+                         engine="fused", mesh=mesh, device=device)
+    assert sharded.mode == mode, (sharded.mode, mode)
+    sharded.predict(requests[2])
+    t0 = time.perf_counter()
+    (m1, v1), paths["mesh_queries"] = _path(
+        torch, dev, lambda: _serve_all(sharded, requests))
+    numbers["queries"] = dict(
+        mode=sharded.mode, seconds=time.perf_counter() - t0,
+        bit_equal=bool(np.array_equal(m0, m1) and np.array_equal(v0, v1)),
+        mean_max_abs_diff=_diff(m1, m0), var_max_abs_diff=_diff(v1, v0),
+    )
+    arrays.update(queries_mean=m1, queries_var=v1, serial_mean=m0,
+                  serial_var=v0)
+
+    # (a) the training rows sharded: K3 pruned on each shard; nu = 1.2
+    # through K1 under "gen" on one request
+    all_q = np.concatenate(requests)
+    arrays["train_sets"] = train_sharded_sets(
+        torch, torch.as_tensor(train, device=device), all_q, mesh, nn + 8,
+        nn)
+    tsharded = FastServer(model, nbrs, train, targets, bucket=bucket,
+                          engine="fused", mesh=mesh, shard="train",
+                          device=device)
+    assert tsharded.mode == mode
+    tsharded.predict(requests[2])
+    t0 = time.perf_counter()
+    (m2, v2), paths["mesh_train"] = _path(
+        torch, dev, lambda: _serve_all(tsharded, requests))
+    numbers["train"] = dict(mode=tsharded.mode,
+                            seconds=time.perf_counter() - t0)
+    arrays.update(train_mean=m2, train_var=v2)
+    gen = muygps_from_arrays(length_scale=LS, noise=NOISE, scale=1.0,
+                             smoothness=NU_GEN)
+    gen_serial = FastServer(gen, nbrs, train, targets, bucket=bucket,
+                            engine="fused", device=device)
+    mg0, vg0 = gen_serial.predict(requests[0])
+    gen_sharded = FastServer(gen, nbrs, train, targets, bucket=bucket,
+                             engine="fused", mesh=mesh, shard="train",
+                             device=device)
+    (mg, vg), paths["mesh_train_gen"] = _path(
+        torch, dev, lambda: gen_sharded.predict(requests[0]))
+    arrays.update(gen_mean=mg, gen_var=vg, gen_serial_mean=mg0,
+                  gen_serial_var=vg0)
+
+    # (a) the shear bucket (K5) under shard="queries"
+    sky, sky_targets = p["sky"], p["sky_targets"]
+    shear_requests = [p[f"shear_request{i}"] for i in range(3)]
+    sky_nbrs = NN_Wrapper(sky, SHEAR_NN, device=device)
+    s_serial = FastServer(shear_model(), sky_nbrs, sky, sky_targets,
+                          bucket=int(p["shear_bucket"]), engine="kernel",
+                          device=device)
+    s_serial.predict(shear_requests[2])
+    sm0, sc0 = _serve_all(s_serial, shear_requests)
+    s_sharded = FastServer(shear_model(), sky_nbrs, sky, sky_targets,
+                           bucket=int(p["shear_bucket"]), engine="kernel",
+                           mesh=mesh, device=device)
+    assert s_sharded.mode == mode
+    s_sharded.predict(shear_requests[2])
+    (sm1, sc1), paths["mesh_shear"] = _path(
+        torch, dev, lambda: _serve_all(s_sharded, shear_requests))
+    numbers["shear"] = dict(
+        mode=s_sharded.mode,
+        bit_equal=bool(np.array_equal(sm0, sm1)
+                       and np.array_equal(sc0, sc1)),
+        mean_max_abs_diff=_diff(sm1, sm0), cov_max_abs_diff=_diff(sc1, sc0),
+    )
+
+    # (b) the training headline's batch sharded over the ranks (K2)
+    if world > 1:
+        tm = train_model()
+        dtype = torch.float32 if dev == "cuda" else torch.float64
+        cw, pw, bt, bnt = tm.make_train_tensors(
+            p["bi"], p["bnn"], torch.as_tensor(train, device=device),
+            torch.as_tensor(p["y_train"], dtype=dtype, device=device),
+        )
+        sharded_batch = shard_batch((bt, bnt, cw, pw), mesh)
+        import scipy.optimize  # noqa: F401  (its import outside the timing)
+
+        t0 = time.perf_counter()
+        trained, paths["mesh_train_k2"] = _path(
+            torch, dev, lambda: Fused_L_BFGS_B_optimize(
+                tm, *sharded_batch, engine="kernel", device=device))
+        vals = arrays_from_muygps(trained)
+        numbers["training"] = dict(
+            length_scale=float(vals["length_scale"]),
+            noise=float(vals["noise"]), seconds=time.perf_counter() - t0,
+            local_rows=int(sharded_batch[0].to_local().shape[0]),
+        )
+
+    # (c) scaling.py's programs at this world's size, and 1M rows sharded
+    numbers["scaling"] = scaling.world_records(
+        scaling.TRAIN_PROGRAMS + ("fused_serve_shard_train",),
+        dict(batch_per_device=int(p["scaling_batch"]), nn=30, steps=5,
+             warmup=1, bucket_per_device=512,
+             train_per_device=int(p["scaling_train"])),
+        mesh, device,
+    )
+    rng = np.random.default_rng(3)
+    rows_1m, q_1m = int(p["rows_1m"]), int(p["queries_1m"])
+    x1m = rng.uniform(size=(rows_1m, D)).astype(np.float32)
+    y1m = rng.standard_normal((rows_1m, 1)).astype(np.float32)
+    q1m = rng.uniform(size=(q_1m, D)).astype(np.float32)
+    s1m = FastServer(model, NN_Wrapper(x1m[:nn + 1], nn, device=device),
+                     x1m, y1m, bucket=q_1m, engine="fused", mesh=mesh,
+                     shard="train", device=device)
+    m1m, v1m = s1m.predict(q1m)
+    assert np.isfinite(m1m).all() and np.isfinite(v1m).all()
+    sync(torch, dev)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        s1m.predict(q1m)
+    dt = (time.perf_counter() - t0) / 5
+    numbers["serve_1m"] = dict(rows=rows_1m, queries=q_1m, mode=s1m.mode,
+                               request_seconds=dt,
+                               preds_per_sec=q_1m / dt)
+    numbers["paths"] = paths
+    np.savez(out_path, numbers=json.dumps(numbers), **arrays)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def sharded_payload(np, train, targets, requests, y_train, bi, bnn, sky,
+                    sky_targets, shear_requests, dev="cuda", **sizes):
+    """The arrays and sizes every rank of the sharded phase reads."""
+    out = dict(
+        device=dev, train=train, targets=targets, y_train=y_train, bi=bi,
+        bnn=bnn, sky=sky, sky_targets=sky_targets,
+        bucket=sizes.get("bucket", SHARDED_BUCKET), nn=NN,
+        shear_bucket=sizes.get("shear_bucket", SHEAR_BATCH),
+        scaling_batch=sizes.get("scaling_batch", 1024),
+        scaling_train=sizes.get("scaling_train", 2048),
+        rows_1m=sizes.get("rows_1m", SHARDED_1M),
+        queries_1m=sizes.get("queries_1m", SHARDED_1M_QUERIES),
+    )
+    out.update({f"request{i}": r for i, r in enumerate(requests)})
+    out.update({f"shear_request{i}": r for i, r in enumerate(shear_requests)})
+    return out
+
+
+def run_world(world, backend, payload_path, out_dir, timeout=600):
+    """Start the ranks of one world (this script with ``--sharded-rank``),
+    wait for them, and return their results in rank order; fails unless
+    every rank exits 0."""
+    import socket
+
+    import numpy as np
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    outs = [os.path.join(out_dir, f"{backend}{world}_rank{r}.npz")
+            for r in range(world)]
+    procs = [
+        subprocess.Popen([
+            sys.executable, os.path.abspath(__file__), "--sharded-rank",
+            str(r), str(world), str(port), backend, payload_path, outs[r],
+        ])
+        for r in range(world)
+    ]
+    try:
+        rcs = [proc.wait(timeout=timeout) for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    assert rcs == [0] * world, f"sharded {backend} world of {world}: {rcs}"
+    results = []
+    for path in outs:
+        with np.load(path) as f:
+            res = {k: f[k] for k in f.files if k != "numbers"}
+            res.update(json.loads(str(f["numbers"])))
+        results.append(res)
+    return results
+
+
+def phase_sharded(torch, payload, judge, ref, exact_sets, bench, dev="cuda",
+                  worlds=(("nccl", 1), ("gloo", 2))):
+    """Phase 21: the sharded paths in worker processes started here, each
+    world in turn; every rank's checks in the worker (modes), the rest here
+    (the f64 reference and the exact sets of phase 5, phase 7's gates).
+    Returns (numbers, the launches of each sharded path summed over every
+    rank)."""
+    import tempfile
+
+    import numpy as np
+
+    out_dir = tempfile.mkdtemp(
+        dir=os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build"))
+    payload_path = os.path.join(out_dir, "payload.npz")
+    np.savez(payload_path, **payload)
+    m_ref, v_ref = ref
+    launches = {p: {} for p in SHARDED_PATHS}
+    numbers = {}
+    for backend, world in worlds:
+        t0 = time.perf_counter()
+        results = run_world(world, backend, payload_path, out_dir)
+        label = f"{backend}/{world}"
+        r0 = results[0]
+        # every rank returns the whole answer, the same on every rank
+        for res in results[1:]:
+            for key in ("queries_mean", "train_mean", "gen_mean"):
+                assert np.array_equal(res[key], r0[key]), (label, key)
+        q = r0["queries"]
+        log(f"phase 21 {label}: shard='queries' fused ({q['mode']}) "
+            f"bit-equal to the serial server: {q['bit_equal']} (mean "
+            f"{q['mean_max_abs_diff']:.3e}, var {q['var_max_abs_diff']:.3e});"
+            f" the three requests in {q['seconds'] * 1e3:.2f} ms")
+        same = (r0["train_sets"] == exact_sets).all(1)
+        err_m = float(np.abs(r0["train_mean"] - m_ref)[same].max())
+        err_v = float(np.abs(r0["train_var"] - v_ref)[same].max())
+        gmask = same[:len(r0["gen_mean"])]
+        err_gm = _diff(r0["gen_mean"][gmask], r0["gen_serial_mean"][gmask])
+        err_gv = _diff(r0["gen_var"][gmask], r0["gen_serial_var"][gmask])
+        log(f"phase 21 {label}: shard='train' ({r0['train']['mode']}) sets "
+            f"equal the exact ones on {same.mean():.6f} of queries; against "
+            f"the f64 reference on them: mean {err_m:.3e} (tol "
+            f"{MEAN_TOL_F32}), var {err_v:.3e} (tol {VAR_TOL_F32}); nu = "
+            f"{NU_GEN} against the serial fused server: mean {err_gm:.3e}, "
+            f"var {err_gv:.3e}; the three requests in "
+            f"{r0['train']['seconds'] * 1e3:.2f} ms")
+        assert same.mean() >= 0.98, f"{label} train-sharded sets"
+        assert err_m <= MEAN_TOL_F32 and err_v <= VAR_TOL_F32, label
+        assert err_gm <= MEAN_TOL_F32 and err_gv <= VAR_TOL_F32, label
+        for res in results:
+            assert np.isfinite(res["queries_mean"]).all()
+        if not q["bit_equal"]:
+            # the same arithmetic per query: a difference can only come
+            # from a neighbour set; hold it to the serving limits
+            serial_err_m = _diff(r0["queries_mean"][same], m_ref[same])
+            assert serial_err_m <= MEAN_TOL_F32, label
+        s = r0["shear"]
+        log(f"phase 21 {label}: shear shard='queries' ({s['mode']}) "
+            f"bit-equal to the serial server: {s['bit_equal']} (mean "
+            f"{s['mean_max_abs_diff']:.3e}, cov {s['cov_max_abs_diff']:.3e})")
+        prior = float(shear_model().kernel.Kout().diagonal().max())
+        assert s["bit_equal"] or (
+            s["mean_max_abs_diff"] <= SHEAR_MEAN_REL_F32 * prior
+            and s["cov_max_abs_diff"] <= SHEAR_COV_REL_F32 * prior), label
+        if world > 1:
+            params = [(res["training"]["length_scale"],
+                       res["training"]["noise"]) for res in results]
+            assert len(set(params)) == 1, f"{label}: ranks disagree {params}"
+            tr = r0["training"]
+            log(f"phase 21 {label}: training batch "
+                f"{tr['local_rows'] * world} sharded "
+                f"({tr['local_rows']} rows a rank): length_scale "
+                f"{tr['length_scale']!r}, noise {tr['noise']!r} on every "
+                f"rank, {tr['seconds']:.2f} s")
+            judge(f"phase 21 {label} sharded training",
+                  {"length_scale": tr["length_scale"],
+                   "noise": tr["noise"]})
+        recs = r0["scaling"]
+        one_m = r0["serve_1m"]
+        log(f"phase 21 {label}: scaling.py's programs (mechanics, not "
+            "scaling: one card) "
+            + json.dumps(recs))
+        log(f"phase 21 {label}: shard='train' at {one_m['rows']} rows, "
+            f"{one_m['queries']} queries ({one_m['mode']}): "
+            f"{one_m['preds_per_sec']:.1f} preds/s (reporting only; phase "
+            f"20's single-card 1M end to end: "
+            f"{bench.get('end_to_end_preds_per_sec_1m')} preds/s)")
+        for res in results:
+            for path, counts in res["paths"].items():
+                for k, v in counts.items():
+                    launches[path][k] = launches[path].get(k, 0) + v
+        numbers[label] = dict(
+            seconds=time.perf_counter() - t0, queries=q, shear=s,
+            train=dict(sets_exact=float(same.mean()), mean_err=err_m,
+                       var_err=err_v, gen_mean_err=err_gm,
+                       gen_var_err=err_gv),
+            training=r0.get("training"), scaling=recs, serve_1m=one_m,
+        )
+    # the CPU rehearsal runs the plain versions, which count no launch
+    for path, counters in () if dev != "cuda" else (
+            ("mesh_queries", ("fused_predict_coords", "knn_candidates",
+                              "knn_candidates_pruned")),
+            ("mesh_train", ("fused_predict_coords",
+                            "knn_candidates_pruned")),
+            ("mesh_train_gen", ("fused_predict_coords",)),
+            ("mesh_shear", ("multiout_solve",)),
+            ("mesh_train_k2", ("fused_train_stats",))):
+        for c in counters:
+            assert launches[path].get(c, 0) > 0, (path, c, launches[path])
+    return numbers, launches
+
+
 def exact_bench(root) -> int:
     """``--exact-bench ROOT``: five timings each of the exact search
     (NN_Wrapper("exact").get_nns, one request of 8192 against the 50,000
@@ -4767,4 +5214,9 @@ def exact_bench(root) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--exact-bench"]:
         sys.exit(exact_bench(sys.argv[2]))
+    if sys.argv[1:2] == ["--sharded-rank"]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        a = sys.argv[2:]
+        sys.exit(sharded_rank(int(a[0]), int(a[1]), int(a[2]), a[3], a[4],
+                              a[5]))
     sys.exit(main())

@@ -47,6 +47,7 @@ import torch
 from muygpys_torch import config
 from muygpys_torch.gpu import _build
 from muygpys_torch.gpu import matern_nu as _nu
+from muygpys_torch.parallel import comm
 from muygpys_torch.ops.lanes_solver import (
     cholesky_bl,
     tri_solve_bwd_bl,
@@ -377,14 +378,22 @@ _COUNTS = {d: ("fused_train_stats", f"fused_train_stats/{d}")
 
 def _epilogue(
     stats, t_bl, loss, free_names, n, boundary_scale=None,
-    ls_keys=("length_scale",),
+    ls_keys=("length_scale",), group=None,
 ):
     """Scalar objective (-loss) and gradient dict from the per-point rows.
 
     All four losses take the SAME rows: the robust ones (pseudo-Huber
     ``"huber"``, leave-one-out pseudo-Huber ``"looph"``) differ from mse and
     lool by an elementwise Huber weight on the residual terms.  ``ls_keys``
-    names the length-scale derivative groups in emission order."""
+    names the length-scale derivative groups in emission order.
+
+    Every sum runs over the whole batch.  Under a sharded batch (``group``,
+    the ranks' process group; each rank's ``stats`` hold its local rows)
+    the local sums are all-reduced, stacked, before any nonlinear step:
+    lool's and looph's sigma^2, its derivatives and the row count first,
+    then the value and the gradient terms, so each is the global one (the
+    JAX package's ``t_bl.size`` is global under ``jit``; a local one here
+    would normalize by a shard)."""
     if boundary_scale is None:
         boundary_scale = 3.0 if loss == "looph" else 1.5
     r, B = t_bl.shape
@@ -403,35 +412,58 @@ def _epilogue(
     if smoothness_free:
         o = o + r + 1
         dmS, dvS, dqS = stats[o:o + r], stats[o + r], stats[o + r + 1]
+    # (key, dmean rows, dvar row, dq row) of each free parameter, in order
+    free = [
+        (key, dmL, dvL, dqL)
+        for key, dmL, dvL, dqL in zip(ls_keys, dmLs, dvLs, dqLs)
+        if key in free_names
+    ]
+    if "noise" in free_names:
+        free.append(("noise", dmN, dvN, None))
+    if smoothness_free:
+        free.append(("smoothness", dmS, dvS, dqS))
+
+    def total(*parts):
+        # the batch's sums: local ones stacked, one all-reduce under a mesh
+        # (a count by torch.full: a captured evaluation copies nothing from
+        # the host)
+        sums = torch.stack([
+            p if torch.is_tensor(p) else torch.full(
+                (), p, dtype=stats.dtype, device=stats.device)
+            for p in parts
+        ])
+        return sums if group is None else comm.all_reduce(sums, group)
 
     e = mean - t_bl  # (r, B)
-    grads = {}
     if loss == "mse":
-        value = -torch.sum(e * e) / t_bl.numel()
-        for key, dmL in zip(ls_keys, dmLs):
-            if key in free_names:
-                grads[key] = -2.0 * torch.sum(e * dmL) / t_bl.numel()
-        if "noise" in free_names:
-            grads["noise"] = -2.0 * torch.sum(e * dmN) / t_bl.numel()
-        if smoothness_free:
-            grads["smoothness"] = -2.0 * torch.sum(e * dmS) / t_bl.numel()
-        return value, grads
+        sums = total(torch.sum(e * e),
+                     *[torch.sum(e * dm) for _, dm, _, _ in free],
+                     t_bl.numel())
+        count = sums[-1]
+        return -sums[0] / count, {
+            key: -2.0 * sums[1 + i] / count
+            for i, (key, _, _, _) in enumerate(free)
+        }
 
     if loss == "huber":
         # unnormalized pseudo-Huber on the posterior mean
         bs2 = boundary_scale * boundary_scale
         rad = torch.sqrt(1.0 + (e * e) / bs2)
-        value = -bs2 * torch.sum(rad - 1.0)
-        for key, dmL in zip(ls_keys, dmLs):
-            if key in free_names:
-                grads[key] = -torch.sum(e * dmL / rad)
-        if "noise" in free_names:
-            grads["noise"] = -torch.sum(e * dmN / rad)
-        if smoothness_free:
-            grads["smoothness"] = -torch.sum(e * dmS / rad)
-        return value, grads
+        sums = total(torch.sum(rad - 1.0),
+                     *[torch.sum(e * dm / rad) for _, dm, _, _ in free])
+        return -bs2 * sums[0], {
+            key: -sums[1 + i] for i, (key, _, _, _) in enumerate(free)
+        }
 
-    s = torch.sum(q) / (B * n)  # analytic sigma^2 (global)
+    # analytic sigma^2 and its derivatives: global sums over a global count
+    pre = total(torch.sum(q), *[torch.sum(dq) for _, _, _, dq in free
+                                if dq is not None], B)
+    count = pre[-1] * n
+    s = pre[0] / count
+    dq_sums = iter(pre[1:-1])
+    # d sigma^2 / d noise == 0 under the stored-noise quirk
+    ds = [torch.zeros((), dtype=var.dtype, device=var.device) if dq is None
+          else next(dq_sums) / count for _, _, _, dq in free]
     # the variance floor: where it is active the derivative of sv is zero
     floor = 10.0 * torch.finfo(var.dtype).eps
     raw_sv = s * var
@@ -441,7 +473,7 @@ def _epilogue(
     if loss == "looph":
         bs2 = boundary_scale * boundary_scale
         rad = torch.sqrt(1.0 + (e * e) / (bs2 * sv[None, :]))
-        value = -(2.0 * bs2 * torch.sum(rad - 1.0) + r * torch.sum(torch.log(sv)))
+        value = 2.0 * bs2 * torch.sum(rad - 1.0) + r * torch.sum(torch.log(sv))
 
         def dloss(dm, dv, ds):
             dsv = torch.where(clamped, 0.0, ds * var + s * dv)
@@ -452,7 +484,7 @@ def _epilogue(
             )
 
     else:  # lool
-        value = -(torch.sum(e * e / sv[None, :]) + r * torch.sum(torch.log(sv)))
+        value = torch.sum(e * e / sv[None, :]) + r * torch.sum(torch.log(sv))
 
         def dloss(dm, dv, ds):
             dsv = torch.where(clamped, 0.0, ds * var + s * dv)
@@ -462,16 +494,11 @@ def _epilogue(
                 + r * torch.sum(dsv / sv)
             )
 
-    for key, dmL, dvL, dqL in zip(ls_keys, dmLs, dvLs, dqLs):
-        if key in free_names:
-            grads[key] = -dloss(dmL, dvL, torch.sum(dqL) / (B * n))
-    if "noise" in free_names:
-        # d sigma^2 / d noise == 0 under the stored-noise quirk
-        grads["noise"] = -dloss(dmN, dvN, torch.zeros((), dtype=var.dtype,
-                                                      device=var.device))
-    if smoothness_free:
-        grads["smoothness"] = -dloss(dmS, dvS, torch.sum(dqS) / (B * n))
-    return value, grads
+    sums = total(value, *[dloss(dm, dv, d)
+                          for (_, dm, dv, _), d in zip(free, ds)])
+    return -sums[0], {
+        key: -sums[1 + i] for i, (key, _, _, _) in enumerate(free)
+    }
 
 
 class FusedLOO(torch.autograd.Function):

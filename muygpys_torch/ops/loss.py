@@ -6,7 +6,9 @@ its unscaled form, pseudo-Huber and looph, as sums of per-point terms that
 covariance blocks (the shear family).  Every loss takes optional
 ``row_weights (batch,)`` multiplying each batch row's contribution (the
 normalized mse divides by the weight total), as in the JAX package: 0/1
-weights make padded rows absent.
+weights make padded rows absent.  Sums and counts run over the whole
+batch: inside a sharded objective (:func:`muygpys_torch.parallel.comm.reducing`)
+each is all-reduced over the ranks, as XLA's sum over a sharded axis is.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from muygpys_torch.ops import solve as _solve
+from muygpys_torch.parallel import comm
 
 
 def _weights_like(predictions, row_weights):
@@ -28,7 +31,7 @@ def _weights_like(predictions, row_weights):
 
 def _weighted_sum(terms, row_weights):
     w = _weights_like(terms, row_weights)
-    return torch.sum(terms if w is None else terms * w)
+    return comm.batch_sum(terms if w is None else terms * w)
 
 
 def cross_entropy_fn(predictions, targets, eps: float = 1e-15,
@@ -50,10 +53,10 @@ def mse_fn_unnormalized(predictions, targets, row_weights=None, **kwargs):
 def mse_fn(predictions, targets, row_weights=None, **kwargs):
     num = mse_fn_unnormalized(predictions, targets, row_weights=row_weights)
     if row_weights is None:
-        return num / predictions.numel()
+        return num / comm.batch_total(predictions.numel(), predictions)
     per_row = predictions.numel() // predictions.shape[0]
     return num / (
-        torch.sum(torch.as_tensor(
+        comm.batch_sum(torch.as_tensor(
             row_weights, dtype=predictions.dtype, device=predictions.device
         )) * per_row
     )

@@ -9,7 +9,10 @@ through one batched Cholesky, ``y^T K^{-1} y = |L^{-1} y|^2``, for
 (flattened to ``i * n`` rows; the normalization stays ``b * n``).  Optional
 ``row_weights`` (0/1 per batch row) mask rows out of the numerator, and
 ``batch_count_global`` replaces the batch count of the normalization, as in
-the JAX package.
+the JAX package.  Inside a sharded computation
+(:func:`muygpys_torch.parallel.comm.reducing`) the numerator and the count
+are global: each is all-reduced over the ranks, and the count is the global
+sum of ``row_weights`` where they are given.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ from typing import Optional
 import torch
 
 from muygpys_torch.ops import solve as _solve
+from muygpys_torch.parallel import comm
 
 
 def _flatten(Kin, nn_targets):
@@ -51,7 +55,7 @@ def analytic_scale_optim_unnormalized(Kin, nn_targets, row_weights=None,
         terms = terms * torch.as_tensor(
             row_weights, dtype=terms.dtype, device=terms.device
         ).reshape(-1, 1, 1)
-    return torch.sum(terms)
+    return comm.batch_sum(terms)
 
 
 def analytic_scale_optim(
@@ -68,11 +72,11 @@ def analytic_scale_optim(
     Kin_flat, y_flat, nn_count = _flatten(Kin, nn_targets)
     if batch_count_global is None:
         if row_weights is not None:
-            batch_count_global = torch.sum(torch.as_tensor(
+            batch_count_global = comm.batch_sum(torch.as_tensor(
                 row_weights, dtype=Kin.dtype, device=Kin.device
             ))
         else:
-            batch_count_global = Kin.shape[0]
+            batch_count_global = comm.batch_total(Kin.shape[0], Kin)
     return analytic_scale_optim_unnormalized(
         Kin_flat, y_flat, row_weights=row_weights
     ) / (batch_count_global * nn_count)

@@ -25,6 +25,18 @@ fails counts as such a proposal (``torch.linalg.cholesky`` raises where the
 JAX factorization returns NaN).  When the objective or gradient is not
 finite at the initial point, the chassis runs derivative-free.
 
+A batch sharded over a mesh (DTensors of
+:func:`muygpys_torch.parallel.shard_batch`; ``row_weights`` of
+:func:`muygpys_torch.parallel.shard_ragged` may ride in ``loss_kwargs``)
+gives a sharded objective: each rank evaluates its local rows, the losses
+and the analytic scale reduce over the mesh
+(:mod:`muygpys_torch.parallel.comm`), and value and gradient equal the
+serial ones on every rank, so every rank's scipy run takes the same steps
+to the same optimum.  A factorization that fails on one rank raises a
+``RuntimeError`` there (not the ``LinAlgError`` the serial chassis scores
+as a penalty: the other ranks wait in a collective that rank will not
+join, until the group's timeout).
+
 ``Adam_optimize`` is a ``torch.optim.Adam`` loop with the JAX package's
 defaults (learning rate 0.05, 200 steps), the counterpart of its
 ``lax.scan`` over optax Adam.
@@ -43,6 +55,8 @@ from muygpys_torch.optimize import bijectors
 from muygpys_torch.optimize.bayes import BayesianOptimization
 from muygpys_torch.optimize.loss import LossFn, lool_fn
 from muygpys_torch.optimize.objective import make_loo_crossval_fn
+from muygpys_torch.parallel import comm
+from muygpys_torch.parallel.sharding import sharded_batch
 
 #: objective value given to scipy for a proposal that is not finite
 PENALTY = 1e12
@@ -231,7 +245,7 @@ class OptimizeFn:
         (tensors on any device; the optimization runs where they are).
         ``batch_features`` (the batch points' features) is needed by a
         hierarchical length scale."""
-        pairwise_diffs = torch.as_tensor(pairwise_diffs)
+        _, (pairwise_local,) = sharded_batch([pairwise_diffs])
         obj_fn = self.make_obj_fn(
             muygps,
             batch_targets,
@@ -244,7 +258,8 @@ class OptimizeFn:
             loss_kwargs=loss_kwargs,
         )
         return self._fn(
-            muygps, obj_fn, pairwise_diffs, verbose=verbose, **kwargs
+            muygps, obj_fn, torch.as_tensor(pairwise_local), verbose=verbose,
+            **kwargs
         )
 
     def make_obj_fn(
@@ -260,6 +275,16 @@ class OptimizeFn:
         loss_kwargs: Optional[Dict] = None,
         **kwargs,
     ) -> Callable:
+        loss_kwargs = dict(loss_kwargs or {})
+        weights = loss_kwargs.get("row_weights")
+        group, local = sharded_batch([
+            batch_targets, batch_nn_targets, crosswise_diffs,
+            pairwise_diffs, batch_features, weights,
+        ])
+        (batch_targets, batch_nn_targets, crosswise_diffs, pairwise_diffs,
+         batch_features, weights) = local
+        if weights is not None:
+            loss_kwargs["row_weights"] = weights
         pairwise_diffs = torch.as_tensor(pairwise_diffs)
 
         def like(x):
@@ -267,7 +292,7 @@ class OptimizeFn:
                 x, dtype=pairwise_diffs.dtype, device=pairwise_diffs.device
             )
 
-        return self._make_obj_fn(
+        obj_fn = self._make_obj_fn(
             loss_fn,
             muygps.kernel.get_opt_fn(),
             muygps.get_opt_mean_fn(),
@@ -283,6 +308,27 @@ class OptimizeFn:
             target_mask=target_mask,
             loss_kwargs=loss_kwargs,
         )
+        return obj_fn if group is None else sharded_objective(obj_fn, group)
+
+
+def sharded_objective(obj_fn: Callable, group) -> Callable:
+    """``obj_fn`` over local rows as the objective of the whole sharded
+    batch: its reductions run over ``group`` and the parameters enter as
+    replicated values (:func:`muygpys_torch.parallel.comm.replicated`), so
+    autograd gives every rank the global gradient."""
+
+    def sharded(*args, **kwargs):
+        with comm.reducing(group):
+            args = [comm.replicated(a, group) for a in args]
+            kwargs = {k: comm.replicated(v, group) for k, v in kwargs.items()}
+            try:
+                return obj_fn(*args, **kwargs)
+            except torch.linalg.LinAlgError as err:
+                raise RuntimeError(
+                    f"a factorization failed in a sharded objective: {err}"
+                ) from err
+
+    return sharded
 
 
 Bayes_optimize = OptimizeFn(_bayes_opt_optimize, make_loo_crossval_fn)

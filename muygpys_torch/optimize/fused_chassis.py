@@ -31,6 +31,13 @@ K2: ``engine="kernel"`` raises a ``ValueError`` naming ``engine="lanes"``
 (where JAX falls back to its lanes engine), and ``engine="lanes"`` trains
 it, given ``batch_features=`` (the batch points' features).
 
+A batch sharded over a mesh (DTensors of
+:func:`muygpys_torch.parallel.shard_batch`) trains through K2 on each
+rank's rows (the epilogue's sums all-reduced) or, for a shear model, the
+shear assembly with its loss reduced over the ranks; every rank runs scipy
+on the same values and ends on the same optimum.  ``engine="lanes"``
+refuses a sharded batch of any other model.
+
     model = Fused_L_BFGS_B_optimize(model, bt, bnt, cw, pw, loss="lool")
 """
 
@@ -56,6 +63,7 @@ from muygpys_torch.optimize.shear_objective import (
     make_shear_loo_objective,
     shear_objective_supports,
 )
+from muygpys_torch.parallel.sharding import sharded_batch
 
 
 def Fused_L_BFGS_B_optimize(
@@ -84,11 +92,17 @@ def Fused_L_BFGS_B_optimize(
     engine = config.kernel_alias(engine)
     if engine not in ("kernel", "lanes"):
         raise ValueError(f"unknown engine {engine!r} (kernel, lanes)")
+    shear = isinstance(muygps.kernel, (ShearKernel, ShearKernel2in3out))
+    if engine == "lanes" and not shear and sharded_batch(
+            [pairwise_dists])[0] is not None:
+        raise ValueError(
+            "a sharded batch trains through engine=\"kernel\" (K2, its "
+            "sums all-reduced) or the generic L_BFGS_B_optimize chassis"
+        )
     dev = config.device(device)
     x0_names, x0, bounds = _get_opt_lists(muygps, verbose=verbose)
     args = (muygps, batch_targets, batch_nn_targets, crosswise_dists,
             pairwise_dists)
-    shear = isinstance(muygps.kernel, (ShearKernel, ShearKernel2in3out))
     if shear and not shear_objective_supports(muygps, loss):
         raise ValueError(
             f"the fused chassis trains a shear model with loss 'mse', or "

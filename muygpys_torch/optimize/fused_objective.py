@@ -31,6 +31,8 @@ from muygpys_torch.gpu.fused_train import (
     fused_train_stats_bl,
 )
 from muygpys_torch.gpu.matern_nu import NU_MAX, NU_MIN, matern_nu_coeffs
+from muygpys_torch.parallel.mesh import local_chunk_slice, mesh_group
+from muygpys_torch.parallel.sharding import local_parts
 from muygpys_torch.optimize.fast_objective import (
     batch_last,
     check_model,
@@ -106,7 +108,10 @@ def make_fused_train_objective(
     tensors ``(B, n)`` / ``(B, n, n)``) or Anisotropy (per-feature
     differences ``(B, n, d)`` / ``(B, n, n, d)``, one derivative group per
     feature); homoscedastic or heteroscedastic noise; loss in {lool, mse,
-    looph, huber}.  A hierarchical length scale raises ``ValueError``,
+    looph, huber}.  A batch sharded over a mesh (DTensors of
+    :func:`muygpys_torch.parallel.shard_batch`) runs K2 on each rank's
+    local rows; the epilogue all-reduces its sums, so value and gradient
+    are the global ones on every rank.  A hierarchical length scale raises ``ValueError``,
     naming ``engine="lanes"``, before anything runs.  ``boundary_scale`` defaults per loss: 3.0 for looph,
     1.5 for huber.  Runs on ``device`` (default ``"cuda"``; ``"cpu"`` runs
     K2's plain version).
@@ -116,6 +121,11 @@ def make_fused_train_objective(
     ``objective.value(theta)`` the ``torch.autograd`` form.
     """
     loss = check_model(muygps, loss)
+    mesh, (batch_targets, batch_nn_targets, crosswise_dists,
+           pairwise_dists) = local_parts([
+        batch_targets, batch_nn_targets, crosswise_dists, pairwise_dists
+    ])
+    group = None if mesh is None else mesh_group(mesh)
     if is_hierarchical(muygps):
         raise ValueError(
             "K2 takes one length scale (or one per feature), not a "
@@ -137,8 +147,12 @@ def make_fused_train_objective(
     ls_keys = tuple(p.name() for p in ls_params)
     if isinstance(muygps.noise, HeteroscedasticNoise):
         noise_free, noise0 = False, 0.0
+        noise_nn = muygps.noise()
+        if mesh is not None:
+            # the model holds the whole batch's nuggets: this rank's rows
+            noise_nn = noise_nn[local_chunk_slice(noise_nn.shape[0], mesh)]
         noise_nn = torch.as_tensor(
-            muygps.noise(), dtype=pw_bl.dtype, device=dev
+            noise_nn, dtype=pw_bl.dtype, device=dev
         ).T.contiguous()
     else:
         noise_free = "noise" in names
@@ -174,7 +188,7 @@ def make_fused_train_objective(
         stats_fn = launch
     epilogue = functools.partial(
         _epilogue, t_bl=t_bl, loss=loss, free_names=names, n=pw_bl.shape[0],
-        boundary_scale=boundary_scale, ls_keys=ls_keys,
+        boundary_scale=boundary_scale, ls_keys=ls_keys, group=group,
     )
     return FusedTrainObjective(names, defaults, stats_fn, epilogue), names
 

@@ -45,11 +45,16 @@ def make_var_predict_and_loss_fn(
     **loss_kwargs,
 ) -> Callable:
     """Mean + variance strategy: also estimates the scale per evaluation
-    (under the model's stored noise: ``scale_fn`` perturbs with it)."""
+    (under the model's stored noise: ``scale_fn`` perturbs with it).  0/1
+    ``row_weights`` (a ragged sharded batch) reach the scale too: they are
+    its count, as in the JAX package."""
+    row_weights = loss_kwargs.get("row_weights")
 
     def predict_and_loss_fn(Kin, Kcross, *args, **kwargs):
         predictions = mean_fn(Kin, Kcross, batch_nn_targets, **kwargs)
-        scale = scale_fn(Kin, batch_nn_targets, **kwargs)
+        scale = scale_fn(
+            Kin, batch_nn_targets, row_weights=row_weights, **kwargs
+        )
         variances = var_fn(Kin, Kcross, **kwargs)
         if target_mask is not None:
             predictions = predictions[:, target_mask]

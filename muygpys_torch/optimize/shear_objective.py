@@ -16,7 +16,11 @@ covariance, in either solver layout, under ``torch.autograd``:
 Losses: ``"mse"`` on the posterior mean and ``"lool"``, the multivariate
 leave-one-out likelihood over the full ``(O, O)`` covariance blocks
 (:func:`muygpys_torch.ops.loss.lool_fn_unscaled`).  Objectives return
-``-loss``, to be maximized, as every other objective of the package.
+``-loss``, to be maximized, as every other objective of the package.  A
+batch sharded over a mesh (DTensors of
+:func:`muygpys_torch.parallel.shard_batch`) gives the objective of the
+whole batch on every rank: each rank assembles and solves its local rows and
+the loss's sums are all-reduced (:mod:`muygpys_torch.parallel.comm`).
 """
 
 from __future__ import annotations
@@ -35,6 +39,8 @@ from muygpys_torch.gp.kernels.experimental import (
 from muygpys_torch.ops import solve as _solve
 from muygpys_torch.ops.lanes_solver import multiout_serve_mean_and_variance
 from muygpys_torch.ops.loss import lool_fn_unscaled
+from muygpys_torch.parallel import comm
+from muygpys_torch.parallel.sharding import sharded_batch
 
 
 def shear_objective_supports(muygps, loss: str = "mse") -> bool:
@@ -88,6 +94,10 @@ def make_shear_loo_objective(
     if layout not in ("lanes", "batched"):
         raise ValueError(f"unknown layout {layout!r}")
     dev = config.device(device)
+    group, (batch_targets, batch_nn_targets, crosswise_diffs,
+            pairwise_diffs) = sharded_batch([
+        batch_targets, batch_nn_targets, crosswise_diffs, pairwise_diffs
+    ])
 
     kernel = muygps.kernel
     names, _, _ = muygps.get_opt_params()
@@ -131,7 +141,18 @@ def make_shear_loo_objective(
             mean = torch.einsum("bmo,bm->bo", zc, zy)
             cov = Kout[None] - torch.einsum("bmo,bmp->bop", zc, zc)
         if loss == "mse":
-            return -torch.sum((mean - bt) ** 2) / bt.numel()
+            return -comm.batch_sum((mean - bt) ** 2) / comm.batch_total(
+                bt.numel(), bt)
         return -lool_fn_unscaled(mean, bt, scale * cov)
+
+    if group is not None:
+        from muygpys_torch.optimize.chassis import sharded_objective
+
+        sharded = sharded_objective(
+            lambda local_obj=obj_fn, **p: local_obj(p), group
+        )
+
+        def obj_fn(params):
+            return sharded(**params)
 
     return obj_fn, list(names)

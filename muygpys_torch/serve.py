@@ -30,8 +30,22 @@ formula, any other order through the traced-nu surrogate
 (:mod:`muygpys_torch.gpu.matern_nu`), whose coefficients are built once per
 server; ``"lanes"`` and ``"reference"`` serve any order through the exact
 Bessel path.  The query batch is
-padded (``mode="edge"``) up to a fixed bucket.  ``mesh``-sharded serving is
-not ported yet.
+padded (``mode="edge"``) up to a fixed bucket.
+
+Under a ``mesh`` (:func:`muygpys_torch.parallel.make_mesh`; every rank of it
+builds the server and calls ``predict`` with the same request) each rank
+runs on its own device:
+
+- ``shard="queries"`` (the ``"lanes"``, ``"kernel"`` and ``"fused"``
+  engines, and the shear engines): each rank serves its ``bucket / size``
+  slice of every bucket through the same core, and the outputs are
+  all-gathered, so ``predict`` returns the whole answer on every rank;
+- ``shard="train"`` (``"fused"`` only): the Morton-sorted training table
+  is cut into contiguous row shards.  Each rank searches its shard for every
+  query of the bucket (K3 pruned where the shard has >= 1024 rows, else the
+  exact search), the candidate rows are all-gathered, each rank merges the
+  union exactly for its slice of the queries, solves it through K1, and the
+  outputs are all-gathered.
 
 On a CUDA device every engine the JAX package compiles per bucket with
 ``jax.jit`` (``"fused"``, ``"kernel"`` and the shear ``"kernel"``) is
@@ -42,7 +56,11 @@ the neighbour indices, looked up outside the graph as in JAX) through a
 pinned staging buffer into the graph's static inputs, replays the graph
 and copies the outputs back.  No Python runs per kernel, and nothing falls
 back: a capture that fails raises.  ``"lanes"`` and ``"reference"``, the
-debugging engines, stay eager.
+debugging engines, stay eager.  Under a mesh the capture holds the
+bucket's collectives too where the backend is NCCL (a group of one issues
+none).  Under gloo (ranks sharing one card) the collectives stage through
+host memory and cannot be captured, so the server runs its core eagerly:
+:attr:`FastServer.mode` says which (``"captured"`` or ``"eager"``).
 """
 
 from __future__ import annotations
@@ -79,6 +97,15 @@ from muygpys_torch.neighbors import (
 )
 from muygpys_torch.ops import tensors as _t
 from muygpys_torch.ops.lanes_solver import serve_mean_and_variance_bl
+from muygpys_torch.parallel import comm
+from muygpys_torch.parallel.mesh import (
+    local_chunk_slice,
+    mesh_backend,
+    mesh_group,
+    mesh_index,
+    mesh_size,
+    rank_device,
+)
 
 
 class FastServer:
@@ -100,11 +127,18 @@ class FastServer:
         rerank: ``"fused"`` only.  ``True`` over-fetches 8 candidates and
             exactly re-ranks them; ``False`` serves on the kernel's
             ``nn_count`` candidates with 256 bins and 256-query tiles.
+        mesh: optional :class:`torch.distributed.device_mesh.DeviceMesh`
+            (module docstring); ``bucket`` must divide by its size, and the
+            ``"reference"`` engine takes none.
+        shard: what the mesh shards, ``"queries"`` (default) or
+            ``"train"`` (the ``"fused"`` engine; the training count must
+            divide by the mesh size).  Without a mesh it changes nothing.
         spatial_sort: ``"fused"`` only.  Morton-sort the training rows so
             the candidate kernel skips provably irrelevant tiles.  Default
             ``None`` = on when the kernel path runs (>= 1024 training
             points) and the feature dimension is <= 4.
-        device: where the server runs (default ``"cuda"``).
+        device: where the server runs (default ``"cuda"``; under a mesh
+            this rank's device, :func:`muygpys_torch.parallel.mesh.rank_device`).
     """
 
     def __init__(
@@ -158,10 +192,39 @@ class FastServer:
                 "shear serving shards queries (shard='train' is a fused-"
                 "engine mode)"
             )
-        if mesh is not None or shard != "queries":
-            raise NotImplementedError(
-                "multi-device serving (mesh/shard) is not ported yet"
-            )
+        self.mesh = mesh
+        self.shard = shard
+        self._group = None
+        if mesh is not None:
+            if engine == "reference":
+                raise ValueError(
+                    "the reference debug engine does not take a mesh"
+                )
+            n_dev = mesh_size(mesh)
+            if bucket % n_dev:
+                raise ValueError(
+                    f"bucket {bucket} must divide by the mesh size {n_dev}"
+                )
+            if shard == "train":
+                if engine != "fused":
+                    raise ValueError(
+                        "shard='train' requires the fused engine (the other"
+                        " engines take host-computed global neighbor"
+                        " indices)"
+                    )
+                count = np.asarray(train_features).shape[0]
+                if count % n_dev:
+                    raise ValueError(
+                        f"train_count {count} must divide by the mesh size "
+                        f"{n_dev} for shard='train'"
+                    )
+            self._group = mesh_group(mesh)
+            # this rank's slice of every bucket
+            lb = bucket // n_dev
+            self._slice = slice(mesh_index(mesh) * lb,
+                                (mesh_index(mesh) + 1) * lb)
+            if device is None:
+                device = rank_device()
 
         self.device = config.device(device)
         self.muygps = muygps
@@ -187,12 +250,13 @@ class FastServer:
 
         # the program of one bucket, and whether a card runs it captured
         self._captured = None
-        self._capture = self.device.type == "cuda" and engine in (
-            "fused", "kernel"
+        self._capture = (
+            self.device.type == "cuda" and engine in ("fused", "kernel")
+            and (mesh is None or mesh_backend(mesh) == "nccl")
         )
         if self._shear:
             # multi-output block path: noise, scale and Kout are the model's
-            self._core = self._build_shear()
+            self._core = self._sharded_queries(self._build_shear())
             return
 
         if isinstance(muygps.noise, HeteroscedasticNoise):
@@ -244,6 +308,28 @@ class FastServer:
         if engine in ("kernel", "fused"):
             self._smoothness, self._gen_coeffs = self._kernel_smoothness()
         self._core = self._build()
+        if not (engine == "fused" and shard == "train"):
+            self._core = self._sharded_queries(self._core)
+
+    @property
+    def mode(self) -> str:
+        """``"captured"`` where a bucket replays a CUDA graph, else
+        ``"eager"`` (the CPU, the debugging engines, a gloo mesh)."""
+        return "captured" if self._capture else "eager"
+
+    def _sharded_queries(self, core):
+        """``core`` under ``shard="queries"``: this rank's slice of the
+        bucket (queries, and neighbour indices where the engine takes them),
+        then the outputs all-gathered; ``core`` itself without a mesh."""
+        if self.mesh is None:
+            return core
+        sl, group = self._slice, self._group
+
+        def sharded(queries, *nn_idx):
+            out = core(queries[sl], *(i[sl] for i in nn_idx))
+            return tuple(comm.all_gather(o, group) for o in out)
+
+        return sharded
 
     def _build_shear(self):
         """Serving program of the lensing shear family: difference tensors
@@ -388,6 +474,10 @@ class FastServer:
         )
         knn_kwargs = {} if self.rerank else {"bins": 256, "query_tile": 256}
         knn_fn = knn_cuda_pruned if spatial else knn_cuda
+        if self.mesh is not None and self.shard == "train":
+            return self._train_sharded_core(
+                train, table, cand_count, knn_fn, knn_kwargs, spatial
+            )
         # the search's train side (padded transpose, norms, tile boxes, the
         # subsample's own), built once: a request computes its query side
         knn_index = (
@@ -413,6 +503,60 @@ class FastServer:
                     rows, 1, sel[:, :, None].expand(-1, -1, rows.shape[2])
                 )
             return self._solve_coords(rows, queries)
+
+        return core
+
+    def _train_sharded_core(self, train, table, cand_count, knn_fn,
+                            knn_kwargs, spatial):
+        """The ``shard="train"`` bucket: candidates over this rank's
+        contiguous shard of the (globally sorted) table for every query, the
+        candidate rows all-gathered, the exact merge of their union and K1
+        on this rank's query slice, the outputs all-gathered."""
+        n_dev, group = mesh_size(self.mesh), self._group
+        nn_count = self.nbrs.nn_count
+        rows = local_chunk_slice(train.shape[0], self.mesh)
+        train, table = train[rows].contiguous(), table[rows].contiguous()
+        shard_rows = train.shape[0]
+        use_kernel = shard_rows >= 1024
+        # a shard's candidates cannot exceed its rows; the union merge still
+        # needs nn_count candidates in all
+        cand_count = min(cand_count, shard_rows)
+        if n_dev * cand_count < nn_count:
+            raise ValueError(
+                f"{n_dev} shards x {cand_count} candidates cannot cover "
+                f"nn_count={nn_count}"
+            )
+        knn_index = (
+            build_index(train, bins=knn_kwargs.get("bins", 512),
+                        pruned=spatial)
+            if use_kernel else None
+        )
+        tiles = None if use_kernel else _train_tiles(train)
+        d, sl = train.shape[1], self._slice
+
+        def core(queries):
+            if use_kernel:
+                cand, _ = knn_fn(
+                    None, queries, cand_count, device=self.device,
+                    train_index=knn_index, **knn_kwargs
+                )
+            else:
+                cand, _ = _brute_force_knn(train, queries, cand_count,
+                                           tiles=tiles)
+            # every shard's candidate rows: (n_dev, B, C, cols) -> (B, n_dev
+            # C, cols); the coordinates ride in the rows
+            union = comm.all_gather(table[cand][None], group)
+            union = union.transpose(0, 1).reshape(
+                queries.shape[0], n_dev * cand_count, table.shape[1]
+            )[sl]
+            q = queries[sl]
+            d2 = torch.sum((union[:, :, :d] - q[:, None, :]) ** 2, -1)
+            _, sel = torch.topk(d2, nn_count, dim=1, largest=False)
+            mine = torch.gather(
+                union, 1, sel[:, :, None].expand(-1, -1, union.shape[2])
+            )
+            return tuple(comm.all_gather(o, group)
+                         for o in self._solve_coords(mine, q))
 
         return core
 

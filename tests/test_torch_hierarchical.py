@@ -165,34 +165,82 @@ def test_model_surface_and_kernel(batch):
                                                   rel=1e-7)
 
 
-def test_objectives_with_batch_features_match_jax(batch):
+# Knot layouts of the objective comparison: scipy's LatinHypercube(2,
+# scramble=False, seed=s) over the data of _layout_batch.  Seeds 115, 288,
+# 169 and 297 are where a sweep of 300 layouts found the two packages
+# furthest apart (6.5e-10, 2.2e-10, 4.2e-11, 1.9e-11 relative); seed 0 is
+# an ordinary one.  At those four the proposal's field sinks to the softplus
+# floor (a length scale of 1e-6 to 5e-5) at a batch point, where the
+# objective resolves the ~1e-8 rounding of a point's distance to itself:
+# JAX's own objective on the port's (centred) distance tensors differs
+# from JAX's on its own (uncentred) by the same amounts, while on the same
+# tensors the two packages agree within 1.1e-12 over all 300 layouts.
+# Neither the knot system's single LU factorization (JAX's Cholesky
+# against its LU: <= 1.1e-12) nor its conditioning (9.4e3 at seed 115) is
+# the cause.
+LAYOUT_SEEDS = (115, 288, 169, 297, 0)
+# the full chain: 3x the largest spread of JAX's objective between the two
+# distance assemblies (6.5e-10, seed 115)
+CHAIN_RTOL = 2e-9
+
+
+@pytest.fixture(scope="module")
+def layout_data():
+    import zlib
+
+    rng = np.random.default_rng(zlib.crc32(b"test_torch_hierarchical"))
+    xtr = rng.uniform(size=(100, 2))
+    ytr = rng.standard_normal((100, 1))
+    return xtr, ytr, np.arange(32), rng.integers(0, 100, size=(32, 8))
+
+
+def _layout_batch(layout_data, seed):
+    from scipy.stats.qmc import LatinHypercube
+
+    xtr, ytr, bi, bni = layout_data
+    port, ref = _pair(LatinHypercube(2, scramble=False, seed=seed).random(
+        KNOTS))
+    tb = port.make_train_tensors(bi, bni, torch.as_tensor(xtr),
+                                 torch.as_tensor(ytr))
+    jb = ref.make_train_tensors(bi, bni, jnp.asarray(xtr), jnp.asarray(ytr))
+    return dict(bf=xtr[bi], port=port, ref=ref, tb=tb, jb=jb)
+
+
+@pytest.mark.parametrize("seed", LAYOUT_SEEDS)
+def test_objectives_with_batch_features_match_jax(layout_data, seed):
     """The generic LOO objective and the lanes and batched fast objectives,
-    each against JAX's, at one proposal of the knot values."""
+    each against JAX's, at one proposal of the knot values: on JAX's
+    distance tensors within 1e-10, each package on its own within
+    CHAIN_RTOL (the comment above LAYOUT_SEEDS)."""
+    batch = _layout_batch(layout_data, seed)
     tb, jb = batch["tb"], batch["jb"]
     bf = batch["bf"]
-    port_obj = L_BFGS_B_optimize.make_obj_fn(
-        batch["port"], tb[2], tb[3], tb[0], tb[1],
-        batch_features=torch.as_tensor(bf), loss_fn=lool_fn,
-    )
+    jax_dists = (torch.as_tensor(np.asarray(jb[0])),
+                 torch.as_tensor(np.asarray(jb[1])))
     ref_obj = jopt.L_BFGS_B_optimize.make_obj_fn(
         batch["ref"], jb[2], jb[3], jb[0], jb[1],
         batch_features=jnp.asarray(bf), loss_fn=jopt.lool_fn,
     )
     want = float(ref_obj(**PROPOSAL))
-    assert float(port_obj(**PROPOSAL)) == pytest.approx(want, rel=1e-10)
-    for layout in ("lanes", "batched"):
-        fast, names = make_fast_loo_objective(
-            batch["port"], tb[2], tb[3], tb[0], tb[1], layout=layout,
-            batch_features=bf, device="cpu",
+    for (cw, pw), rel in ((jax_dists, 1e-10), (tb[:2], CHAIN_RTOL)):
+        port_obj = L_BFGS_B_optimize.make_obj_fn(
+            batch["port"], tb[2], tb[3], cw, pw,
+            batch_features=torch.as_tensor(bf), loss_fn=lool_fn,
         )
+        assert float(port_obj(**PROPOSAL)) == pytest.approx(want, rel=rel)
+    for layout in ("lanes", "batched"):
         jfast, _ = jax_fast_objective(
             batch["ref"], jb[2], jb[3], jb[0], jb[1], layout=layout,
             batch_features=jnp.asarray(bf),
         )
-        assert names == list(PROPOSAL)
-        assert float(fast(PROPOSAL)) == pytest.approx(
-            float(jfast(PROPOSAL)), rel=1e-10
-        )
+        want = float(jfast(PROPOSAL))
+        for (cw, pw), rel in ((jax_dists, 1e-10), (tb[:2], CHAIN_RTOL)):
+            fast, names = make_fast_loo_objective(
+                batch["port"], tb[2], tb[3], cw, pw, layout=layout,
+                batch_features=bf, device="cpu",
+            )
+            assert names == list(PROPOSAL)
+            assert float(fast(PROPOSAL)) == pytest.approx(want, rel=rel)
         with pytest.raises(ValueError, match="batch_features"):
             make_fast_loo_objective(batch["port"], tb[2], tb[3], tb[0],
                                     tb[1], layout=layout, device="cpu")

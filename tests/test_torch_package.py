@@ -296,3 +296,31 @@ def test_deep_kernel_slice_modules_import_without_jax(module):
         [sys.executable, "-c", code], check=True, cwd=str(ROOT),
         env={**os.environ, "PYTHONPATH": str(ROOT)},
     )
+
+
+@pytest.mark.parametrize(
+    "module",
+    ["muygpys_torch.parallel", "muygpys_torch.parallel.comm",
+     "muygpys_torch.parallel.mesh", "muygpys_torch.parallel.sharding",
+     "muygpys_torch.parallel.knn", "muygpys_torch.performance.scaling",
+     "_torch_parallel_worker", "_torch_mp_worker"],
+)
+def test_sharded_slice_modules_import_without_jax(module):
+    """The sharded paths, the scaling harness and the rank workers the
+    tests spawn import in a fresh interpreter that has neither jax nor the
+    JAX package loaded afterwards (a rank imports torch, numpy and the port
+    only)."""
+    import subprocess
+    import sys
+
+    code = (
+        f"import sys, {module}\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'muygpys_tpu')]\n"
+        "assert not bad, bad"
+    )
+    subprocess.run(
+        [sys.executable, "-c", code], check=True, cwd=str(ROOT),
+        env={**os.environ,
+             "PYTHONPATH": os.pathsep.join([str(ROOT), str(ROOT / "tests")])},
+    )

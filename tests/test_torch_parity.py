@@ -648,6 +648,16 @@ NAMES = [
     *(("examples.deep_kernel", n) for n in (
         "train_deep_kernel_muygps", "update_nearest_neighbors",
         "predict_model", "predict_single_model", "predict_multiple_model")),
+    *(("parallel", n) for n in (
+        "batch_spec", "even_batch", "gather_global",
+        "initialize_distributed", "local_chunk_slice", "make_hybrid_mesh",
+        "make_mesh", "replicate", "shard", "sharded_knn", "shard_batch",
+        "shard_batch_global", "shard_ragged_global", "shard_global",
+        "shard_ragged")),
+    ("parallel.mesh", "local_chunk_slice"),
+    ("parallel.knn", "sharded_knn"),
+    *(("performance.scaling", n) for n in (
+        "measure_scaling", "measure_serve_scaling", "main")),
 ]
 
 
@@ -674,6 +684,11 @@ LEFT_OUT = {
 # and the features a hierarchical length scale reads (``batch_features``)
 # and the run's counts (``info``) on the chassis
 PORT_ONLY = {
+    # the backend where ranks share one card (gloo); NCCL otherwise follows
+    # the device
+    "initialize_distributed": {"backend"},
+    "measure_scaling": {"backend"},
+    "measure_serve_scaling": {"backend"},
     "Fused_L_BFGS_B_optimize": {"batch_features"},
     "Fused_Device_LBFGS_optimize": {"batch_features", "info"},
 }
@@ -731,3 +746,29 @@ def test_left_out_names_exist_only_in_jax(module, name):
     assert hasattr(importlib.import_module(f"muygpys_tpu.{module}"), name)
     assert not hasattr(importlib.import_module(f"muygpys_torch.{module}"),
                        name)
+
+
+def test_parallel_exports_the_jax_names():
+    import muygpys_torch.parallel as tp
+    import muygpys_tpu.parallel as jp
+
+    assert tp.__all__ == jp.__all__ and len(tp.__all__) == 15
+
+
+def test_collective_bytes_counts_calls_not_hlo():
+    """A difference kept on purpose: torch has no HLO module, so the port's
+    ``collective_bytes`` takes a call (``fn, *args, **kwargs``) and returns
+    the bytes its collectives moved, counted by the port's collective
+    wrappers, where JAX's parses a compiled module's text.  The result's
+    keys (``"all-reduce"``, ``"all-gather"``) and byte rules are JAX's
+    (tests/test_torch_scaling.py)."""
+    from muygpys_torch.parallel import comm
+    from muygpys_torch.performance.scaling import collective_bytes as port
+    from muygpys_tpu.performance.scaling import collective_bytes as ref
+
+    assert _named_params(ref) == (["hlo_text"], False)
+    assert _named_params(port) == (["fn", "args"], True)
+    hlo = "  %ar = f32[] all-reduce(f32[] %x), replica_groups={}\n"
+    assert ref(hlo) == port(
+        comm._count, "all-reduce", torch.zeros((), dtype=torch.float32)
+    ) == {"all-reduce": 4}

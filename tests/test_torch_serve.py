@@ -179,14 +179,23 @@ def test_multivariate_targets(data):
         np.testing.assert_allclose(var, np.asarray(v0), rtol=1e-5, atol=1e-8)
 
 
+class _ThreeRankMesh:
+    """Stands for a mesh of three ranks where no world is up: the bucket
+    check reads only its size."""
+
+    def size(self):
+        return 3
+
+
 def test_server_errors(data):
     xtr, ytr, _, _ = data
     tm = carried(jax_model())
     nbrs = NN_Wrapper(xtr, NN, device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        FastServer(tm, nbrs, xtr, ytr, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        FastServer(tm, nbrs, xtr, ytr, shard="train", device="cpu")
+    # as JAX: a bucket the mesh size does not divide is refused before the
+    # mesh is used, and shard="train" without a mesh changes nothing
+    with pytest.raises(ValueError, match="must divide by the mesh size 3"):
+        FastServer(tm, nbrs, xtr, ytr, mesh=_ThreeRankMesh(), device="cpu")
+    FastServer(tm, nbrs, xtr, ytr, shard="train", device="cpu")
     with pytest.raises(ValueError, match="unknown engine"):
         FastServer(tm, nbrs, xtr, ytr, engine="mosaic", device="cpu")
     hm = carried(jax_model(hetero=np.full((4, NN), 1e-3)))
@@ -286,8 +295,9 @@ def test_shear_server_errors(shear_data):
         FastServer(tm, nbrs, pts, targets, shard="train", device="cpu")
     with pytest.raises(ValueError, match="unknown shard mode"):
         FastServer(tm, nbrs, pts, targets, shard="rows", device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        FastServer(tm, nbrs, pts, targets, mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="must divide by the mesh size 3"):
+        FastServer(tm, nbrs, pts, targets, mesh=_ThreeRankMesh(),
+                   device="cpu")
     with pytest.raises(ValueError, match="observes 3 components"):
         FastServer(tm, nbrs, pts, targets[:, 1:], device="cpu")
     two = carried_shear(jax_shear_model("23", ls=SHEAR_LS, noise=SHEAR_NOISE))
