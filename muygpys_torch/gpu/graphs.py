@@ -19,7 +19,8 @@ again, so a count says how often a kernel ran, captured or not.
 A capture that fails raises, in torch's ``capture_error_mode="global"``
 (a host read or a pageable copy inside the function is refused): nothing
 falls back to the eager function.  Only CUDA tensors are captured; the CPU
-paths of the port call their functions eagerly.
+paths of the port call their functions eagerly.  The warm-up and capture
+lie in the ``muygpys.graph.capture`` span (:mod:`muygpys_torch.tracing`).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from typing import Callable, Dict, Sequence
 import torch
 
 from muygpys_torch.gpu import _build
+from muygpys_torch.tracing import span
 
 _STREAMS: Dict[int, "torch.cuda.Stream"] = {}
 
@@ -73,26 +75,25 @@ class CapturedProgram:
             )
         self.device = device
         stream = side_stream(device)
-        stream.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(stream):
-            for _ in range(warmup):
-                fn(*self.inputs)
-        self.graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        with _build.recording() as counts:
-            with torch.cuda.graph(self.graph, stream=stream):
-                self.outputs = fn(*self.inputs)
-        torch.cuda.current_stream(device).wait_stream(stream)
+        with span("muygpys.graph.capture"):
+            stream.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(stream):
+                for _ in range(warmup):
+                    fn(*self.inputs)
+            self.graph = torch.cuda.CUDAGraph()
+            t0 = time.perf_counter()
+            with _build.recording() as counts:
+                with torch.cuda.graph(self.graph, stream=stream):
+                    self.outputs = fn(*self.inputs)
+            torch.cuda.current_stream(device).wait_stream(stream)
         #: host milliseconds of the capture (graph instantiation included)
         self.capture_ms = (time.perf_counter() - t0) * 1e3
         #: kernel launches of one replay, by count name
         self.launches = dict(counts)
-        self.replays = 0
 
     def replay(self):
         """Run the captured work once more on the current stream; returns
         :attr:`outputs`."""
         self.graph.replay()
         _build.add_launches(self.launches)
-        self.replays += 1
         return self.outputs

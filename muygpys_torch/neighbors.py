@@ -27,6 +27,10 @@ Methods:
   not installed);
 - ``"hnsw"``: the approximate HNSW graph of :mod:`muygpys_torch.native`,
   on the host.
+
+Under a recording :mod:`torch.profiler` every search is a
+``muygpys.nn.get_nns`` span, and a device search's candidates and re-rank
+are spans inside it (:mod:`muygpys_torch.tracing`).
 """
 
 from __future__ import annotations
@@ -39,6 +43,7 @@ import torch
 
 from muygpys_torch import config
 from muygpys_torch.gpu import knn as _knn
+from muygpys_torch.tracing import span
 
 _QUERY_TILE = 512
 _TRAIN_TILE = 16384
@@ -226,38 +231,43 @@ class NN_Wrapper:
         return nn_indices[:, 1:], nn_dists[:, 1:]
 
     def _get_nns(self, test, nn_count: int):
-        test = np.asarray(test)
-        if test.ndim == 1:
-            test = test[:, None]
-        if self.nn_method == "sklearn":
-            dists, idx = self.nbrs.kneighbors(test, n_neighbors=nn_count)
-            return idx, dists**2  # hnsw's squared-l2 convention
-        if self.nn_method == "hnsw":
-            idx, d2 = self.nbrs.knn_query(test, k=nn_count)
-            return idx, d2.astype(np.float64)
-        # over-fetch through the Gram identity, then re-rank exactly: the
-        # identity loses ~eps*|a|^2 absolute precision, which scrambles
-        # ranking once nearest distances approach that floor
-        cand_count = min(nn_count + 32, self.train_count)
-        queries = torch.as_tensor(test, dtype=self._train_dev.dtype,
-                                  device=self.device)
-        if self._knn_index is not None:
-            # 1024 bins: the host KNN API favors recall over merge cost;
-            # below 2*bins train rows the exact engine is used instead
-            if self._spatial:
-                cand_s, _ = _knn.knn_cuda_pruned(
-                    None, queries, cand_count, bins=1024, device=self.device,
-                    train_index=self._knn_index,
-                )
-                cand_idx = self._perm_dev[cand_s]
-            else:
-                cand_idx, _ = _knn.knn_cuda(
-                    None, queries, cand_count, bins=1024, device=self.device,
-                    train_index=self._knn_index,
-                )
-        else:
-            cand_idx, _ = _brute_force_knn(
-                self._train_dev, queries, cand_count, tiles=self._tiles
-            )
-        idx, d2 = _refine_knn(self._train_dev, queries, cand_idx, nn_count)
-        return idx.cpu().numpy(), d2.cpu().numpy()
+        with span("muygpys.nn.get_nns"):
+            test = np.asarray(test)
+            if test.ndim == 1:
+                test = test[:, None]
+            if self.nn_method == "sklearn":
+                dists, idx = self.nbrs.kneighbors(test, n_neighbors=nn_count)
+                return idx, dists**2  # hnsw's squared-l2 convention
+            if self.nn_method == "hnsw":
+                idx, d2 = self.nbrs.knn_query(test, k=nn_count)
+                return idx, d2.astype(np.float64)
+            # over-fetch through the Gram identity, then re-rank exactly: the
+            # identity loses ~eps*|a|^2 absolute precision, which scrambles
+            # ranking once nearest distances approach that floor
+            cand_count = min(nn_count + 32, self.train_count)
+            queries = torch.as_tensor(test, dtype=self._train_dev.dtype,
+                                      device=self.device)
+            with span("muygpys.nn.candidates"):
+                if self._knn_index is not None:
+                    # 1024 bins: the host KNN API favors recall over merge
+                    # cost; below 2*bins train rows the exact engine is used
+                    # instead
+                    if self._spatial:
+                        cand_s, _ = _knn.knn_cuda_pruned(
+                            None, queries, cand_count, bins=1024,
+                            device=self.device, train_index=self._knn_index,
+                        )
+                        cand_idx = self._perm_dev[cand_s]
+                    else:
+                        cand_idx, _ = _knn.knn_cuda(
+                            None, queries, cand_count, bins=1024,
+                            device=self.device, train_index=self._knn_index,
+                        )
+                else:
+                    cand_idx, _ = _brute_force_knn(
+                        self._train_dev, queries, cand_count, tiles=self._tiles
+                    )
+            with span("muygpys.nn.refine"):
+                idx, d2 = _refine_knn(self._train_dev, queries, cand_idx,
+                                      nn_count)
+            return idx.cpu().numpy(), d2.cpu().numpy()

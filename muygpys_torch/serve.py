@@ -61,6 +61,11 @@ bucket's collectives too where the backend is NCCL (a group of one issues
 none).  Under gloo (ranks sharing one card) the collectives stage through
 host memory and cannot be captured, so the server runs its core eagerly:
 :attr:`FastServer.mode` says which (``"captured"`` or ``"eager"``).
+
+Under a recording :mod:`torch.profiler`, a request and each of its buckets'
+stage, replay and readback are spans (:mod:`muygpys_torch.tracing`);
+:attr:`FastServer.stats` counts requests, queries, buckets and padded
+slots whether or not anything records.
 """
 
 from __future__ import annotations
@@ -106,6 +111,7 @@ from muygpys_torch.parallel.mesh import (
     mesh_size,
     rank_device,
 )
+from muygpys_torch.tracing import span
 
 
 class FastServer:
@@ -248,6 +254,9 @@ class FastServer:
         )
         feature_count = train.shape[1]
 
+        #: what the server has done: requests answered, their queries, the
+        #: buckets solved and the bucket slots the edge pad filled
+        self.stats = {"requests": 0, "queries": 0, "buckets": 0, "padded": 0}
         # the program of one bucket, and whether a card runs it captured
         self._captured = None
         self._capture = (
@@ -605,41 +614,53 @@ class FastServer:
         """Posterior (mean ``(count, r)``, variance ``(count,)``) for a batch
         of queries of any size; a shear model returns mean ``(count, 3)``
         and covariance ``(count, 3, 3)``."""
-        test = np.asarray(test_features)
-        if test.ndim == 1:
-            test = test[:, None]
-        count = test.shape[0]
-        fused = self.engine == "fused"
-        nn_idx = None if fused else np.asarray(self.nbrs.get_nns(test)[0])
-        means, variances = [], []
-        for start in range(0, count, self.bucket):
-            chunk = test[start:start + self.bucket]
-            pad = self.bucket - chunk.shape[0]
-            if pad:
-                chunk = np.pad(chunk, ((0, pad), (0, 0)), mode="edge")
-            arrays = [chunk]
-            if not fused:
-                idx = nn_idx[start:start + self.bucket]
-                if pad:
-                    idx = np.pad(idx, ((0, pad), (0, 0)), mode="edge")
-                arrays.append(idx)
-            if self._capture:
-                m, v = self._replay(arrays)
-            else:
-                m, v = self._core(
-                    torch.as_tensor(chunk, dtype=self._dtype,
-                                    device=self.device),
-                    *(torch.as_tensor(a, device=self.device)
-                      for a in arrays[1:]),
-                )
-            means.append(m.cpu().numpy())
-            variances.append(v.cpu().numpy())
-        return np.concatenate(means)[:count], np.concatenate(variances)[:count]
+        with span("muygpys.serve.predict"):
+            test = np.asarray(test_features)
+            if test.ndim == 1:
+                test = test[:, None]
+            count = test.shape[0]
+            fused = self.engine == "fused"
+            nn_idx = (None if fused
+                      else np.asarray(self.nbrs.get_nns(test)[0]))
+            means, variances = [], []
+            for start in range(0, count, self.bucket):
+                with span("muygpys.serve.stage"):
+                    chunk = test[start:start + self.bucket]
+                    pad = self.bucket - chunk.shape[0]
+                    if pad:
+                        chunk = np.pad(chunk, ((0, pad), (0, 0)), mode="edge")
+                    arrays = [chunk]
+                    if not fused:
+                        idx = nn_idx[start:start + self.bucket]
+                        if pad:
+                            idx = np.pad(idx, ((0, pad), (0, 0)),
+                                         mode="edge")
+                        arrays.append(idx)
+                    inputs = self._stage(arrays)
+                if self._capture and self._captured is None:
+                    self._captured = CapturedProgram(self._core, inputs)
+                with span("muygpys.serve.replay"):
+                    m, v = (self._captured.replay() if self._capture
+                            else self._core(*inputs))
+                with span("muygpys.serve.readback"):
+                    means.append(m.cpu().numpy())
+                    variances.append(v.cpu().numpy())
+                self.stats["buckets"] += 1
+                self.stats["padded"] += pad
+            self.stats["requests"] += 1
+            self.stats["queries"] += count
+            return (np.concatenate(means)[:count],
+                    np.concatenate(variances)[:count])
 
-    def _replay(self, arrays):
-        """One bucket through the captured program: the padded queries (and
-        neighbour indices) via pinned staging buffers into its static
-        inputs, then a replay.  The first bucket captures it."""
+    def _stage(self, arrays):
+        """A bucket's padded queries (and neighbour indices) on the device.
+        Captured, through pinned staging buffers into the program's static
+        inputs (made here at the first bucket, which the caller captures);
+        eager, as new tensors."""
+        if not self._capture:
+            return [torch.as_tensor(arrays[0], dtype=self._dtype,
+                                    device=self.device)] + [
+                torch.as_tensor(a, device=self.device) for a in arrays[1:]]
         np_dtype = np.float64 if self._dtype == torch.float64 else np.float32
         arrays = [np.ascontiguousarray(arrays[0], dtype=np_dtype)] + [
             np.ascontiguousarray(a, dtype=np.int64) for a in arrays[1:]
@@ -656,6 +677,4 @@ class FastServer:
         for host, dev, a in zip(self._staging, inputs, arrays):
             host.copy_(torch.from_numpy(a))
             dev.copy_(host, non_blocking=True)
-        if self._captured is None:
-            self._captured = CapturedProgram(self._core, inputs)
-        return self._captured.replay()
+        return inputs

@@ -974,6 +974,40 @@ def test_captured_shear_serving_is_bit_equal_to_the_eager_core():
         assert captured == eager and eager["multiout_solve"] == 1
 
 
+
+def test_program_spans_stay_off_the_device_timeline():
+    """Under a CPU + CUDA profiler around a server's capture and a request
+    of two replayed buckets, the program's spans are host ``cpu_op``
+    events: none shows on the device's timeline (a ``record_function``
+    span would), and the capture is one ``muygpys.graph.capture`` span."""
+    _need_card()
+    from torch.profiler import ProfilerActivity, profile
+
+    from muygpys_torch.convert import muygps_from_arrays
+    from muygpys_torch.neighbors import NN_Wrapper
+    from muygpys_torch.serve import FastServer
+
+    train, targets, queries = _fused_field()
+    model = muygps_from_arrays(0.3, noise=1e-3, smoothness=1.5, scale=1.0)
+    server = FastServer(model, NN_Wrapper(train, 30), train, targets,
+                        bucket=256, engine="kernel")
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    with profile(activities=acts) as prof:
+        server.predict(queries[:10])  # the capture
+        server.predict(queries[:300])
+        torch.cuda.synchronize()
+    events = list(prof.profiler.kineto_results.events())
+    cuda = torch.autograd.DeviceType.CUDA
+    assert any(e.device_type() == cuda for e in events)
+    assert [e.name() for e in events if e.device_type() == cuda
+            and e.name().startswith("muygpys.")] == []
+    names = [e.name() for e in events if e.name().startswith("muygpys.")]
+    assert names.count("muygpys.graph.capture") == 1
+    assert names.count("muygpys.serve.predict") == 2
+    assert names.count("muygpys.serve.replay") == 3
+    assert names.count("muygpys.nn.get_nns") == 2
+    assert server.stats["buckets"] == 3 and server.stats["padded"] == 458
+
 def _train_problem(seed=3, B=256, n=20):
     rng = np.random.default_rng(seed)
     pts = rng.uniform(size=(B, n, 2))
