@@ -118,8 +118,15 @@ Phases (any failure raises and the script exits non-zero):
    exact NN_Wrapper answers three requests (2048, 2048, 1000); mean
    (count, 3) and covariance (count, 3, 3) held against the lanes engine in
    f64 on the same neighbours; the captured bucket against the eager core
-   (bit for bit, the same launches), alternated rates and traces, as in
-   phase 5; one request of ShearKernel2in3out;
+   (bit for bit, the same launches; the index's search, one launch of the
+   exact kernel a request before the bucket, counted apart), alternated
+   rates and traces, as in phase 5; one request of ShearKernel2in3out.
+   Before it the exact kernel (knn_exact_select) against its plain version
+   at the shear request's shape, 2048 queries and k = 30 over the sky and
+   over 1,000,000 uniform rows: distances bit-equal to the plain
+   version's and to the tiled library search's (_brute_force_knn +
+   _refine_knn), sorted sets equal on >= 99.9% of queries, one launch
+   counted, the share of tiles scored; timed beside both;
 15. shear training, then serving the trained model: a LOO batch of 2048,
    Fused_L_BFGS_B_optimize(loss="mse") with the length scale free, on the
    card in f32, held against the same chassis on the CPU in f64; one lool
@@ -252,6 +259,9 @@ FP32_FLOPS = 67e12
 CAPTURED_PATHS = ("fused", "kernel", "fused_gen", "shear", "device_train",
                   "workflow_fused", "headline",
                   "device_train_gen")
+# the kernels that run on a captured path but outside its graph: the
+# exact NN_Wrapper's search, before the bucket
+OUTSIDE_GRAPH = ("knn_exact_select",)
 
 TRAIN, QUERIES, D, NN = 50_000, 8192, 2, 30
 LS, NOISE, NU = 0.5, 1e-3, 1.5
@@ -2584,13 +2594,92 @@ def phase_shear_train(torch, pts, targets, nbrs):
     )
 
 
+def phase_knn_exact(torch, train, queries, k=SHEAR_NN):
+    """The exact kernel against its plain version on ``train`` (numpy, f32)
+    and ``queries``: distances bit-equal to the plain version's and to the
+    tiled library search's (``_brute_force_knn`` + ``_refine_knn``, its
+    train tiles built once as NN_Wrapper built them), sorted index sets
+    equal on >= 99.9% of queries, one launch counted; the share of tiles
+    scored; the kernel, the plain version and the library search timed.
+    Returns the kernels-line row."""
+    from muygpys_torch.gpu import _build
+    from muygpys_torch.gpu import knn_exact as X
+    from muygpys_torch.neighbors import (
+        _brute_force_knn,
+        _refine_knn,
+        _train_tiles,
+    )
+
+    train_d = torch.as_tensor(train, device="cuda")
+    q = torch.as_tensor(queries, device="cuda").contiguous()
+    index = X.build_exact_index(train_d)
+    nt = X.tile_count(index)
+    X.knn_exact_select(index, q, k)  # build and warm up
+    torch.cuda.synchronize()
+    before, scored = _build.launches["knn_exact_select"], int(index.scored)
+    idx, d2 = X.knn_exact_select(index, q, k)
+    torch.cuda.synchronize()
+    launched = _build.launches["knn_exact_select"] - before
+    share = (int(index.scored) - scored) / (len(queries) * nt)
+    ip, dp = X.knn_exact_select_plain(index, q, k)
+    tiles = _train_tiles(train_d)
+
+    def library():
+        cand, _ = _brute_force_knn(train_d, q, k + 32, tiles=tiles)
+        return _refine_knn(train_d, q, cand, k)
+
+    il, dl = library()
+    same_plain = float((torch.sort(idx, 1).values == torch.sort(ip, 1).values)
+                       .all(1).float().mean())
+    same_library = float((torch.sort(idx, 1).values
+                          == torch.sort(il, 1).values).all(1).float().mean())
+    bit_plain, bit_library = bool(torch.equal(d2, dp)), bool(torch.equal(d2, dl))
+    label = f"exact kernel ({len(queries)} x {len(train)}, k {k})"
+    log(f"{label}: {launched} launch; d2 bit-equal to the plain version "
+        f"{bit_plain}, to the library search {bit_library}; sorted sets "
+        f"equal on {same_plain:.6f} (plain), {same_library:.6f} (library) "
+        f"of queries; {share:.5f} of {nt} tiles scored")
+    assert launched == 1, f"{label}: {launched} launches counted"
+    assert bit_plain and bit_library, f"{label}: distances differ"
+    assert min(same_plain, same_library) >= 0.999, f"{label}: sets differ"
+
+    def kernel():
+        return X.knn_exact_select(index, q, k)
+
+    times = dict(ms=time_ms(kernel), device_ms=device_ms(torch, kernel))
+    plain_ms = time_ms(lambda: X.knn_exact_select_plain(index, q, k),
+                       reps=3, trials=3)
+    library_ms = time_ms(library, reps=3, trials=3)
+    q_count, feat = q.shape
+    # the queries and the index (rows, boxes, first codes) read once, the
+    # (idx int64, d2 f32) result written once; per query a box test of
+    # every tile (3 f operations) and 3 f operations a row of each tile
+    # scored: the work the pruning leaves
+    nbytes = (q_count * feat + len(train) * feat + nt * (2 * feat + 1)) * 4 \
+        + q_count * k * 12
+    ops = q_count * nt * (share * X.TILE + 1) * 3 * feat
+    row = bound_row(nbytes, ops, plain_ms=plain_ms, library_ms=library_ms,
+                    tiles_scored_share=share,
+                    unpruned_bound_ms=q_count * len(train) * 3 * feat
+                    / FP32_FLOPS * 1e3,
+                    **times)
+    log(f"{label} time: {times['ms']:.4f} ms (device "
+        f"{times['device_ms']:.4f}), plain {plain_ms:.4f} ms, library "
+        f"{library_ms:.4f} ms, bound {row['bound_ms']:.5f} ms "
+        f"({row['bound_by']}; the unpruned scan's "
+        f"{row['unpruned_bound_ms']:.4f})")
+    return row
+
+
 def captured_vs_eager(torch, label, server, requests):
     """A served bucket replays the graph the server captured at its first
     bucket (FastServer on a card).  Request by request (each one bucket):
     the captured outputs against the eager core's on the same padded
     inputs, bit for bit, and the launches of each kernel design, which
-    must be the same.  Then predictions/s of both, alternated (captured,
-    eager, eager, captured), and a profiler trace of each."""
+    must be the same.  The index's own search runs before the bucket and
+    outside its graph: on the exact kernel's route one launch of it a
+    request, counted apart.  Then predictions/s of both, alternated
+    (captured, eager, eager, captured), and a profiler trace of each."""
     import statistics
 
     import numpy as np
@@ -2600,6 +2689,8 @@ def captured_vs_eager(torch, label, server, requests):
     assert server._capture and server._captured is not None, (
         f"{label}: the server did not capture its bucket"
     )
+    exact_searches = int(server.engine != "fused"
+                         and getattr(server.nbrs, "_exact", None) is not None)
     for req in requests:
         assert len(req) <= server.bucket
         torch.cuda.synchronize()
@@ -2613,6 +2704,12 @@ def captured_vs_eager(torch, label, server, requests):
             assert np.array_equal(g, e[:len(req)]), (
                 f"{label}: the captured bucket differs from the eager core"
             )
+        searches = captured.pop("knn_exact_select")
+        assert eager_launches.pop("knn_exact_select") == 0
+        assert searches == exact_searches, (
+            f"{label}: {searches} exact-kernel searches a request, not "
+            f"{exact_searches}"
+        )
         assert captured == eager_launches, (
             f"{label}: launches differ: captured {captured}, eager "
             f"{eager_launches}"
@@ -2635,11 +2732,13 @@ def captured_vs_eager(torch, label, server, requests):
         captured_preds_per_s=statistics.median(rates["captured"]),
         eager_preds_per_s=statistics.median(rates["eager"]),
         rates=rates, launches_per_request=captured,
+        exact_searches_per_request=exact_searches,
         capture_ms=server._captured.capture_ms,
         trace=traces["captured"], eager_trace=traces["eager"],
     )
     log(f"{label}: captured buckets bit-equal to the eager core on "
-        f"{len(requests)} requests, the same launches ({captured}); "
+        f"{len(requests)} requests, the same launches ({captured}), "
+        f"{exact_searches} exact-kernel search a request before the bucket; "
         f"predictions/s captured {rates['captured']}, eager "
         f"{rates['eager']} (alternated); capture "
         f"{out['capture_ms']:.1f} ms; device trace captured "
@@ -4538,8 +4637,18 @@ def main() -> int:
     # 13. K5 against its plain version at the shear serving shape
     rows["multiout_solve"] = phase_k5(torch)
 
-    # 14. shear serving end to end on the 50,000-point sky
+    # 14. the exact kernel at the shear request's shape, over the sky and
+    # over 1,000,000 uniform rows; then shear serving end to end on the
+    # 50,000-point sky
     sky, sky_targets, shear_requests = shear_sky(np)
+    rows["knn_exact_select"] = phase_knn_exact(torch, sky, shear_requests[0])
+    rows["knn_exact_select[1m]"] = phase_knn_exact(
+        torch,
+        np.random.default_rng(16).uniform(size=(1_000_000, 2)).astype(
+            np.float32),
+        shear_requests[0],
+    )
+    assert rows["knn_exact_select[1m]"]["tiles_scored_share"] < 0.02
     sky_nbrs = NN_Wrapper(sky, SHEAR_NN)
     shear_server, shear_e2e = shear_serve_checked(
         torch, "shear", shear_model(), sky_nbrs, sky, sky_targets,
@@ -4548,6 +4657,9 @@ def main() -> int:
     launches_by_path["shear"] = shear_e2e["launches"]
     assert (launches_by_path["shear"]["multiout_solve/registers"]
             == launches_by_path["shear"]["multiout_solve"] > 0)
+    # the exact NN_Wrapper searches each request with one kernel launch
+    assert (launches_by_path["shear"]["knn_exact_select"]
+            == len(shear_requests))
     captured["shear"] = captured_vs_eager(
         torch, "captured shear", shear_server, shear_requests
     )
@@ -4704,6 +4816,16 @@ def main() -> int:
             "muygpys_torch/gpu/csrc/multiout_solve.cu",
             "muygpys_tpu/pallas/multiout_solve.py:122", "shear",
         ),
+        # the exact search over the sky and over 1,000,000 rows, both
+        # counted on the shear path (its NN_Wrapper's search)
+        "knn_exact_select": (
+            "muygpys_torch/gpu/csrc/knn_exact.cu",
+            "none: the tiled addmm + topk search", "shear",
+        ),
+        "knn_exact_select[1m]": (
+            "muygpys_torch/gpu/csrc/knn_exact.cu",
+            "none: the tiled addmm + topk search", "shear",
+        ),
     }
     # K2 and K5: each design's launches in the checks against the plain
     # versions (phases 6, 9 and 13; the register designs also run on the
@@ -4727,7 +4849,8 @@ def main() -> int:
         )
         # launches of each design on the kernel's path (K3's two variants
         # share "knn_candidates/<design>")
-        family = "knn_candidates" if counter.startswith("knn") else counter
+        family = ("knn_candidates" if counter.startswith("knn_candidates")
+                  else counter)
         designs_on_path = {
             key.split("/")[1]: count
             for key, count in launches_by_path[path].items()
@@ -4739,7 +4862,8 @@ def main() -> int:
             paths={p: c[counter] for p, c in launches_by_path.items()},
             # the paths that ran it inside a captured CUDA graph
             in_graph=sorted(p for p, c in launches_by_path.items()
-                            if p in CAPTURED_PATHS and c[counter] > 0),
+                            if p in CAPTURED_PATHS and c[counter] > 0
+                            and counter not in OUTSIDE_GRAPH),
             design_launches_on_path=designs_on_path,
             **rows[name],
         ))
@@ -5165,7 +5289,7 @@ def phase_sharded(torch, payload, judge, ref, exact_sets, bench, dev="cuda",
             ("mesh_train", ("fused_predict_coords",
                             "knn_candidates_pruned")),
             ("mesh_train_gen", ("fused_predict_coords",)),
-            ("mesh_shear", ("multiout_solve",)),
+            ("mesh_shear", ("multiout_solve", "knn_exact_select")),
             ("mesh_train_k2", ("fused_train_stats",))):
         for c in counters:
             assert launches[path].get(c, 0) > 0, (path, c, launches[path])

@@ -40,7 +40,7 @@ from typing import Dict, Sequence
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "muygpys_torch"
 SOURCES = ("fused_predict", "knn", "fused_train", "multiout_solve",
-           "matern_nu_coeffs")
+           "matern_nu_coeffs", "knn_exact")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -76,6 +76,7 @@ launches: Dict[str, int] = {
     "multiout_solve/registers": 0,
     "multiout_solve/shared": 0,
     "matern_nu_coeffs": 0,
+    "knn_exact_select": 0,
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -489,18 +489,27 @@ def knn_cuda_pruned(
     return idx[: prep.query_count][qinv], d2[: prep.query_count][qinv]
 
 
-def _morton_codes(pts: torch.Tensor, bits: int = 10) -> torch.Tensor:
-    """Morton (Z-order) codes: per-dimension quantization + bit interleave,
-    capped to fit 30 bits."""
+def _morton_grid(pts: torch.Tensor, bits: int = 10):
+    """``(origin, scale, bits)`` of the Morton quantization of ``pts``:
+    each dimension's range cut into ``2**bits`` cells, the bits capped so
+    that a code fits 30 bits."""
     pts = pts.to(torch.float32)
-    d = pts.shape[1]
-    bits = min(bits, 30 // d)
+    bits = min(bits, 30 // pts.shape[1])
     lo = torch.amin(pts, dim=0)
     hi = torch.amax(pts, dim=0)
     # tensor / tensor: PyTorch computes scalar / tensor as a reciprocal
     # times the scalar, one rounding more than the JAX package's divide
     top = torch.full_like(hi, 2.0**bits - 1.0)
-    scale = top / torch.clamp_min(hi - lo, 1e-30)
+    return lo, top / torch.clamp_min(hi - lo, 1e-30), bits
+
+
+def _morton_codes(pts: torch.Tensor, bits: int = 10, grid=None) -> torch.Tensor:
+    """Morton (Z-order) codes: per-dimension quantization + bit interleave,
+    capped to fit 30 bits; on ``grid`` (:func:`_morton_grid`) where given,
+    else on the points' own."""
+    pts = pts.to(torch.float32)
+    d = pts.shape[1]
+    lo, scale, bits = _morton_grid(pts, bits) if grid is None else grid
     q = torch.clamp((pts - lo) * scale, 0.0, 2.0**bits - 1.0).to(torch.int32)
     code = torch.zeros(pts.shape[0], dtype=torch.int32, device=pts.device)
     for b in range(bits):
@@ -509,10 +518,10 @@ def _morton_codes(pts: torch.Tensor, bits: int = 10) -> torch.Tensor:
     return code
 
 
-def spatial_sort(pts: torch.Tensor) -> torch.Tensor:
+def spatial_sort(pts: torch.Tensor, grid=None) -> torch.Tensor:
     """Permutation ordering points along a Morton curve (stable, as
-    ``jnp.argsort``)."""
-    return torch.argsort(_morton_codes(pts), stable=True)
+    ``jnp.argsort``); on ``grid`` (:func:`_morton_grid`) where given."""
+    return torch.argsort(_morton_codes(pts, grid=grid), stable=True)
 
 
 def _tile_bboxes(pts_padded: torch.Tensor, tile: int):

@@ -4,10 +4,25 @@ Counterpart of :mod:`muygpys_tpu.neighbors`.  Distances are *squared* l2;
 ``get_nns`` and ``get_batch_nns`` return numpy arrays for every method.
 Methods:
 
-- ``"exact"`` (alias ``"brute"``): brute force on the device — Gram-identity
-  distance tiles (a matrix product) reduced with ``torch.topk`` over an
-  over-fetched candidate set, then an exact re-rank by direct differences.
-  The training rows are scanned in the fewest equal tiles of at most
+- ``"exact"`` (alias ``"brute"``): the exact search on the device, by one
+  of two routes chosen by what the index is:
+
+  * on a card, at ``feature_count <= 4``, ``train_count >= 2048`` and
+    float32 rows, for a request of at most 64 neighbours
+    (``get_batch_nns`` asks for ``nn_count + 1``): one launch of the
+    pruned exact kernel (:mod:`muygpys_torch.gpu.knn_exact`) over the rows
+    Morton-sorted once per index into tiles of 256 with their bounding
+    boxes.  It scores the few tiles that can hold a neighbour and returns
+    each query's exact ``nn_count`` nearest rows with their distances by
+    direct differences, no re-rank needed; :attr:`NN_Wrapper.stats`
+    counts the tiles it scored;
+  * everywhere else (the CPU, ``d > 4``, smaller indices, float64 rows,
+    more than 64 neighbours): Gram-identity distance tiles (a matrix
+    product) reduced with ``torch.topk`` over an over-fetched candidate
+    set, then an exact re-rank by direct differences.  There boxes stop
+    pruning and the matrix product is the tool.
+
+  The tiled route scans the training rows in the fewest equal tiles of at most
   :data:`_TRAIN_TILE` rows (padded and normed once per index), each
   tile's top-k merged by one top-k over the tiles' candidates, so memory
   stays ``O(query_tile * (train_tile + tiles * k))`` at any training size;
@@ -16,8 +31,8 @@ Methods:
   ``lax.approx_min_k`` (a TPU reduction) into a running top-k; here each
   tile's top-k is exact, and after the re-rank both give the exact sets.
   Among neighbors at equal distances (points on a grid) the choice is the
-  rounding's, each package its own: the sets agree with JAX's up to such
-  ties;
+  rounding's (on the kernel's route, its walk's), each package its own:
+  the sets agree with JAX's up to such ties;
 - ``"kernel"`` (alias ``"pallas"``, the JAX name): the K3 candidate kernel
   (:mod:`muygpys_torch.gpu.knn`, 1024 bins, Morton-sorted and pruned at
   ``d <= 4``; its train side built once per index) followed by the same
@@ -29,8 +44,9 @@ Methods:
   on the host.
 
 Under a recording :mod:`torch.profiler` every search is a
-``muygpys.nn.get_nns`` span, and a device search's candidates and re-rank
-are spans inside it (:mod:`muygpys_torch.tracing`).
+``muygpys.nn.get_nns`` span, and a device search's candidates (the exact
+kernel on its route) and re-rank are spans inside it
+(:mod:`muygpys_torch.tracing`).
 """
 
 from __future__ import annotations
@@ -43,6 +59,7 @@ import torch
 
 from muygpys_torch import config
 from muygpys_torch.gpu import knn as _knn
+from muygpys_torch.gpu import knn_exact as _knn_exact
 from muygpys_torch.tracing import span
 
 _QUERY_TILE = 512
@@ -166,6 +183,8 @@ class NN_Wrapper:
         self.train_count, self.feature_count = train.shape
         self.nn_count = nn_count
         self.nn_method = config.kernel_alias(nn_method.lower())
+        self._exact = None
+        self._stats = {"searches": 0, "queries": 0, "tiles_total": 0}
         if self.nn_method in ("exact", "brute", "kernel"):
             self._build_device_index(kwargs.get("spatial_sort"))
         elif self.nn_method == "sklearn":
@@ -215,8 +234,24 @@ class NN_Wrapper:
                 self._train_sorted if self._spatial else self._train_dev,
                 bins=1024, pruned=self._spatial,
             )
+        elif _knn_exact.takes(self._train_dev):
+            self._exact = _knn_exact.build_exact_index(self._train_dev)
         else:
             self._tiles = _train_tiles(self._train_dev)
+
+    @property
+    def stats(self) -> dict:
+        """``searches`` and ``queries`` answered, every method; on the exact
+        kernel's route ``tiles_total`` (the tiles of the index times the
+        queries searched) and ``tiles_scored`` (those the kernel did not
+        skip: read from the card's counter when asked, so the searches
+        themselves never wait for it), 0 elsewhere.  Their ratio is the
+        pruning's hit rate."""
+        out = dict(self._stats)
+        out["tiles_scored"] = (
+            0 if self._exact is None else int(self._exact.scored.item())
+        )
+        return out
 
     def get_nns(self, test) -> Tuple[np.ndarray, np.ndarray]:
         """Neighbors of out-of-sample queries: ``(indices, sq_dists)``."""
@@ -235,18 +270,27 @@ class NN_Wrapper:
             test = np.asarray(test)
             if test.ndim == 1:
                 test = test[:, None]
+            self._stats["searches"] += 1
+            self._stats["queries"] += test.shape[0]
             if self.nn_method == "sklearn":
                 dists, idx = self.nbrs.kneighbors(test, n_neighbors=nn_count)
                 return idx, dists**2  # hnsw's squared-l2 convention
             if self.nn_method == "hnsw":
                 idx, d2 = self.nbrs.knn_query(test, k=nn_count)
                 return idx, d2.astype(np.float64)
+            queries = torch.as_tensor(test, dtype=self._train_dev.dtype,
+                                      device=self.device)
+            if self._exact is not None and nn_count <= _knn_exact.MAX_K:
+                with span("muygpys.nn.candidates"):
+                    idx, d2 = _knn_exact.knn_exact_select(
+                        self._exact, queries.contiguous(), nn_count)
+                self._stats["tiles_total"] += (
+                    test.shape[0] * _knn_exact.tile_count(self._exact))
+                return idx.cpu().numpy(), d2.cpu().numpy()
             # over-fetch through the Gram identity, then re-rank exactly: the
             # identity loses ~eps*|a|^2 absolute precision, which scrambles
             # ranking once nearest distances approach that floor
             cand_count = min(nn_count + 32, self.train_count)
-            queries = torch.as_tensor(test, dtype=self._train_dev.dtype,
-                                      device=self.device)
             with span("muygpys.nn.candidates"):
                 if self._knn_index is not None:
                     # 1024 bins: the host KNN API favors recall over merge
@@ -264,6 +308,10 @@ class NN_Wrapper:
                             device=self.device, train_index=self._knn_index,
                         )
                 else:
+                    if self._tiles is None:
+                        # the kernel's route asked for more than it returns:
+                        # the tiles are built at the first such request
+                        self._tiles = _train_tiles(self._train_dev)
                     cand_idx, _ = _brute_force_knn(
                         self._train_dev, queries, cand_count, tiles=self._tiles
                     )

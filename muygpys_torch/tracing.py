@@ -27,8 +27,9 @@ The spans:
 - ``muygpys.nn.get_nns``: one search of :class:`NN_Wrapper`, every method,
   to its numpy outputs;
 - ``muygpys.nn.candidates``: its candidate search (the tiled exact search,
-  or K3);
-- ``muygpys.nn.refine``: its exact re-rank;
+  or K3), or on the exact kernel's route the whole search;
+- ``muygpys.nn.refine``: its exact re-rank (none on the exact kernel's
+  route);
 - ``muygpys.graph.capture``: a :class:`CapturedProgram`'s warm-up and
   capture.
 """

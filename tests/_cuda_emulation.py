@@ -1,13 +1,13 @@
-"""The hand-written CUDA sources (K1/K1b, K2, K3, K4's constructor and K5) run
-on the CPU, one thread per CUDA thread, for
-``tests/test_torch_cuda_emulation.py``.
+"""The hand-written CUDA sources (K1/K1b, K2, K3, K4's constructor, K5 and the
+exact search) run on the CPU, one thread per CUDA thread, for
+``tests/test_torch_cuda_emulation*.py``.
 
 A machine without a card or ``nvcc`` cannot run ``muygpys_torch/gpu/csrc``.
-:func:`build` compiles any of its five ``.cu`` sources with the host's C++20
+:func:`build` compiles any of its ``.cu`` sources with the host's C++20
 compiler against a small emulation of the CUDA subset they use: a
 ``std::thread`` per CUDA thread, ``std::barrier`` for ``__syncthreads`` and
 ``__syncwarp``, an exchange slot for the warp shuffles, ballots and
-reductions, ``memcpy`` for the asynchronous copies, plain loads for the
+reductions, a relaxed atomic for ``atomicAdd``, ``memcpy`` for the asynchronous copies, plain loads for the
 read-only ones, IEEE single operations
 for the round-to-nearest intrinsics (compiled without contraction, so no
 fused multiply-add), and shared memory filled with garbage before each
@@ -30,6 +30,7 @@ import re
 import shutil
 import subprocess
 import sys
+from unittest import mock
 
 import numpy as np
 import torch
@@ -142,6 +143,14 @@ inline int __reduce_add_sync(unsigned, int v) {
 }
 template <typename T> inline T __shfl_xor_sync(unsigned, T v, int m) {
   return shfl_from(v, (threadIdx.x % 32) ^ m);
+}
+template <typename T> inline T __shfl_up_sync(unsigned, T v, unsigned delta) {
+  const int lane = threadIdx.x % 32;
+  return shfl_from(v, lane >= (int)delta ? lane - (int)delta : lane);
+}
+inline int __ffs(int x) { return __builtin_ffs(x); }
+inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
+  return __atomic_fetch_add(p, v, __ATOMIC_RELAXED);
 }
 inline void __pipeline_memcpy_async(void* d, const void* s, size_t n) { std::memcpy(d, s, n); }
 inline void __pipeline_commit() {}
@@ -355,9 +364,14 @@ RACE_LAUNCHES = ("k2-registers", "k2-shared", "k2-registers-free-nu",
 
 
 def race_launch(out_dir: str, launch: str) -> None:
-    """Run one launch of :data:`RACE_LAUNCHES` through the ThreadSanitizer
-    builds in ``out_dir`` (in the child process :func:`race_report`
-    starts)."""
+    """Run one launch of :data:`RACE_LAUNCHES` (or ``"knn-exact"``) through
+    the ThreadSanitizer builds in ``out_dir`` (in the child process
+    :func:`race_report` starts)."""
+    if launch == "knn-exact":
+        lib = ctypes.CDLL(os.path.join(out_dir, "libknn_exact_tsan.so"))
+        index, queries = knn_exact_problem(2100, 5, 2, tile=64)
+        knn_exact_run(lib, index, queries, 31)
+        return
     if launch.startswith("k3"):
         lib = ctypes.CDLL(os.path.join(out_dir, "libknn_tsan.so"))
         prep = k3_problem(n_train=2048, n_query=16,
@@ -579,3 +593,34 @@ def digamma_run(lib, x):
     fn.argtypes = [P, P, ctypes.c_int, P]
     assert fn(ptr(x), ptr(out), x.numel(), None) == 0
     return out
+
+
+def knn_exact_problem(n, n_query, d, tile=256, seed=0):
+    """Uniform rows in the exact search's index (built by the glue on the
+    CPU) and uniform queries, f32."""
+    from muygpys_torch.gpu import knn_exact as X
+
+    rng = np.random.default_rng(seed)
+    train = torch.as_tensor(rng.uniform(size=(n, d)).astype(np.float32))
+    queries = torch.as_tensor(rng.uniform(size=(n_query, d)).astype(np.float32))
+    with mock.patch.object(X, "TILE", tile):
+        return X.build_exact_index(train), queries
+
+
+def knn_exact_run(lib, index, queries, k):
+    """One launch of the exact search: ``(idx, d2)`` of ``(Q, k)``; the
+    tiles it scored are added to ``index.scored``."""
+    from muygpys_torch.gpu import knn_exact as X
+
+    q_count, feat = queries.shape
+    idx = torch.full((q_count, k), -2, dtype=torch.int64)
+    d2 = torch.full((q_count, k), math.nan, dtype=torch.float32)
+    fn = lib.knn_exact_select
+    fn.argtypes = X._ARGTYPES
+    rc = fn(*(ptr(t) for t in (queries, index.tT, index.box, index.first,
+                               index.perm, index.grid, idx, d2,
+                               index.scored)),
+            q_count, feat, index.tT.shape[1], index.tile,
+            X.tile_count(index), k, index.bits, None)
+    assert rc == 0, f"knn_exact launcher refused: {rc}"
+    return idx, d2

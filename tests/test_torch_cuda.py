@@ -906,12 +906,14 @@ def _fused_field(seed=11, count=4096, d=2):
 def _captured_and_eager(server, requests):
     """Each request's outputs through the captured bucket, and the eager
     core's on the same padded inputs, with the launches of each (the
-    captured program already exists: the caller warmed the server up)."""
+    captured program already exists: the caller warmed the server up).
+    The index's own search (the exact kernel, run by ``predict`` before
+    the bucket and outside its graph) is not the bucket's launch."""
     out = []
     for req in requests:
         _build.reset_launches()
         m, v = server.predict(req)
-        captured = dict(_build.launches)
+        captured = dict(_build.launches, knn_exact_select=0)
         inputs = server._captured.inputs  # the bucket just served
         _build.reset_launches()
         me, ve = server._core(*inputs)
@@ -1208,8 +1210,8 @@ def test_fast_posterior_mean_on_the_card_matches_cpu(tmp_path, dtype):
 
 
 def test_nn_wrapper_methods_on_the_card():
-    """Every NN_Wrapper method with its index on the card: "exact" past
-    one train tile (the scan) and "brute" give the CPU's exact sets,
+    """Every NN_Wrapper method with its index on the card: "exact" (the
+    exact kernel's route at d = 2) and "brute" give the CPU's exact sets,
     "kernel" (K3 pruned, counted) >= 0.98 of them, "hnsw" recall > 0.9."""
     _need_card()
     from muygpys_torch.neighbors import NN_Wrapper
@@ -1234,6 +1236,69 @@ def test_nn_wrapper_methods_on_the_card():
     recall = np.mean([len(set(a) & set(b)) / 30
                       for a, b in zip(idx, exact_cpu)])
     assert recall > 0.9, recall
+
+
+@pytest.mark.parametrize(
+    "n,d,k", [(1_000_000, 2, 30), (1_000_000, 2, 31), (100_000, 3, 30),
+              (100_000, 4, 30)])
+def test_knn_exact_kernel_matches_plain(n, d, k):
+    """The exact kernel against its plain mirror on 2048 uniform queries:
+    the distances are the mirror's bits (both the k smallest, ascending)
+    and, at d = 2, _refine_knn's at the kernel's own indices (at d = 3 and
+    4 torch.sum on a card adds the features in another order: within 2
+    ulps); the sorted sets equal on >= 0.999 of queries (ties may choose
+    other rows); no k-th distance above that of the tiled search's rows
+    by the same expression; one launch counted."""
+    _need_card()
+    from muygpys_torch.gpu import knn_exact as X
+    from muygpys_torch.neighbors import _brute_force_knn, _refine_knn
+
+    rng = np.random.default_rng(n + d + k)
+    train = torch.as_tensor(rng.uniform(size=(n, d)), dtype=torch.float32,
+                            device="cuda")
+    queries = torch.as_tensor(rng.uniform(size=(2048, d)),
+                              dtype=torch.float32, device="cuda")
+    index = X.build_exact_index(train)
+    before = _build.launches["knn_exact_select"]
+    idx, d2 = X.knn_exact_select(index, queries, k)
+    torch.cuda.synchronize()
+    assert _build.launches["knn_exact_select"] == before + 1
+    ip, dp = X.knn_exact_select_plain(index, queries, k)
+    assert torch.equal(d2, dp)
+    same = (torch.sort(idx, 1).values == torch.sort(ip, 1).values).all(1)
+    assert float(same.float().mean()) >= 0.999
+    _, dr = _refine_knn(train, queries, idx, k)
+    if d == 2:
+        assert torch.equal(dr, d2)
+    else:
+        torch.testing.assert_close(dr, d2, rtol=2.0**-22, atol=0.0)
+    cand, _ = _brute_force_knn(train, queries, k + 32)
+    rows = train[_refine_knn(train, queries, cand, k)[0]]  # (Q, k, d)
+    db = (queries[:, None, 0] - rows[..., 0]) ** 2
+    for f in range(1, d):
+        db = db + (queries[:, None, f] - rows[..., f]) ** 2
+    assert bool((d2[:, -1] <= db.amax(1)).all())
+
+
+def test_knn_exact_prunes_at_the_shear_shape():
+    """NN_Wrapper("exact") at the shear cell's shape (1,000,000 uniform
+    rows, d = 2, 2048 queries, nn = 30) takes the exact kernel, one launch
+    a search, and scores under 2% of the tiles."""
+    _need_card()
+    from muygpys_torch.neighbors import NN_Wrapper
+
+    rng = np.random.default_rng(11)
+    train = rng.uniform(size=(1_000_000, 2)).astype(np.float32)
+    nbrs = NN_Wrapper(train, 30)
+    before = _build.launches["knn_exact_select"]
+    idx, d2 = nbrs.get_nns(rng.uniform(size=(2048, 2)).astype(np.float32))
+    assert _build.launches["knn_exact_select"] == before + 1
+    assert idx.shape == (2048, 30) and np.all(np.diff(d2, axis=1) >= 0)
+    stats = nbrs.stats
+    assert stats["searches"] == 1 and stats["queries"] == 2048
+    assert stats["tiles_total"] == 2048 * -(-1_000_000 // 256)
+    share = stats["tiles_scored"] / stats["tiles_total"]
+    assert 0 < share < 0.02, stats
 
 
 def test_do_regress_on_the_card_matches_cpu():

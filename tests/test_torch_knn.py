@@ -291,3 +291,195 @@ def test_nn_wrapper_builds_its_train_index_once(problem, monkeypatch):
     np.testing.assert_array_equal(i1, exact.get_nns(queries[:, :2])[0])
     np.testing.assert_array_equal(
         i2, exact.get_batch_nns(np.arange(0, 5000, 101))[0])
+
+
+# the exact kernel's plain mirror and NN_Wrapper's route to it
+
+def _uniform(n, q, d, seed):
+    rng = np.random.default_rng(seed)
+    return (torch.as_tensor(rng.uniform(size=(n, d)).astype(np.float32)),
+            torch.as_tensor(rng.uniform(size=(q, d)).astype(np.float32)))
+
+
+def _tiled_exact(train, queries, k):
+    """The tiled route of NN_Wrapper's exact search: candidates through the
+    Gram identity, then the re-rank by direct differences."""
+    from muygpys_torch.neighbors import _brute_force_knn, _refine_knn
+
+    cand, _ = _brute_force_knn(train, queries, min(k + 32, train.shape[0]))
+    return _refine_knn(train, queries, cand, k)
+
+
+@pytest.mark.parametrize("k", [1, 30, 31, 64])
+@pytest.mark.parametrize("d", [1, 2, 3, 4])
+def test_knn_exact_plain_matches_the_tiled_search(d, k):
+    """On uniform rows (2125: a ragged last tile of 77 at 256 rows a tile)
+    the plain mirror of the exact kernel gives _brute_force_knn ->
+    _refine_knn's neighbours in the same order and their distances bit for
+    bit."""
+    from muygpys_torch.gpu import knn_exact as X
+
+    train, queries = _uniform(2125, 150, d, seed=10 * d + k)
+    index = X.build_exact_index(train)
+    assert X.tile_count(index) == 9 and index.tile == 256
+    idx, d2 = X.knn_exact_select(index, queries, k)
+    ir, dr = _tiled_exact(train, queries, k)
+    assert idx.dtype == torch.int64 and d2.dtype == torch.float32
+    assert torch.equal(idx, ir) and torch.equal(d2, dr)
+
+
+def _ties(case):
+    rng = np.random.default_rng(3)
+    if case == "duplicated":
+        rows = rng.uniform(size=(1100, 2)).astype(np.float32)
+        train = np.concatenate([rows, rows[rng.permutation(1100)]])
+    else:  # a 48 x 48 grid
+        g = np.arange(48, dtype=np.float32) / 47
+        train = np.stack(np.meshgrid(g, g), -1).reshape(-1, 2)
+    queries = np.concatenate([train[:40], rng.uniform(size=(40, 2))])
+    return (torch.as_tensor(train),
+            torch.as_tensor(queries.astype(np.float32)))
+
+
+@pytest.mark.parametrize("case", ["duplicated", "grid"])
+def test_knn_exact_plain_agrees_up_to_ties(case):
+    """Where many rows lie at equal distances the sets agree with the tiled
+    search's up to ties: the sorted distances are the same bits, each row
+    only one of them returns lies at the k-th distance, and at every row
+    both return the distances are the same bits."""
+    from muygpys_torch.gpu import knn_exact as X
+
+    train, queries = _ties(case)
+    k = 31  # odd: the k-th row's twin is left out
+    idx, d2 = X.knn_exact_select(X.build_exact_index(train), queries, k)
+    ir, dr = _tiled_exact(train, queries, k)
+    assert torch.equal(d2, dr)
+    differ = 0
+    for qi in range(len(queries)):
+        mine = dict(zip(idx[qi].tolist(), d2[qi].tolist()))
+        theirs = dict(zip(ir[qi].tolist(), dr[qi].tolist()))
+        assert len(mine) == k
+        for row in mine.keys() & theirs.keys():
+            assert mine[row] == theirs[row]
+        for row in mine.keys() ^ theirs.keys():
+            differ += 1
+            assert mine.get(row, theirs.get(row)) == float(d2[qi, -1])
+    assert differ > 0, "no tie was tested"
+
+
+def _refusals():
+    from muygpys_torch.gpu import knn_exact as X
+
+    train, queries = _uniform(2100, 8, 2, seed=1)
+    index = X.build_exact_index(train)
+    wide = index._replace(tT=torch.zeros((5, 2100)))
+    return {
+        "k65": (index, queries, 65, "1 to 64 neighbours"),
+        "d5": (wide, torch.zeros((8, 5)), 30, "1 to 4 features"),
+        "features": (index, queries[:, :1].contiguous(), 30, "do not match"),
+        "float64": (index, queries.double(), 30, "float32"),
+        "strided": (index, queries.T.contiguous().T, 30, "contiguous"),
+        "device": (index, torch.empty((8, 2), device="meta"), 30,
+                   "the index on cpu"),
+    }
+
+
+@pytest.mark.parametrize(
+    "case", ["k65", "d5", "features", "float64", "strided", "device"])
+def test_knn_exact_refuses_what_the_kernel_does_not_take(case):
+    from muygpys_torch.gpu import knn_exact as X
+
+    index, queries, k, match = _refusals()[case]
+    with pytest.raises(ValueError, match=match):
+        X.knn_exact_select(index, queries, k)
+
+
+def test_knn_exact_index_refuses_five_features():
+    from muygpys_torch.gpu import knn_exact as X
+
+    with pytest.raises(ValueError, match="1 to 4 features"):
+        X.build_exact_index(torch.zeros((3000, 5)))
+
+
+@pytest.mark.parametrize("d", [2, 5])
+def test_nn_wrapper_on_the_cpu_takes_the_tiled_search(monkeypatch, d):
+    """On the CPU, at d <= 4 as at d = 5, NN_Wrapper's exact search is
+    _brute_force_knn -> _refine_knn, and its index has no exact kernel's
+    side."""
+    from muygpys_torch import neighbors
+    from muygpys_torch.gpu import knn_exact as X
+
+    calls = []
+    for module, name in ((neighbors, "_brute_force_knn"),
+                         (X, "knn_exact_select")):
+        real = getattr(module, name)
+        monkeypatch.setattr(module, name,
+                            lambda *a, _r=real, _n=name, **kw:
+                            calls.append(_n) or _r(*a, **kw))
+    train, queries = _uniform(3000, 20, d, seed=d)
+    nbrs = neighbors.NN_Wrapper(train.numpy(), 10, device="cpu")
+    assert nbrs._exact is None and nbrs._tiles is not None
+    nbrs.get_nns(queries.numpy())
+    nbrs.get_batch_nns(np.arange(5))
+    assert calls == ["_brute_force_knn"] * 2
+    assert nbrs.stats == {"searches": 2, "queries": 25, "tiles_total": 0,
+                          "tiles_scored": 0}
+
+
+@pytest.mark.parametrize(
+    "device,d,n,dtype,route",
+    [("cuda", 2, 10**6, torch.float32, True),
+     ("cuda", 4, 2048, torch.float32, True),
+     ("cuda", 1, 2048, torch.float32, True),
+     ("cpu", 2, 10**6, torch.float32, False),
+     ("cuda", 5, 10**6, torch.float32, False),
+     ("cuda", 2, 2047, torch.float32, False),
+     ("cuda", 2, 10**6, torch.float64, False)],
+)
+def test_exact_kernel_route_rule(device, d, n, dtype, route):
+    """The exact kernel takes an index on a card at d <= 4, n >= 2048 and
+    float32 rows; everything else keeps the tiled search."""
+    from types import SimpleNamespace
+
+    from muygpys_torch.gpu import knn_exact as X
+
+    train = SimpleNamespace(device=torch.device(device), shape=(n, d),
+                            dtype=dtype)
+    assert X.takes(train) == route
+
+
+def test_nn_wrapper_exact_route_glue():
+    """The exact route's glue, driven on the CPU through the plain mirror
+    (an exact index put in place of the tiled one): the neighbours of the
+    tiled search, the tiles counted; a request of more than 64 neighbours
+    goes the tiled way, its train tiles built once."""
+    from muygpys_torch.gpu import knn_exact as X
+    from muygpys_torch.neighbors import NN_Wrapper
+
+    train, queries = _uniform(3000, 40, 2, seed=5)
+    tiled = NN_Wrapper(train.numpy(), 30, device="cpu")
+    nbrs = NN_Wrapper(train.numpy(), 30, device="cpu")
+    nbrs._exact, nbrs._tiles = X.build_exact_index(nbrs._train_dev), None
+    nt = X.tile_count(nbrs._exact)
+    for got, want in ((nbrs.get_nns(queries.numpy()),
+                       tiled.get_nns(queries.numpy())),
+                      (nbrs.get_batch_nns(np.arange(0, 3000, 97)),
+                       tiled.get_batch_nns(np.arange(0, 3000, 97)))):
+        assert got[0].dtype == want[0].dtype == np.int64
+        assert got[1].dtype == want[1].dtype == np.float32
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+    searched = 40 + len(range(0, 3000, 97))
+    assert nbrs.stats == {"searches": 2, "queries": searched,
+                          "tiles_total": searched * nt,
+                          "tiles_scored": searched * nt}
+    nbrs.nn_count = 64  # get_batch_nns asks for 65
+    idx, _ = nbrs.get_batch_nns(np.arange(3))
+    tiled.nn_count = 64
+    np.testing.assert_array_equal(idx, tiled.get_batch_nns(np.arange(3))[0])
+    assert nbrs.stats["tiles_total"] == searched * nt
+    # the tiled search's train side is built at the first such request, once
+    tiles = nbrs._tiles
+    assert tiles is not None
+    nbrs.get_batch_nns(np.arange(3, 6))
+    assert nbrs._tiles is tiles

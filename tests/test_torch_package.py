@@ -154,7 +154,7 @@ def test_launch_counters_reset():
         "fused_train_stats",
         "fused_train_stats/registers", "fused_train_stats/shared",
         "multiout_solve", "multiout_solve/registers", "multiout_solve/shared",
-        "matern_nu_coeffs",
+        "matern_nu_coeffs", "knn_exact_select",
     }
     assert all(v == 0 for v in _build.launches.values())
 
@@ -170,7 +170,7 @@ def test_every_kernel_source_is_built_and_counted():
     ``__global__`` entry a wrapper launches."""
     assert _build.SOURCES == (
         "fused_predict", "knn", "fused_train", "multiout_solve",
-        "matern_nu_coeffs",
+        "matern_nu_coeffs", "knn_exact",
     )
     on_disk = sorted(p.stem for p in _build.CSRC.glob("*.cu"))
     assert on_disk == sorted(_build.SOURCES)
