@@ -14,6 +14,19 @@ Counterpart of :class:`muygpys_tpu.serve.FastServer`.  Engines:
   of :mod:`muygpys_torch.ops.lanes_solver`.
 - ``"reference"``: the generic standard-layout path (debugging;
   homoscedastic models only).
+- ``"fast_mean"``: Fast MuyGPs (the posterior mean alone, no solve at
+  predict time).  At construction
+  :func:`muygpys_torch.examples.fast_posterior_mean.make_fast_regressor`
+  (``make_fast_multivariate_regressor`` for a
+  :class:`MultivariateMuyGPS`) solves ``C_j = (K_in,j + eps I)^{-1} Y`` over
+  every training point's self-inclusive neighbourhood with the index it is
+  given; coefficients and neighbourhoods stay on the device, in the
+  server's row order.  A bucket runs the ``"fused"`` engine's own search
+  for each query's nearest training point (K3 over the Morton-sorted rows,
+  9 candidates, the exact re-rank), gathers that point's neighbourhood and
+  coefficients, and contracts the crosswise kernel row with them.
+  Homoscedastic Matern or RBF models only, no mesh; ``predict`` returns
+  the mean and ``None`` for the variance.
 
 The lensing shear family (``ShearKernel``, ``ShearKernel2in3out`` over a
 ``DifferenceIsotropy``) serves through ``"lanes"`` (the batch-last floored
@@ -63,13 +76,16 @@ host memory and cannot be captured, so the server runs its core eagerly:
 :attr:`FastServer.mode` says which (``"captured"`` or ``"eager"``).
 
 Under a recording :mod:`torch.profiler`, a request and each of its buckets'
-stage, replay and readback are spans (:mod:`muygpys_torch.tracing`);
+stage, replay and readback are spans (:mod:`muygpys_torch.tracing`), as is
+the ``"fast_mean"`` engine's precompute (``muygpys.fast.*``);
 :attr:`FastServer.stats` counts requests, queries, buckets and padded
-slots whether or not anything records.
+slots whether or not anything records, and :attr:`FastServer.precompute`
+the fast precompute's points, failed neighbourhoods and seconds.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Optional, Tuple
 
 import numpy as np
@@ -83,6 +99,7 @@ from muygpys_torch.gp.kernels.experimental import (
     ShearKernel2in3out,
 )
 from muygpys_torch.gp.kernels.matern import CLOSED_FORMS
+from muygpys_torch.gp.multivariate_muygps import MultivariateMuyGPS
 from muygpys_torch.gp.muygps import MuyGPS
 from muygpys_torch.gp.noise import HeteroscedasticNoise, HomoscedasticNoise
 from muygpys_torch.gpu.fused_predict import fused_predict_coords_bl
@@ -120,14 +137,16 @@ class FastServer:
     Args:
         muygps: trained model (Matern/RBF kernel, Isotropy/Anisotropy
             deformation, homoscedastic or heteroscedastic noise; or a shear
-            kernel over a DifferenceIsotropy).
-        nbrs_lookup: KNN index over the training features.
+            kernel over a DifferenceIsotropy); a
+            :class:`MultivariateMuyGPS` for the ``"fast_mean"`` engine.
+        nbrs_lookup: KNN index over the training features (the
+            ``"fast_mean"`` engine's precompute searches with it).
         train_features / train_targets: the training set (univariate or
             multivariate targets).
         bucket: request size each solve runs at; queries are padded up to
             it.
         engine: ``"fused"`` | ``"kernel"`` (alias ``"pallas"``, the JAX
-            name) | ``"lanes"`` | ``"reference"``.
+            name) | ``"lanes"`` | ``"reference"`` | ``"fast_mean"``.
         measurement_noise: per-training-point noise variances
             ``(train_count,)``, required for heteroscedastic models.
         rerank: ``"fused"`` only.  ``True`` over-fetches 8 candidates and
@@ -139,8 +158,9 @@ class FastServer:
         shard: what the mesh shards, ``"queries"`` (default) or
             ``"train"`` (the ``"fused"`` engine; the training count must
             divide by the mesh size).  Without a mesh it changes nothing.
-        spatial_sort: ``"fused"`` only.  Morton-sort the training rows so
-            the candidate kernel skips provably irrelevant tiles.  Default
+        spatial_sort: ``"fused"`` and ``"fast_mean"``.  Morton-sort the
+            training rows so the candidate kernel skips provably
+            irrelevant tiles.  Default
             ``None`` = on when the kernel path runs (>= 1024 training
             points) and the feature dimension is <= 4.
         device: where the server runs (default ``"cuda"``; under a mesh
@@ -162,24 +182,33 @@ class FastServer:
         spatial_sort: Optional[bool] = None,
         device=None,
     ):
-        self._shear = isinstance(
-            muygps.kernel, (ShearKernel, ShearKernel2in3out)
-        )
-        deformation = muygps.kernel.deformation
+        engine = config.kernel_alias(engine)
+        if engine not in ("fused", "kernel", "lanes", "reference",
+                          "fast_mean"):
+            raise ValueError(f"unknown engine {engine!r}")
+        multivariate = isinstance(muygps, MultivariateMuyGPS)
+        models = muygps.models if multivariate else [muygps]
+        if multivariate and engine != "fast_mean":
+            raise ValueError(
+                "a MultivariateMuyGPS serves through the fast_mean engine"
+            )
+        kernel = models[0].kernel
+        self._shear = isinstance(kernel, (ShearKernel, ShearKernel2in3out))
+        deformation = kernel.deformation
+        if engine == "fast_mean":
+            _refuse_fast_mean(models, self._shear, rerank, mesh,
+                              measurement_noise)
         if not self._shear:
-            if not isinstance(muygps.kernel, (Matern, RBF)):
+            if not isinstance(kernel, (Matern, RBF)):
                 raise ValueError(
                     "FastServer supports Matern/RBF/Shear kernels, not "
-                    f"{type(muygps.kernel)}"
+                    f"{type(kernel)}"
                 )
             if not isinstance(deformation, (Isotropy, Anisotropy)):
                 raise ValueError(
                     "FastServer requires an Isotropy or Anisotropy "
                     f"deformation, not {type(deformation)}"
                 )
-        engine = config.kernel_alias(engine)
-        if engine not in ("fused", "kernel", "lanes", "reference"):
-            raise ValueError(f"unknown engine {engine!r}")
         if shard not in ("queries", "train"):
             raise ValueError(f"unknown shard mode {shard!r}")
         if self._shear and engine not in ("lanes", "kernel"):
@@ -257,12 +286,20 @@ class FastServer:
         #: what the server has done: requests answered, their queries, the
         #: buckets solved and the bucket slots the edge pad filled
         self.stats = {"requests": 0, "queries": 0, "buckets": 0, "padded": 0}
+        #: the ``"fast_mean"`` engine's precompute: training ``points``,
+        #: neighbourhoods whose coefficients are not finite (``failed``) and
+        #: wall ``seconds`` to finished coefficients; None for the others
+        self.precompute = None
         # the program of one bucket, and whether a card runs it captured
         self._captured = None
         self._capture = (
-            self.device.type == "cuda" and engine in ("fused", "kernel")
+            self.device.type == "cuda"
+            and engine in ("fused", "kernel", "fast_mean")
             and (mesh is None or mesh_backend(mesh) == "nccl")
         )
+        if engine == "fast_mean":
+            self._core = self._build_fast_mean()
+            return
         if self._shear:
             # multi-output block path: noise, scale and Kout are the model's
             self._core = self._sharded_queries(self._build_shear())
@@ -450,9 +487,9 @@ class FastServer:
         rows = torch.cat([c[nn_idx] for c in cols], dim=-1)
         return self._solve_coords(rows, queries)
 
-    def _build_fused(self):
-        train, targets, meas = self._train, self._targets, self._meas
-        nn_count = self.nbrs.nn_count
+    def _search_geometry(self, train, keep):
+        """``(use_kernel, spatial, cand_count, knn_fn, knn_kwargs)`` of the
+        candidate search for ``keep`` neighbours a query over ``train``."""
         # below 2*bins=1024 train rows the packed-key kernel cannot fill every
         # candidate slot with a distinct real column, and exact brute force
         # is faster at that scale anyway
@@ -465,28 +502,38 @@ class FastServer:
                 "spatial_sort requires the candidate kernel "
                 "(>= 1024 training points)"
             )
-        if spatial:
-            perm = spatial_sort(train)
-            train, targets = train[perm], targets[perm]
-            if meas is not None:
-                meas = meas[perm]
         self._spatial = bool(spatial)
-        # one packed table -> ONE row gather per query batch
-        cols = [train, targets] + ([] if meas is None else [meas[:, None]])
-        table = torch.cat(cols, dim=1)
-        d = train.shape[1]
         # +8 over-fetch with exact re-rank; without re-rank the kernel's
-        # nn_count candidates are the neighborhood, at 256 bins / 256-query
-        # tiles (the JAX package's tuned approximate-mode geometry)
-        cand_count = (
-            min(nn_count + 8, train.shape[0]) if self.rerank else nn_count
-        )
+        # candidates are the neighborhood, at 256 bins / 256-query tiles
+        # (the JAX package's tuned approximate-mode geometry)
+        cand_count = min(keep + 8, train.shape[0]) if self.rerank else keep
         knn_kwargs = {} if self.rerank else {"bins": 256, "query_tile": 256}
         knn_fn = knn_cuda_pruned if spatial else knn_cuda
-        if self.mesh is not None and self.shard == "train":
-            return self._train_sharded_core(
-                train, table, cand_count, knn_fn, knn_kwargs, spatial
-            )
+        return use_kernel, spatial, cand_count, knn_fn, knn_kwargs
+
+    @staticmethod
+    def _search_order(spatial, train, *aligned):
+        """``train`` and the arrays ``aligned`` with its rows (or None) in
+        the search's row order, Morton-sorted where ``spatial``:
+        ``(perm, train, *aligned)``, ``perm`` None where unsorted."""
+        if not spatial:
+            return (None, train, *aligned)
+        perm = spatial_sort(train)
+        return (perm, *(None if a is None else a[perm]
+                        for a in (train, *aligned)))
+
+    def _fused_search(self, train, keep, geometry):
+        """The bucket's own neighbour search, shared by the ``"fused"`` and
+        ``"fast_mean"`` engines: ``train`` in the search's row order
+        (:meth:`_search_order`), its index built once here, then per bucket
+        K3's candidates (the exact tiled search below 1024 rows) and the
+        exact re-rank of their coordinates.  Returns ``search(queries,
+        table) -> (cand, rows, sel)``, with ``table``'s rows in ``train``'s
+        order and its first columns the coordinates: the candidates
+        ``(B, C)``, their rows ``table[cand]`` and the re-rank's ``keep``
+        nearest positions among them, nearest first (None without re-rank:
+        the candidates are the neighbours)."""
+        use_kernel, spatial, cand_count, knn_fn, knn_kwargs = geometry
         # the search's train side (padded transpose, norms, tile boxes, the
         # subsample's own), built once: a request computes its query side
         knn_index = (
@@ -494,8 +541,9 @@ class FastServer:
             if use_kernel else None
         )
         tiles = None if use_kernel else _train_tiles(train)
+        d = train.shape[1]
 
-        def core(queries):
+        def search(queries, table):
             if use_kernel:
                 cand, _ = knn_fn(
                     None, queries, cand_count, device=self.device,
@@ -505,9 +553,30 @@ class FastServer:
                 cand, _ = _brute_force_knn(train, queries, cand_count,
                                            tiles=tiles)
             rows = table[cand]  # (B, C, cols)
+            sel = None
             if self.rerank:
                 d2 = torch.sum((rows[:, :, :d] - queries[:, None, :]) ** 2, -1)
-                _, sel = torch.topk(d2, nn_count, dim=1, largest=False)
+                _, sel = torch.topk(d2, keep, dim=1, largest=False)
+            return cand, rows, sel
+
+        return search
+
+    def _build_fused(self):
+        nn_count = self.nbrs.nn_count
+        geometry = self._search_geometry(self._train, nn_count)
+        _, train, targets, meas = self._search_order(
+            geometry[1], self._train, self._targets, self._meas
+        )
+        # one packed table -> ONE row gather per query batch
+        cols = [train, targets] + ([] if meas is None else [meas[:, None]])
+        table = torch.cat(cols, dim=1)
+        if self.mesh is not None and self.shard == "train":
+            return self._train_sharded_core(train, table, geometry)
+        search = self._fused_search(train, nn_count, geometry)
+
+        def core(queries):
+            _, rows, sel = search(queries, table)
+            if sel is not None:
                 rows = torch.gather(
                     rows, 1, sel[:, :, None].expand(-1, -1, rows.shape[2])
                 )
@@ -515,14 +584,66 @@ class FastServer:
 
         return core
 
-    def _train_sharded_core(self, train, table, cand_count, knn_fn,
-                            knn_kwargs, spatial):
+    def _build_fast_mean(self):
+        """The ``"fast_mean"`` bucket: the precompute once, here, then per
+        bucket the shared search for each query's nearest training point,
+        its neighbourhood's coordinates and coefficients gathered, the
+        crosswise kernel row and one contraction: ``(mean (B, r),)``."""
+        # imported here: the examples package brings the optimizers, which
+        # no other engine needs at start-up
+        from muygpys_torch.examples import fast_posterior_mean as fast
+
+        muygps = self.muygps
+        multivariate = isinstance(muygps, MultivariateMuyGPS)
+        make = (fast.make_fast_multivariate_regressor if multivariate
+                else fast.make_fast_regressor)
+        t0 = time.perf_counter()
+        coeffs, nn_fast = make(muygps, self.nbrs, self._train, self._targets)
+        if coeffs.is_cuda:
+            torch.cuda.synchronize(coeffs.device)
+        seconds = time.perf_counter() - t0
+        count, n = nn_fast.shape
+        coeffs = coeffs.reshape(count, n, -1)
+        self.precompute = {
+            "points": count,
+            "failed": int(torch.sum(~torch.isfinite(coeffs).reshape(
+                count, -1).all(dim=1))),
+            "seconds": seconds,
+        }
+        geometry = self._search_geometry(self._train, 1)
+        perm, train, coeffs, nn_fast = self._search_order(
+            geometry[1], self._train, coeffs, nn_fast
+        )
+        if perm is not None:
+            # row s is training point perm[s]: the ids inside the sets
+            # follow the rows into the search's order
+            order = torch.empty_like(perm)
+            order[perm] = torch.arange(count, device=perm.device)
+            nn_fast = order[nn_fast]
+        search = self._fused_search(train, 1, geometry)
+        models = muygps.models if multivariate else [muygps]
+        deformation = models[0].kernel.deformation
+        rows = torch.arange(self.bucket, device=self.device)
+
+        def core(queries):
+            cand, _, sel = search(queries, train)
+            near = torch.gather(cand, 1, sel)[:, 0]
+            cw = deformation.crosswise_tensor(
+                queries, train, rows[:queries.shape[0]], nn_fast[near]
+            )
+            Kcross = torch.stack([m.kernel(cw) for m in models], dim=-1)
+            return (torch.sum(Kcross * coeffs[near], dim=1),)
+
+        return core
+
+    def _train_sharded_core(self, train, table, geometry):
         """The ``shard="train"`` bucket: candidates over this rank's
         contiguous shard of the (globally sorted) table for every query, the
         candidate rows all-gathered, the exact merge of their union and K1
         on this rank's query slice, the outputs all-gathered."""
         n_dev, group = mesh_size(self.mesh), self._group
         nn_count = self.nbrs.nn_count
+        _, spatial, cand_count, knn_fn, knn_kwargs = geometry
         rows = local_chunk_slice(train.shape[0], self.mesh)
         train, table = train[rows].contiguous(), table[rows].contiguous()
         shard_rows = train.shape[0]
@@ -610,19 +731,24 @@ class FastServer:
         Kcross = self.muygps.kernel(crosswise)
         return self.muygps.posterior_mean_and_variance(Kin, Kcross, nn_targets)
 
-    def predict(self, test_features) -> Tuple[np.ndarray, np.ndarray]:
+    def predict(
+        self, test_features
+    ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
         """Posterior (mean ``(count, r)``, variance ``(count,)``) for a batch
         of queries of any size; a shear model returns mean ``(count, 3)``
-        and covariance ``(count, 3, 3)``."""
+        and covariance ``(count, 3, 3)``; the ``"fast_mean"`` engine
+        returns mean ``(count, r)`` and ``None`` in the variance's place,
+        so that a caller unpacking two values runs unchanged."""
         with span("muygpys.serve.predict"):
             test = np.asarray(test_features)
             if test.ndim == 1:
                 test = test[:, None]
             count = test.shape[0]
-            fused = self.engine == "fused"
-            nn_idx = (None if fused
-                      else np.asarray(self.nbrs.get_nns(test)[0]))
-            means, variances = [], []
+            # the fused and fast_mean buckets search for themselves
+            searched = self.engine not in ("fused", "fast_mean")
+            nn_idx = (np.asarray(self.nbrs.get_nns(test)[0]) if searched
+                      else None)
+            outputs = []
             for start in range(0, count, self.bucket):
                 with span("muygpys.serve.stage"):
                     chunk = test[start:start + self.bucket]
@@ -630,7 +756,7 @@ class FastServer:
                     if pad:
                         chunk = np.pad(chunk, ((0, pad), (0, 0)), mode="edge")
                     arrays = [chunk]
-                    if not fused:
+                    if searched:
                         idx = nn_idx[start:start + self.bucket]
                         if pad:
                             idx = np.pad(idx, ((0, pad), (0, 0)),
@@ -640,17 +766,16 @@ class FastServer:
                 if self._capture and self._captured is None:
                     self._captured = CapturedProgram(self._core, inputs)
                 with span("muygpys.serve.replay"):
-                    m, v = (self._captured.replay() if self._capture
-                            else self._core(*inputs))
+                    out = (self._captured.replay() if self._capture
+                           else self._core(*inputs))
                 with span("muygpys.serve.readback"):
-                    means.append(m.cpu().numpy())
-                    variances.append(v.cpu().numpy())
+                    outputs.append([o.cpu().numpy() for o in out])
                 self.stats["buckets"] += 1
                 self.stats["padded"] += pad
             self.stats["requests"] += 1
             self.stats["queries"] += count
-            return (np.concatenate(means)[:count],
-                    np.concatenate(variances)[:count])
+            mean, *second = (np.concatenate(o)[:count] for o in zip(*outputs))
+            return mean, (second[0] if second else None)
 
     def _stage(self, arrays):
         """A bucket's padded queries (and neighbour indices) on the device.
@@ -678,3 +803,30 @@ class FastServer:
             host.copy_(torch.from_numpy(a))
             dev.copy_(host, non_blocking=True)
         return inputs
+
+
+def _refuse_fast_mean(models, shear, rerank, mesh, measurement_noise):
+    """The ``"fast_mean"`` engine's refusals, each with its reason."""
+    if shear:
+        raise ValueError(
+            "the fast_mean engine serves Matern/RBF means; shear models "
+            "serve through the lanes or kernel engine"
+        )
+    if not rerank:
+        raise ValueError(
+            "the fast_mean engine takes rerank=True only: without the exact "
+            "re-rank its nearest point would be approximate"
+        )
+    if mesh is not None:
+        raise ValueError(
+            "the fast_mean engine takes no mesh (MuyGPyS's MPI backend "
+            "refuses the fast path too)"
+        )
+    if measurement_noise is not None or not all(
+        isinstance(m.noise, HomoscedasticNoise) for m in models
+    ):
+        raise ValueError(
+            "the fast_mean engine serves homoscedastic noise only: its "
+            "precomputed coefficients fold one nugget into every "
+            "neighbourhood"
+        )

@@ -950,6 +950,43 @@ def test_captured_serving_is_bit_equal_to_the_eager_core(engine):
             assert eager["knn_candidates_pruned"] == 1
 
 
+def test_captured_fast_mean_is_bit_equal_to_the_eager_core():
+    """The fast_mean engine's bucket replays the graph captured at the
+    first bucket: its means equal the eager core's on the same inputs bit
+    for bit, with the same launches, K3 pruned once a bucket; the
+    precompute's state is finite and agrees with the CPU's."""
+    _need_card()
+    from muygpys_torch.convert import muygps_from_arrays
+    from muygpys_torch.neighbors import NN_Wrapper
+    from muygpys_torch.serve import FastServer
+
+    train, targets, queries = _fused_field()
+    model = muygps_from_arrays(0.3, noise=1e-3, smoothness=1.5, scale=1.0)
+    server = FastServer(model, NN_Wrapper(train, 30, nn_method="exact"),
+                        train, targets, bucket=256, engine="fast_mean")
+    assert server.precompute["points"] == len(train)
+    assert server.precompute["failed"] == 0
+    mean, none = server.predict(queries[:10])  # the capture
+    assert none is None and mean.shape == (10, 1)
+    assert server.mode == "captured" and server._captured is not None
+    for req in (queries[:256], queries[256:400]):
+        _build.reset_launches()
+        m, _ = server.predict(req)
+        captured = dict(_build.launches)
+        inputs = server._captured.inputs
+        _build.reset_launches()
+        (me,) = server._core(*inputs)
+        eager = dict(_build.launches)
+        assert np.array_equal(m, me.cpu().numpy()[:len(m)])
+        assert captured == eager and eager["knn_candidates_pruned"] == 1
+    cpu = FastServer(model, NN_Wrapper(train, 30, device="cpu"), train,
+                     targets, bucket=256, engine="fast_mean", device="cpu")
+    # f32 on both sides: the coefficients' rounding times the conditioning
+    # (noise 1e-3), as the fast-mean card test above allows
+    np.testing.assert_allclose(m, cpu.predict(queries[256:400])[0],
+                               atol=5e-3)
+
+
 def test_captured_shear_serving_is_bit_equal_to_the_eager_core():
     _need_card()
     from muygpys_torch.convert import muygps_from_arrays
