@@ -19,12 +19,11 @@ Phases (any failure raises and the script exits non-zero):
    the device, beside the library yardstick (torch.linalg.cholesky +
    cholesky_solve on K formed elementwise);
 4. K3 (packed-key KNN candidates) against its plain version: unpruned at
-   50,000 x 8192, at the main path's unpruned shape (the 1/16 subsample,
-   8192 x 4096), pruned, and pruned at NN_Wrapper's 1024 bins, d=2, through
-   the fused design (the merge inside the kernel: distances bit-equal,
-   index sets on >= 0.999 of slots) and the kept design plus its torch.topk
-   merge (key state bit-equal), each timed, with the cdist + topk
-   yardstick;
+   50,000 x 8192, pruned by the bounded route, and pruned at NN_Wrapper's
+   1024 bins, d=2, through the fused design (the merge inside the kernel:
+   distances bit-equal, index sets on >= 0.999 of slots) and the kept
+   design plus its torch.topk merge (key state bit-equal), each timed, with
+   the cdist + topk yardstick;
 5. serving end to end: FastServer(engine="fused") at the headline
    configuration (50k Morton-sorted training points, d=2, nn=30, bucket
    8192, Matern 3/2, ls 0.5, noise 1e-3, f32) answers three requests, one
@@ -732,32 +731,99 @@ def k1_library(torch, nf, q, y, params):
 
 def phase_k3(torch, train_sorted, queries, cand_count):
     """K3 against its plain version at the fused path's shapes: the
-    unpruned search over the 50k set, the main path's unpruned search (the
-    1/16 subsample, 8192 x 4096, Morton-sorted queries), the pruned search,
+    unpruned search over the 50k set, the pruned search (the bounded route),
     and the pruned search at NN_Wrapper's 1024 bins.  Each through the
     design the launcher takes (fused: the merge in the kernel) and the kept
     design with its _merge_decode, each timed; the kept design's key state
     against its mirror bit for bit.  Returns the kernels-line rows."""
     from muygpys_torch.gpu import knn as K
 
-    index = K.build_index(train_sorted, pruned=True)
-    pruned = K.prepare_pruned(None, queries, cand_count, train_index=index)
     wide_k = NN + 32  # NN_Wrapper's over-fetch
     cases = (
         ("knn_candidates", K.prepare(train_sorted, queries, cand_count),
          cand_count, train_sorted),
-        ("knn_candidates[subsample]",
-         K.prepare(None, pruned.q, cand_count, train_index=index.sub),
-         cand_count, train_sorted[::16]),
-        ("knn_candidates_pruned", pruned, cand_count, train_sorted),
+        ("knn_candidates_pruned",
+         K.prepare_bounded(train_sorted, queries, cand_count), cand_count,
+         train_sorted),
         ("knn_candidates_pruned[bins1024]",
-         K.prepare_pruned(train_sorted, queries, wide_k, bins=1024), wide_k,
+         K.prepare_bounded(train_sorted, queries, wide_k, bins=1024), wide_k,
          train_sorted),
     )
     rows = {}
     for name, prep, k, train_used in cases:
         rows[name] = k3_case(torch, name, prep, k, queries, train_used)
     return rows
+
+
+def phase_k3_1m(torch, k, seed=18):
+    """K3p's bounded route at the serving cells' shape: 8192 uniform
+    queries over SCAN_ROWS uniform Morton-sorted rows, 512 bins, ``k``
+    candidates (38: the bulk bucket's; 9: the fast-mean bucket's).  idx and
+    d2 bit-equal to the unpruned fused kernel's on the same sorted queries,
+    d2 bit-equal to the plain version's (its key state is (Q, bins)); one
+    launch counted, the boxes walked from the index's counter zeroed just
+    before; the route and the unpruned kernel timed, the plain version
+    once.  Returns the kernels-line row."""
+    from muygpys_torch.gpu import _build
+    from muygpys_torch.gpu import knn as K
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    train = torch.rand((SCAN_ROWS, 2), device="cuda", generator=g)
+    train = train[K.spatial_sort(train)].contiguous()
+    queries = torch.rand((8192, 2), device="cuda", generator=g)
+    index = K.build_index(train, pruned=True)
+    prep = K.prepare_bounded(None, queries, k, train_index=index)
+    assert K.knn_design(2, k, prep.bins) == "fused"
+    K.knn_select(prep, k)  # build and warm up
+    torch.cuda.synchronize()
+    index.boxes.counts.zero_()
+    before = dict(_build.launches)
+    idx, d2 = K.knn_select(prep, k)
+    torch.cuda.synchronize()
+    launched = {c: _build.launches[c] - before.get(c, 0)
+                for c in ("knn_candidates_pruned", "knn_candidates")}
+    total, walked = index.boxes.counts.tolist()
+    full = K.prepare(train, prep.q, k, query_tile=8)
+    ik, dk = K.knn_select(full, k)
+    t0 = time.perf_counter()
+    _, dp = K.knn_select_plain(full, k)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    same_idx, same_d2 = bool(torch.equal(idx, ik)), bool(torch.equal(d2, dk))
+    plain_d2 = bool(torch.equal(d2, dp))
+    nb = index.boxes.norm.shape[0]
+    name = f"knn_candidates_pruned[1m,k{k}]"
+    log(f"K3 {name} (8192 x {SCAN_ROWS}, bins {prep.bins}, k {k}): "
+        f"launches {launched}; idx bit-equal to the unpruned kernel "
+        f"{same_idx}, d2 {same_d2}; d2 bit-equal to the plain version "
+        f"{plain_d2}; boxes walked {walked} of {total} "
+        f"({100.0 * walked / total:.4f}%, {walked / (total / nb):.2f} a "
+        f"block of 8 queries)")
+    assert launched == {"knn_candidates_pruned": 1, "knn_candidates": 0}
+    assert total == 1024 * nb and 2 * walked < total
+    assert same_idx and same_d2 and plain_d2, f"K3 {name} disagrees"
+
+    def bounded():
+        return K.knn_select(prep, k)
+
+    def unpruned():
+        return K.knn_select(full, k)
+
+    times = dict(ms=time_ms(bounded), device_ms=device_ms(torch, bounded),
+                 unpruned_ms=time_ms(unpruned),
+                 unpruned_device_ms=device_ms(torch, unpruned))
+    pairs = walked * K.BOX * 8
+    extra = (index.boxes.box.numel() + index.boxes.norm.numel()) * 4
+    nbytes = (8192 + prep.tT.shape[1]) * 3 * 4 + extra + 8192 * k * 12
+    row = bound_row(nbytes, pairs * (2 * 2 + 3), design="fused",
+                    plain_ms=plain_ms, boxes_walked=walked,
+                    boxes_total=total, **times)
+    log(f"K3 {name} time: bounded {times['ms']:.4f} ms (device "
+        f"{times['device_ms']:.4f}), unpruned {times['unpruned_ms']:.4f} ms "
+        f"(device {times['unpruned_device_ms']:.4f}), plain {plain_ms:.1f} "
+        f"ms once, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+    assert times["device_ms"] < times["unpruned_device_ms"], name
+    return name, row
 
 
 def k3_case(torch, name, prep, k, queries, train_used):
@@ -770,8 +836,11 @@ def k3_case(torch, name, prep, k, queries, train_used):
 
     design = K.knn_design(prep.q.shape[1], k, prep.bins)
     assert design == "fused", f"{name} takes the {design} design"
+    if prep.boxes is not None:
+        prep.boxes.counts.zero_()
     ik, dk = K.knn_select(prep, k)
     torch.cuda.synchronize()
+    walked = None if prep.boxes is None else int(prep.boxes.counts[1])
     ip, dp = K.knn_select_plain(prep, k)
     # the fused design selects exactly the k smallest keys, in ascending
     # order: the distances are the plain version's bits; equal keys may
@@ -809,16 +878,20 @@ def k3_case(torch, name, prep, k, queries, train_used):
     )
     plain_ms = time_ms(lambda: K.knn_select_plain(prep, k), reps=3,
                        trials=3)
-    q_real = queries if "subsample" not in name else prep.q
     library_ms = time_ms(
-        lambda: torch.topk(torch.cdist(q_real, train_used), k, dim=1,
+        lambda: torch.topk(torch.cdist(queries, train_used), k, dim=1,
                            largest=False),
         reps=3, trials=3,
     )
     q_count, feat = prep.q.shape
     t_count = prep.tT.shape[1]
-    if prep.lb is None:
-        pairs, extra = q_count * t_count, 0
+    extra = 0
+    if walked is not None:
+        # the boxes the bounded route's blocks walked, 8 queries each
+        pairs = walked * K.BOX * 8
+        extra = (prep.boxes.box.numel() + prep.boxes.norm.numel()) * 4
+    elif prep.lb is None:
+        pairs = q_count * t_count
     else:
         run = (prep.lb <= prep.ub[:, None]).sum().item()
         pairs = run * prep.query_tile * prep.train_tile
@@ -3013,9 +3086,8 @@ def phase_fast_mean(torch, card, trained, train, y_train, nbrs, requests,
     torch.cuda.synchronize()
     launches = dict(_build.launches)
     assert launches["knn_candidates_pruned"] > 0
-    assert launches["knn_candidates"] > 0
-    assert (launches["knn_candidates/fused"]
-            == launches["knn_candidates_pruned"] + launches["knn_candidates"])
+    assert launches["knn_candidates"] == 0  # the bounded route: no subsample
+    assert launches["knn_candidates/fused"] == launches["knn_candidates_pruned"]
     mean = np.concatenate(means)
     assert coeffs.shape == (TRAIN, NN) and coeffs.dtype == torch.float32
     assert mean.shape == (sum(len(r) for r in requests),)
@@ -3160,7 +3232,7 @@ def phase_fast_mean(torch, card, trained, train, y_train, nbrs, requests,
     assert np.isfinite(m32.cpu().numpy()).all()
 
     # (g) K3p at the precompute's shape: every training point a query
-    prep = K.prepare_pruned(train_sorted, train_d, NN + 1 + 32, bins=1024)
+    prep = K.prepare_bounded(train_sorted, train_d, NN + 1 + 32, bins=1024)
     row = k3_case(torch, "knn_candidates_pruned[fast_mean]", prep,
                   NN + 1 + 32, train_d, train_sorted)
     return out, launches, row
@@ -4193,7 +4265,7 @@ def phase_headline(torch, card, rows):
     phases 3/4's device ms); each kernel loop of the headline harness, one
     captured replay against one eager call on the same inputs; the
     pipeline harness once with a profiler trace.  Returns (numbers, the
-    launches of bench_torch.py's run)."""
+    launches of bench_torch.py's run and of the loops' replays)."""
     import contextlib
     import functools
     import io
@@ -4257,6 +4329,10 @@ def phase_headline(torch, card, rows):
             name, program.launches)
         checks[name] = dict(value=float(eager), launches=program.launches,
                             capture_ms=program.capture_ms)
+        # the loops' launches count on the headline path too: knn_loop is
+        # where the unpruned fused K3 runs inside a graph
+        for counter, count in program.launches.items():
+            launches[counter] = launches.get(counter, 0) + count
         del program, inputs
     log("phase 20 headline loops, one captured replay equal to one eager "
         "call: " + json.dumps(checks))
@@ -4350,6 +4426,8 @@ def main() -> int:
         torch, train_sorted, torch.as_tensor(queries[:QUERIES], device="cuda"),
         cand_count,
     ))
+    # ... and at the serving cells' shape, the bulk and fast-mean buckets'
+    rows.update(phase_k3_1m(torch, k) for k in (cand_count, 9))
 
     # 5. serving end to end
     model = muygps_from_arrays(
@@ -4438,7 +4516,7 @@ def main() -> int:
         e2e[engine]["trace"] = captured[engine]["trace"]
     fused_launches = launches_by_path["fused"]
     assert fused_launches["fused_predict_coords"] > 0
-    assert fused_launches["knn_candidates"] > 0
+    assert fused_launches["knn_candidates"] == 0  # no subsample search
     assert fused_launches["knn_candidates_pruned"] > 0
     # the fused path goes through the new designs, and only through them
     assert (fused_launches["knn_candidates/fused"]
@@ -4762,16 +4840,12 @@ def main() -> int:
             "muygpys_torch/gpu/csrc/fused_predict.cu",
             "muygpys_tpu/pallas/fused_predict.py:373", "fused",
         ),
-        # K3 unpruned at 8192 x 51,200 and at the main path's own shape
-        # (the 1/16 subsample inside the pruned search), both counted on
-        # the fused path; K3 pruned there and at NN_Wrapper's 1024 bins
+        # K3 unpruned at 8192 x 51,200 (the headline harness's loop); K3
+        # pruned (the bounded route) there, on the fused path, and at
+        # NN_Wrapper's 1024 bins
         "knn_candidates": (
             "muygpys_torch/gpu/csrc/knn.cu", "muygpys_tpu/pallas/knn.py:217",
-            "fused",
-        ),
-        "knn_candidates[subsample]": (
-            "muygpys_torch/gpu/csrc/knn.cu", "muygpys_tpu/pallas/knn.py:217",
-            "fused",
+            "headline",
         ),
         "knn_candidates_pruned": (
             "muygpys_torch/gpu/csrc/knn.cu", "muygpys_tpu/pallas/knn.py:451",
@@ -4780,6 +4854,16 @@ def main() -> int:
         "knn_candidates_pruned[bins1024]": (
             "muygpys_torch/gpu/csrc/knn.cu", "muygpys_tpu/pallas/knn.py:451",
             "nn_kernel",
+        ),
+        # K3 pruned at the serving cells' shape (8192 x 10^6), counted on
+        # the fused path
+        "knn_candidates_pruned[1m,k38]": (
+            "muygpys_torch/gpu/csrc/knn.cu", "muygpys_tpu/pallas/knn.py:451",
+            "fused",
+        ),
+        "knn_candidates_pruned[1m,k9]": (
+            "muygpys_torch/gpu/csrc/knn.cu", "muygpys_tpu/pallas/knn.py:451",
+            "fused",
         ),
         # K3 pruned on the fast posterior mean's path: get_batch_nns over
         # every training point (the row's shape) and the requests' get_nns
@@ -5112,16 +5196,25 @@ def sharded_rank(rank, world, port, backend, payload_path, out_path):
     s1m = FastServer(model, NN_Wrapper(x1m[:nn + 1], nn, device=device),
                      x1m, y1m, bucket=q_1m, engine="fused", mesh=mesh,
                      shard="train", device=device)
+    # the shard's boxes on the grid the whole table was sorted on: their
+    # first codes rise with the rows, as the home search needs
+    index = s1m._search_index
+    if index is not None and index.boxes is not None:
+        first = index.boxes.first
+        assert bool((torch.diff(first) >= 0).all()), "shard boxes' codes"
     m1m, v1m = s1m.predict(q1m)
     assert np.isfinite(m1m).all() and np.isfinite(v1m).all()
     sync(torch, dev)
+    before = s1m.search_stats()
     t0 = time.perf_counter()
     for _ in range(5):
         s1m.predict(q1m)
     dt = (time.perf_counter() - t0) / 5
-    numbers["serve_1m"] = dict(rows=rows_1m, queries=q_1m, mode=s1m.mode,
-                               request_seconds=dt,
-                               preds_per_sec=q_1m / dt)
+    after = s1m.search_stats()
+    numbers["serve_1m"] = dict(
+        rows=rows_1m, queries=q_1m, mode=s1m.mode, request_seconds=dt,
+        preds_per_sec=q_1m / dt,
+        **{k: after[k] - before[k] for k in after})
     numbers["paths"] = paths
     np.savez(out_path, numbers=json.dumps(numbers), **arrays)
     dist.barrier()
@@ -5270,7 +5363,9 @@ def phase_sharded(torch, payload, judge, ref, exact_sets, bench, dev="cuda",
             f"{one_m['queries']} queries ({one_m['mode']}): "
             f"{one_m['preds_per_sec']:.1f} preds/s (reporting only; phase "
             f"20's single-card 1M end to end: "
-            f"{bench.get('end_to_end_preds_per_sec_1m')} preds/s)")
+            f"{bench.get('end_to_end_preds_per_sec_1m')} preds/s); rank 0's "
+            f"shard walked {one_m['boxes_scored']} of "
+            f"{one_m['boxes_total']} boxes")
         for res in results:
             for path, counts in res["paths"].items():
                 for k, v in counts.items():
@@ -5284,7 +5379,7 @@ def phase_sharded(torch, payload, judge, ref, exact_sets, bench, dev="cuda",
         )
     # the CPU rehearsal runs the plain versions, which count no launch
     for path, counters in () if dev != "cuda" else (
-            ("mesh_queries", ("fused_predict_coords", "knn_candidates",
+            ("mesh_queries", ("fused_predict_coords",
                               "knn_candidates_pruned")),
             ("mesh_train", ("fused_predict_coords",
                             "knn_candidates_pruned")),

@@ -1,22 +1,17 @@
 #!/usr/bin/env python3
-"""Design variants of K3, K1 and K1b timed against the kernels as shipped, on
-one NVIDIA GPU: the measurements behind the design choices of the fused K3
-and the register K1 and K1b designs, and a split of each kernel's time.
+"""Design variants of K1 and K1b timed against the kernels as shipped, on
+one NVIDIA GPU: the measurements behind the design choices of the register
+K1 and K1b designs, and a split of each kernel's time.
 
     python3 chip_variants.py
 
 Each variant is a shipped source (``muygpys_torch/gpu/csrc``) with one part
 replaced by text substitution (each asserted to apply), built by nvcc with
 the shipped flags under ``build/muygpys_torch/variants/`` and called through
-the same C entry point on the same inputs as the shipped library.  The two
+the same C entry point on the same inputs as the shipped library.  The
 design variants must give the shipped results bit for bit; the diagnostic
 ones compute something else and are timed only.
 
-- K3 ``staged``: each live train tile staged in shared memory by
-  double-buffered ``cp.async`` (one block-wide load serving the block's
-  threads) instead of each thread reading its columns from L2;
-- K3 ``walk only`` (diagnostic): the walk, its keys stored to shared memory,
-  no selection: the selection's share of the kernel;
 - K1 ``whole row``: each lane evaluates its whole row of K instead of the
   lower triangle spread over the lanes and mirrored;
 - K1 ``2 blocks``: the f32 one-target instantiation compiled for 2 resident
@@ -35,13 +30,11 @@ ones compute something else and are timed only.
 - K1b ``loads only`` (diagnostic): the loads and the outputs, no kernel
   values and no elimination.
 
-Shapes: chip_smoke.py's fused headline (50,000 uniform Morton-sorted 2-D
-points, 8192 queries, 38 candidates at 512 bins; its subsample, pruned and
-1024-bin searches), K1 at n = 30, d = 2, r = 1, B = 8192 (f32 and f64,
-Matern 3/2 and nu = 1.2), and K1b at the same shape from the distances of
-such neighbourhoods.  Each comparison is timed by chip_smoke.device_ms
-in the order shipped, variant, variant, shipped.  Prints the card's name and
-power limit and one line per comparison.
+Shapes: K1 at chip_smoke.py's serving headline, n = 30, d = 2, r = 1, B =
+8192 (f32 and f64, Matern 3/2 and nu = 1.2), and K1b at the same shape from
+the distances of such neighbourhoods.  Each comparison is timed by
+chip_smoke.device_ms in the order shipped, variant, variant, shipped.
+Prints the card's name and power limit and one line per comparison.
 """
 
 from __future__ import annotations
@@ -53,81 +46,9 @@ import sys
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-STAGED_WALK = """  float* stage = reinterpret_cast<float*>(smem_raw);  // [2][FEAT + 1][train_tile]
-  const int tile_elems = (FEAT + 1) * train_tile;
-  auto next_live = [&](int j) {
-    for (++j; j < nt; ++j)
-      if (lb == nullptr || !(lb[(size_t)qtile * nt + j] > ub[qtile])) break;
-    return j;
-  };
-  auto load = [&](int j, float* buf) {
-    const int vecs = train_tile / 4;
-    for (int e = tid; e < (FEAT + 1) * vecs; e += kThreads) {
-      const int f = e / vecs, v = 4 * (e % vecs);
-      const size_t col = (size_t)j * train_tile + v;
-      const float* src = f < FEAT ? tT + (size_t)f * t_count + col : tsq + col;
-      __pipeline_memcpy_async(buf + f * train_tile + v, src, 16);
-    }
-  };
-  int j = next_live(-1), cur = 0;
-  if (j < nt) load(j, stage);
-  __pipeline_commit();
-  while (j < nt) {
-    const int jn = next_live(j);
-    if (jn < nt) load(jn, stage + (cur ^ 1) * tile_elems);
-    __pipeline_commit();
-    __pipeline_wait_prior(1);
-    __syncthreads();
-    const float* ts = stage + cur * tile_elems;
-    for (int g = 0; g < cpt; ++g) {
-      const int chunk = j * cpt + g;
-#pragma unroll
-      for (int b = 0; b < BPT; ++b) {
-        const int col = g * BINS + b * kThreads + tid;
-        float tf[FEAT];
-#pragma unroll
-        for (int f = 0; f < FEAT; ++f) tf[f] = ts[f * train_tile + col];
-        const float tn = ts[FEAT * train_tile + col];
-"""
-
-STAGED_TAIL = """    __syncthreads();
-    j = jn;
-    cur ^= 1;
-  }
-  __pipeline_wait_prior(0);
-  __syncthreads();
-
-  // keys of query t"""
-
-
 def replaced(text: str, old: str, new: str) -> str:
     assert text.count(old) == 1, f"variant anchor not found once: {old[:60]!r}"
     return text.replace(old, new)
-
-
-def knn_variants(src: str) -> dict:
-    """The K3 variants' sources, by name."""
-    walk_start = src.index("  for (int j = 0; j < nt; ++j) {\n    if (lb != nullptr",
-                           src.index("knn_select_kernel("))
-    body_start = src.index("#pragma unroll\n        for (int t = 0; t < kTQ; ++t) {\n"
-                           "          float dot", walk_start)
-    staged = src[:walk_start] + STAGED_WALK + src[body_start:]
-    staged = replaced(staged, "    }\n  }\n\n  // keys of query t", "    }\n" + STAGED_TAIL)
-    staged = replaced(staged, "#include <cuda_runtime.h>\n",
-                      "#include <cuda_pipeline.h>\n#include <cuda_runtime.h>\n")
-    staged = replaced(
-        staged, "  const size_t bytes = select_smem_bytes(BPT * kThreads);",
-        "  const size_t staged = sizeof(float) * 2 * (FEAT + 1) * (size_t)train_tile;\n"
-        "  const size_t select = select_smem_bytes(BPT * kThreads);\n"
-        "  const size_t bytes = staged > select ? staged : select;")
-    sel_start = src.index("  const int warp = tid / 32, lane = tid % 32;\n  const unsigned full")
-    sel_end = src.index("    out_d2[row + rank] = d2;\n  }\n", sel_start)
-    sel_end += len("    out_d2[row + rank] = d2;\n  }\n")
-    walk_only = (src[:sel_start]
-                 + "  if (tid < kTQ) out_d2[(size_t)(q0 + tid) * k] = "
-                   "__int_as_float(keys[tid * 2 * BINS + (k & (BINS - 1))]);\n"
-                 + src[sel_end:])
-    return {"staged": staged, "walk only": walk_only}
 
 
 EMIT_ONLY = """  const bool live = lane < n;
@@ -219,7 +140,6 @@ def main() -> int:
     import chip_smoke as cs
     from muygpys_torch.gpu import _build
     from muygpys_torch.gpu import fused_predict as F
-    from muygpys_torch.gpu import knn as K
     from muygpys_torch.gpu import matern_nu as _nu
 
     card = subprocess.run(
@@ -232,8 +152,6 @@ def main() -> int:
     out = _build.BUILD_DIR / "variants"
     out.mkdir(parents=True, exist_ok=True)
     sources = {}
-    for name, text in knn_variants((_build.CSRC / "knn.cu").read_text()).items():
-        sources[("knn", name)] = text
     for name, text in k1_variants(
             (_build.CSRC / "fused_predict.cu").read_text()).items():
         sources[("fused_predict", name)] = text
@@ -266,45 +184,8 @@ def main() -> int:
             print(f"{label}: shipped {times[0]:.4f} {times[3]:.4f} ms, {name} "
                   f"{times[1]:.4f} {times[2]:.4f} ms (device)", flush=True)
 
-    # K3 at the fused path's shapes
-    g = torch.Generator(device="cuda").manual_seed(1)
-    train = torch.rand((cs.TRAIN, cs.D), device="cuda", generator=g)
-    train = train[K.spatial_sort(train)].contiguous()
-    queries = torch.rand((cs.QUERIES, cs.D), device="cuda", generator=g)
-    index = K.build_index(train, pruned=True)
-    pruned = K.prepare_pruned(None, queries, cs.NN + 8, train_index=index)
-    cases = (
-        ("unpruned", K.prepare(train, queries, cs.NN + 8), cs.NN + 8),
-        ("subsample", K.prepare(None, pruned.q, cs.NN + 8,
-                                train_index=index.sub), cs.NN + 8),
-        ("pruned", pruned, cs.NN + 8),
-        ("pruned 1024 bins", K.prepare_pruned(train, queries, cs.NN + 32,
-                                              bins=1024), cs.NN + 32),
-    )
-    for label, prep, k in cases:
-        def launcher(lib, prep=prep, k=k):
-            fn = lib.knn_select
-            fn.argtypes = K._SELECT_ARGTYPES
-
-            def run():
-                q_count = prep.q.shape[0]
-                idx = torch.zeros((q_count, k), dtype=torch.int64, device="cuda")
-                d2 = torch.zeros((q_count, k), dtype=torch.float32, device="cuda")
-                rc = fn(*(_build.ptr(t) for t in prep[:6]), _build.ptr(idx),
-                        _build.ptr(d2), q_count, prep.q.shape[1],
-                        prep.tT.shape[1], prep.bins, prep.train_tile,
-                        prep.query_tile, prep.chunk_mask, k, prep.train_count,
-                        _build.stream(prep.q.device))
-                assert rc == 0, f"variant launch failed: {rc}"
-                return idx, d2
-
-            return run
-
-        compare(f"K3 {label}", lambda prep=prep, k=k: K.knn_select(prep, k),
-                {n: launcher(libs[("knn", n)]) for n in ("staged", "walk only")},
-                exact={"staged"})
-
     # K1 at the serving headline
+    g = torch.Generator(device="cuda").manual_seed(1)
     for dtype in (torch.float32, torch.float64):
         for nu in (1.5, "gen"):
             n, d, r, B = cs.NN, cs.D, 1, cs.QUERIES

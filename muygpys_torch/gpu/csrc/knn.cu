@@ -1,33 +1,42 @@
 // K3: packed-key KNN candidate kernel, hand-written for Hopper.
 //
 // Replaces muygpys_tpu/pallas/knn.py:knn_pallas (_knn_body, _knn_tile_update)
-// and, with a skip table, knn_pallas_pruned (_knn_body_pruned).  The contract
-// is kept bit for bit:
+// and knn_pallas_pruned (_knn_body_pruned).  The contract is kept bit for
+// bit:
 //   d(q, col) = max((|q|^2 + |t|^2) - 2 (q . t), 0) in f32 (each product and
 //   sum rounded on its own: no fused multiply-add, so the plain PyTorch
 //   mirror in muygpys_torch/gpu/knn.py gives the same bits);
 //   key = (bits(d) & ~chunk_mask) | chunk, chunk = col / bins;
 //   per query and residue bin col % bins, the two smallest keys are kept
 //   with integer min / max (start: sentinel 0x7F000000).
-// Pruned variant: train tile j is skipped for query tile i when
-// lb[i, j] > ub[i] (the same conservative test as the TPU kernel).
+// Pruned, one way a design:
+//   - the keys design (and the CPU's plain version) takes the skip table,
+//     as the TPU kernel: train tile j is skipped for query tile i when
+//     lb[i, j] > ub[i], ub from the unpruned search over a 1/16 row
+//     subsample;
+//   - the fused design takes the bounded route (knn_bounded_kernel): each
+//     block of 8 queries bounds itself (below), and its candidates are
+//     bit-equal to the unpruned fused kernel's (knn_select_kernel, which
+//     takes no table).
 //
 // What bounds it on an H100: per (query, train column) it does 2 d + 2
 // float operations and ~5 integer operations; the train set (50k x 2 f32 =
-// 400 KB) stays in L2.  So it is bound by operations: ~4e8 distance
-// evaluations per unpruned 8192-query bucket at 50k points.
+// 400 KB) stays in L2.  So the unpruned search is bound by operations: ~4e8
+// distance evaluations per 8192-query bucket at 50k points.  Pruned, the
+// data sets the work (~14 boxes of 256 columns a block of 8 queries on a
+// uniform 10^6-point sky), and the fixed costs of a block (its selections,
+// the pass over the boxes) weigh as much as the walk.
 //
-// Two designs, one __global__ each, both variants in each; the launcher's
-// caller picks (muygpys_torch/gpu/knn.py:knn_design).
+// Two designs, one __global__ each, and the fused design's bounded route a
+// third; the launcher's caller picks (muygpys_torch/gpu/knn.py:knn_design).
 //
 // The fused design (knn_select_kernel, feat <= 4, k <= 64, bins in {256,
 // 512, 1024}) also merges each query's 2 bins surviving keys (the keys
 // design leaves that to torch.topk in the glue), and writes only the result:
 // idx int64 and d2 f32 (Q, k), 12 bytes a slot, in place of the 2 x Q x
 // bins int32 key state (33.5 MB at Q = 8192, 512 bins) and its read-back.
-//   - A block owns 8 queries (one query tile holds them, so the skip test
-//     stays uniform) and ALL their bins: thread t owns bins t + 256 i,
-//     i < bins / 256.  feat and bins are template arguments, so each
+//   - A block owns 8 queries and ALL their bins: thread t owns bins
+//     t + 256 i, i < bins / 256.  feat and bins are template arguments, so each
 //     thread keeps its queries' coordinates and norms and its bins' two
 //     keys in registers for the whole walk.
 //   - Each column's coordinates and norm are read once a thread, through
@@ -35,8 +44,8 @@
 //     serve the thread's 8 queries (the keys design re-reads each query's
 //     coordinates and norm from shared memory per pair).  Staging each
 //     train tile in shared memory by double-buffered cp.async instead
-//     measured 13-45% slower on an H100 at every main-path shape
-//     (chip_variants.py), so the walk reads L2 directly.
+//     measured 13-45% slower on an H100 at every main-path shape, so the
+//     walk reads L2 directly.
 //   - Selection, exact: after the walk the block writes its keys to shared
 //     memory and warp w takes query w: its lanes hold the 2 bins keys in
 //     registers, a 31-pass radix select over the key bits (non-negative
@@ -52,6 +61,70 @@
 //   - Decode as _merge_decode: index = chunk * bins + position % bins,
 //     clamped to train_count - 1; a distance >= 1e29 (sentinel or padded
 //     column) becomes +inf.
+//
+// The bounded route (knn_bounded_kernel): the walk, keys, selection and
+// decode of the fused design, over boxes of kThreads columns: box j is one
+// block-wide step of the walk (chunk j / BPT, the threads' bins
+// (j % BPT) kThreads + tid) of the Morton-sorted train set, with its
+// bounding box and its real columns' largest norm (knn.py:build_index).
+// A block owns 8 Morton-consecutive queries:
+//   1. Home: warp w finds the box holding query w's Morton code on the
+//      index's grid (32 probes a step, as csrc/knn_exact.cu does), and the
+//      block walks these boxes, each once.
+//   2. tau: warp w runs the selection's top radix passes (bits 30 down to
+//      kSplit) over query w's kept keys: v, the top bits of its k-th
+//      smallest kept key; tau_w = __int_as_float(v | (2^kSplit - 1)), the
+//      largest distance such a key can stand for (the chunk bits lie below
+//      kSplit).  A walk only lowers each bin's two kept keys, so the k-th
+//      smallest kept key never rises: tau_w bounds query w's final k-th key
+//      from above.
+//   3. The skip: each thread tests a strided share of the other boxes,
+//      first against the block's query box and the largest tau, then
+//      against each query and its own tau; a box that no query may reach is
+//      skipped.  Survivors are compacted into a shared-memory list by
+//      ballot (the list takes the place of the keys, already read), and the
+//      block walks the list whenever it could overflow, and at the end.
+//   4. The fused design's selection and decode.  Each block adds the
+//      index's boxes and the boxes it walked to a device counter (two
+//      atomics a block).
+// On a uniform 10^6-point sky with 8192 uniform queries a block walks ~14
+// of 3,912 boxes.
+//
+// Exactness.  Let K be a query's k-th smallest kept key after the bounded
+// walk.  If every skipped column's key exceeds K, then in every bin the
+// kept keys <= K are the same keys, in the same slots, as after the
+// unpruned walk (a bin's keys <= K come from the same columns in both), and
+// every other kept key exceeds K in both; there are at least k of them, so
+// the selection takes the same k (key, position) pairs in both: the
+// candidates are bit-equal to knn_select_kernel's.  A box is
+// skipped only when, for every query of the block, each of its columns has
+// a computed distance d > tau (shown below); then bits(d) > bits(tau) =
+// v | (2^kSplit - 1) >= K_home | chunk_mask, so the key exceeds K_home, the
+// k-th smallest kept key after the home walk, which is >= K.  Padded columns
+// (norm 1e30) have d ~ 1e30 > tau whenever a box is skipped (tau < lb, and
+// squared coordinates stay far below 1e29, as the sentinel scheme assumes).
+//
+// Allowance.  With u = 2^-24, gamma = F u / (1 - F u) (F features), the
+// exact Q = |q|^2, T = |t|^2, D = |q - t|^2, and the glue's norms qn, tn
+// (rounded squares summed, any order) and the kernel's dot (rounded products
+// summed in feature order): qn = Q (1 + a), tn = T (1 + b), |a|, |b| <= gamma;
+// dot = q . t + e, |e| <= gamma sum |q_f t_f| <= gamma (Q + T) / 2.  So
+// rn(qn + tn) - 2 dot lies within (2 gamma + u (1 + gamma)) (Q + T) of D, and
+// after the last rounding and max(., 0)
+//   d >= (1 - u) D - (1 + u)(2 gamma + u (1 + gamma)) (Q + T)
+//     >= (1 - u) D - A,   A = (2 F + 2) u (qn + tn_box) + 2^-120,
+// since Q + T <= (qn + tn_box) / (1 - gamma) and (1 + u)(2 gamma + u (1 +
+// gamma)) / (1 - gamma) < (2 F + 2) u for F <= 4; tn_box is the box's largest
+// norm, and 2^-120 covers the absolute rounding of subnormal products.  The
+// box's bound lb = sum_f g_f^2, g_f = max(lo_f - q_f, q_f - hi_f, 0) (for the
+// query box, its corners in place of q), is <= D for every column of the
+// box; computed in double its relative error is < 2^-50.  A box is skipped
+// when lb > (tau + A) (1 + 2^-20) in double: then
+//   (1 - u) D - A >= (1 - u)(1 - 2^-50) lb - A > tau,
+// the margin 2^-20 absorbing the test's own double rounding.  So d > tau
+// for every column of a skipped box, as the exactness argument needs.
+// (tests/test_torch_cuda_emulation_knn_bounded.py holds a column at this
+// edge: its d lies under tau while its box's exact bound lies over it.)
 //
 // The keys design (knn_candidates_kernel, kept for the shapes the fused
 // design does not take): the TPU held each query tile's state in a VMEM
@@ -135,6 +208,7 @@ __global__ void knn_candidates_kernel(
 constexpr int kThreads = 256;  // threads a block: 8 warps, one per query
 constexpr int kMaxK = 64;      // the most neighbours the selection returns
 constexpr int kSplit = 20;     // the radix select's low bits, counted on the bucket
+constexpr unsigned kFull = 0xffffffffu;
 static_assert(kThreads / 32 == kTQ, "one warp per query in the selection");
 
 // shared memory of one block: the keys of its queries, then each warp's
@@ -143,71 +217,60 @@ __host__ __device__ inline size_t select_smem_bytes(int bins) {
   return sizeof(int) * (size_t)kTQ * 2 * bins + sizeof(int2) * kTQ * kMaxK;
 }
 
+// One step of the walk: column col (of chunk `chunk`, the thread's bin
+// b kThreads + tid) scored against the block's queries into each query's two
+// smallest keys of that bin.
 template <int FEAT, int BPT>
-__global__ void __launch_bounds__(kThreads) knn_select_kernel(
-    const float* __restrict__ q,    // (Q_pad, FEAT)
-    const float* __restrict__ qsq,  // (Q_pad,)
-    const float* __restrict__ tT,   // (FEAT, T_pad)
-    const float* __restrict__ tsq,  // (T_pad,) padded columns hold 1e30
-    const float* __restrict__ lb,   // (nq, nt) or null
-    const float* __restrict__ ub,   // (nq,) or null
-    long long* __restrict__ out_idx, float* __restrict__ out_d2,  // (Q_pad, k)
-    int t_count, int train_tile, int query_tile, int chunk_mask, int k,
-    int train_count) {
-  constexpr int BINS = BPT * kThreads;
-  constexpr int KPL = 2 * BINS / 32;  // keys a lane holds in the selection
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * kTQ;
+__device__ __forceinline__ void score_column(const float (&qc)[kTQ][FEAT], const float (&qn)[kTQ],
+                                             int (&k1)[kTQ][BPT], int (&k2)[kTQ][BPT], int b,
+                                             const float* __restrict__ tT,
+                                             const float* __restrict__ tsq, size_t t_count,
+                                             int col, int chunk, int chunk_mask) {
+  float tf[FEAT];
+#pragma unroll
+  for (int f = 0; f < FEAT; ++f) tf[f] = __ldg(tT + f * t_count + col);
+  const float tn = __ldg(tsq + col);
+#pragma unroll
+  for (int t = 0; t < kTQ; ++t) {
+    float dot = __fmul_rn(qc[t][0], tf[0]);
+#pragma unroll
+    for (int f = 1; f < FEAT; ++f) dot = __fadd_rn(dot, __fmul_rn(qc[t][f], tf[f]));
+    const float dist = fmaxf(__fsub_rn(__fadd_rn(qn[t], tn), __fmul_rn(2.0f, dot)), 0.0f);
+    const int key = (__float_as_int(dist) & ~chunk_mask) | chunk;
+    const int lo = min(key, k1[t][b]);
+    k2[t][b] = min(max(key, k1[t][b]), k2[t][b]);
+    k1[t][b] = lo;
+  }
+}
 
-  float qc[kTQ][FEAT], qn[kTQ];
+// The block's queries (rows q0 .. q0 + kTQ) and norms into registers, and
+// every kept key at the sentinel.
+template <int FEAT, int BPT>
+__device__ __forceinline__ void start_block(const float* __restrict__ q,
+                                            const float* __restrict__ qsq, int q0,
+                                            float (&qc)[kTQ][FEAT], float (&qn)[kTQ],
+                                            int (&k1)[kTQ][BPT], int (&k2)[kTQ][BPT]) {
 #pragma unroll
   for (int t = 0; t < kTQ; ++t) {
 #pragma unroll
     for (int f = 0; f < FEAT; ++f) qc[t][f] = q[(size_t)(q0 + t) * FEAT + f];
     qn[t] = qsq[q0 + t];
   }
-  int k1[kTQ][BPT], k2[kTQ][BPT];
 #pragma unroll
   for (int t = 0; t < kTQ; ++t)
 #pragma unroll
     for (int b = 0; b < BPT; ++b) k1[t][b] = k2[t][b] = kSentinel;
+}
 
-  const int nt = t_count / train_tile;
-  const int qtile = q0 / query_tile;
-  const int cpt = train_tile / BINS;  // chunks a tile
-  for (int j = 0; j < nt; ++j) {
-    if (lb != nullptr && lb[(size_t)qtile * nt + j] > ub[qtile]) continue;
-    const float* tj = tT + (size_t)j * train_tile;
-    const float* sj = tsq + (size_t)j * train_tile;
-    for (int g = 0; g < cpt; ++g) {
-      const int chunk = j * cpt + g;
-#pragma unroll
-      for (int b = 0; b < BPT; ++b) {
-        const int col = g * BINS + b * kThreads + tid;
-        float tf[FEAT];
-#pragma unroll
-        for (int f = 0; f < FEAT; ++f) tf[f] = __ldg(tj + (size_t)f * t_count + col);
-        const float tn = __ldg(sj + col);
-#pragma unroll
-        for (int t = 0; t < kTQ; ++t) {
-          float dot = __fmul_rn(qc[t][0], tf[0]);
-#pragma unroll
-          for (int f = 1; f < FEAT; ++f) dot = __fadd_rn(dot, __fmul_rn(qc[t][f], tf[f]));
-          const float dist =
-              fmaxf(__fsub_rn(__fadd_rn(qn[t], tn), __fmul_rn(2.0f, dot)), 0.0f);
-          const int key = (__float_as_int(dist) & ~chunk_mask) | chunk;
-          const int lo = min(key, k1[t][b]);
-          k2[t][b] = min(max(key, k1[t][b]), k2[t][b]);
-          k1[t][b] = lo;
-        }
-      }
-    }
-  }
-
-  // keys of query t: [s1 of bins 0..BINS) | s2 of bins 0..BINS), the
-  // order of the glue's torch.cat([s1, s2]), so position % BINS is the bin
-  int* keys = reinterpret_cast<int*>(smem_raw);
+// Every thread's keys to shared memory, then warp w's lanes load query w's:
+// [s1 of bins 0..BINS) | s2 of bins 0..BINS), the order of the glue's
+// torch.cat([s1, s2]), so position % BINS is the bin.  Ends with the keys
+// in `key`; the block's row of `keys` stays as written.
+template <int BPT>
+__device__ __forceinline__ void gather_keys(int* keys, const int (&k1)[kTQ][BPT],
+                                            const int (&k2)[kTQ][BPT], int tid,
+                                            int (&key)[2 * BPT * kThreads / 32]) {
+  constexpr int BINS = BPT * kThreads;
 #pragma unroll
   for (int t = 0; t < kTQ; ++t)
 #pragma unroll
@@ -216,39 +279,60 @@ __global__ void __launch_bounds__(kThreads) knn_select_kernel(
       keys[t * 2 * BINS + BINS + b * kThreads + tid] = k2[t][b];
     }
   __syncthreads();
-
   const int warp = tid / 32, lane = tid % 32;
-  const unsigned full = 0xffffffffu, below = (1u << lane) - 1u;
-  int key[KPL];
 #pragma unroll
-  for (int i = 0; i < KPL; ++i) key[i] = keys[warp * 2 * BINS + i * 32 + lane];
+  for (int i = 0; i < 2 * BPT * kThreads / 32; ++i) key[i] = keys[warp * 2 * BINS + i * 32 + lane];
+}
 
-  // radix select: v = the k-th smallest key, built from the top bit down
-  // (bit 31 is 0 in every key); count(keys <= v) >= k > count(keys < v).
-  // The bits down to kSplit count every key in registers; the keys that
-  // share those bits with v (few: a bucket 2^-3 of v's size wide) are then
-  // compacted into the warp's own row of `keys`, and the low bits count
-  // only them against k less the keys below the bucket
+// The top bits (30 down to kSplit) of the k-th smallest of the warp's keys
+// (bit 31 is 0 in every key); count(keys <= v | (2^kSplit - 1)) >= k >
+// count(keys < v).
+template <int KPL>
+__device__ __forceinline__ int radix_top(const int (&key)[KPL], int k) {
   int v = 0;
   for (int bit = 30; bit >= kSplit; --bit) {
     const int cand = v | ((1 << bit) - 1);
     int c = 0;
 #pragma unroll
     for (int i = 0; i < KPL; ++i) c += key[i] <= cand;
-    if (__reduce_add_sync(full, c) < k) v |= 1 << bit;
+    if (__reduce_add_sync(kFull, c) < k) v |= 1 << bit;
   }
+  return v;
+}
+
+// The selection and decode of every query of the block, after its walk:
+// warp w writes query w's k candidates to rows q0 + w of out_idx, out_d2.
+template <int BPT>
+__device__ __forceinline__ void select_and_write(int* keys, const int (&k1)[kTQ][BPT],
+                                                 const int (&k2)[kTQ][BPT], int tid, int q0,
+                                                 long long* __restrict__ out_idx,
+                                                 float* __restrict__ out_d2, int chunk_mask,
+                                                 int k, int train_count) {
+  constexpr int BINS = BPT * kThreads;
+  constexpr int KPL = 2 * BINS / 32;  // keys a lane holds in the selection
+  const int warp = tid / 32, lane = tid % 32;
+  const unsigned below = (1u << lane) - 1u;
+  int key[KPL];
+  gather_keys<BPT>(keys, k1, k2, tid, key);
+
+  // radix select: v = the k-th smallest key, built from the top bit down.
+  // The bits down to kSplit count every key in registers; the keys that
+  // share those bits with v (few: a bucket 2^-3 of v's size wide) are then
+  // compacted into the warp's own row of `keys`, and the low bits count
+  // only them against k less the keys below the bucket
+  int v = radix_top<KPL>(key, k);
   const int lo = v, hi = v | ((1 << kSplit) - 1);
   int under = 0;
 #pragma unroll
   for (int i = 0; i < KPL; ++i) under += key[i] < lo;
-  const int k_in = k - __reduce_add_sync(full, under);  // >= 1
+  const int k_in = k - __reduce_add_sync(kFull, under);  // >= 1
   __syncwarp();  // every lane holds its keys: the warp's row is free
   int* bucket = keys + warp * 2 * BINS;
   int m = 0;
 #pragma unroll
   for (int i = 0; i < KPL; ++i) {
     const bool in = key[i] >= lo && key[i] <= hi;
-    const unsigned in_mask = __ballot_sync(full, in);
+    const unsigned in_mask = __ballot_sync(kFull, in);
     if (in) bucket[m + __popc(in_mask & below)] = key[i];
     m += __popc(in_mask);
   }
@@ -257,12 +341,12 @@ __global__ void __launch_bounds__(kThreads) knn_select_kernel(
     const int cand = v | ((1 << bit) - 1);
     int c = 0;
     for (int e = lane; e < m; e += 32) c += bucket[e] <= cand;
-    if (__reduce_add_sync(full, c) < k_in) v |= 1 << bit;
+    if (__reduce_add_sync(kFull, c) < k_in) v |= 1 << bit;
   }
   int lt = 0;
 #pragma unroll
   for (int i = 0; i < KPL; ++i) lt += key[i] < v;
-  int eq_left = k - __reduce_add_sync(full, lt);  // keys equal to v still to take
+  int eq_left = k - __reduce_add_sync(kFull, lt);  // keys equal to v still to take
 
   // compact the k selected (key, position) pairs, in position order
   int2* list = reinterpret_cast<int2*>(keys + kTQ * 2 * BINS) + warp * kMaxK;
@@ -270,9 +354,9 @@ __global__ void __launch_bounds__(kThreads) knn_select_kernel(
 #pragma unroll
   for (int i = 0; i < KPL; ++i) {
     const bool is_eq = key[i] == v;
-    const unsigned eq_mask = __ballot_sync(full, is_eq);
+    const unsigned eq_mask = __ballot_sync(kFull, is_eq);
     const bool take = key[i] < v || (is_eq && __popc(eq_mask & below) < eq_left);
-    const unsigned take_mask = __ballot_sync(full, take);
+    const unsigned take_mask = __ballot_sync(kFull, take);
     if (take) list[taken + __popc(take_mask & below)] = make_int2(key[i], i * 32 + lane);
     taken += __popc(take_mask);
     eq_left -= __popc(eq_mask);
@@ -297,35 +381,300 @@ __global__ void __launch_bounds__(kThreads) knn_select_kernel(
   }
 }
 
+template <int FEAT, int BPT>
+__global__ void __launch_bounds__(kThreads) knn_select_kernel(
+    const float* __restrict__ q,    // (Q_pad, FEAT)
+    const float* __restrict__ qsq,  // (Q_pad,)
+    const float* __restrict__ tT,   // (FEAT, T_pad)
+    const float* __restrict__ tsq,  // (T_pad,) padded columns hold 1e30
+    long long* __restrict__ out_idx, float* __restrict__ out_d2,  // (Q_pad, k)
+    int t_count, int chunk_mask, int k, int train_count) {
+  constexpr int BINS = BPT * kThreads;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * kTQ;
+  float qc[kTQ][FEAT], qn[kTQ];
+  int k1[kTQ][BPT], k2[kTQ][BPT];
+  start_block<FEAT, BPT>(q, qsq, q0, qc, qn, k1, k2);
+  for (int chunk = 0; chunk < t_count / BINS; ++chunk) {
+#pragma unroll
+    for (int b = 0; b < BPT; ++b)
+      score_column<FEAT, BPT>(qc, qn, k1, k2, b, tT, tsq, t_count,
+                              chunk * BINS + b * kThreads + tid, chunk, chunk_mask);
+  }
+  select_and_write<BPT>(reinterpret_cast<int*>(smem_raw), k1, k2, tid, q0, out_idx, out_d2,
+                        chunk_mask, k, train_count);
+}
+
+// ---- the bounded route ---------------------------------------------------
+
+// The index's boxes (muygpys_torch/gpu/knn.py:Boxes), as the kernel reads them.
+struct Boxes {
+  const float* box;             // (2 FEAT, nb): lower corners, then upper
+  const float* norm;            // (nb,) largest norm of the box's real columns
+  const int* first;             // (nb,) Morton code of the box's first row
+  const float* grid;            // (2 FEAT,) the curve's origin, then its scale
+  unsigned long long* counts;   // (2,) boxes of the index, boxes walked; added to
+  int nb, bits;
+};
+
+constexpr double kU = 1.0 / 16777216.0;            // 2^-24
+constexpr double kTiny = 7.52316384526264e-37;     // 2^-120
+constexpr double kMargin = 1.0 + 1.0 / 1048576.0;  // 1 + 2^-20
+
+// Whether every column of a box lies beyond tau for a point (or a box of
+// points) with norm qn: the box's bound lb against tau plus the allowance
+// (header: Allowance).
+template <int FEAT>
+__device__ __forceinline__ bool beyond(const float (&plo)[FEAT], const float (&phi)[FEAT],
+                                       const float (&lo)[FEAT], const float (&hi)[FEAT],
+                                       float tau, float qn, float tn) {
+  double lb = 0.0;
+#pragma unroll
+  for (int f = 0; f < FEAT; ++f) {
+    const double g =
+        fmax(fmax((double)lo[f] - (double)phi[f], (double)plo[f] - (double)hi[f]), 0.0);
+    lb += g * g;
+  }
+  const double allow = (2 * FEAT + 2) * kU * ((double)qn + (double)tn) + kTiny;
+  return lb > ((double)tau + allow) * kMargin;
+}
+
+// Walk box j: the thread's column j kThreads + tid, state slot j % BPT.
+template <int FEAT, int BPT>
+__device__ __forceinline__ void walk_box(const float (&qc)[kTQ][FEAT], const float (&qn)[kTQ],
+                                         int (&k1)[kTQ][BPT], int (&k2)[kTQ][BPT],
+                                         const float* __restrict__ tT,
+                                         const float* __restrict__ tsq, size_t t_count, int j,
+                                         int tid, int chunk_mask) {
+  const int slot = j % BPT;
+#pragma unroll
+  for (int b = 0; b < BPT; ++b)
+    if (b == slot)
+      score_column<FEAT, BPT>(qc, qn, k1, k2, b, tT, tsq, t_count, j * kThreads + tid, j / BPT,
+                              chunk_mask);
+}
+
+// shared memory of one block: the fused design's, then each query's home
+// box and tau, and the box list's length
+__host__ __device__ inline size_t bounded_smem_bytes(int bins) {
+  return select_smem_bytes(bins) + sizeof(int) * (2 * kTQ + 1);
+}
+
+// CAP: the box list's entries (0, the default: the keys' room, kTQ 2 BINS);
+// a smaller list is walked more often inside the loop
+template <int FEAT, int BPT, int CAP = 0>
+__global__ void __launch_bounds__(kThreads) knn_bounded_kernel(
+    const float* __restrict__ q,    // (Q_pad, FEAT), Morton-sorted
+    const float* __restrict__ qsq,  // (Q_pad,)
+    const float* __restrict__ tT,   // (FEAT, T_pad), Morton-sorted
+    const float* __restrict__ tsq,  // (T_pad,) padded columns hold 1e30
+    Boxes boxes, long long* __restrict__ out_idx, float* __restrict__ out_d2,  // (Q_pad, k)
+    int t_count, int chunk_mask, int k, int train_count) {
+  constexpr int BINS = BPT * kThreads;
+  constexpr int KPL = 2 * BINS / 32;
+  constexpr int kCap = CAP ? CAP : kTQ * 2 * BINS;  // the box list, in the keys' place
+  static_assert(kThreads <= kCap && kCap <= kTQ * 2 * BINS, "a round's survivors must fit");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  int* keys = reinterpret_cast<int*>(smem_raw);
+  int* home = reinterpret_cast<int*>(smem_raw + select_smem_bytes(BINS));  // [kTQ]
+  float* taus = reinterpret_cast<float*>(home + kTQ);                      // [kTQ]
+  int* listed = home + 2 * kTQ;                                             // the list's length
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const unsigned below = (1u << lane) - 1u;
+  const int q0 = blockIdx.x * kTQ;
+  const int nb = boxes.nb;
+  float qc[kTQ][FEAT], qn[kTQ];
+  int k1[kTQ][BPT], k2[kTQ][BPT];
+  start_block<FEAT, BPT>(q, qsq, q0, qc, qn, k1, k2);
+
+  // 1. home: the box holding query `warp`'s Morton code, quantised as
+  // _morton_codes quantises the rows: the last box whose first code is <=
+  // the query's (box 0 if none), 32 probes a step
+  {
+    const float top = (float)((1 << boxes.bits) - 1);
+    int code = 0;
+#pragma unroll
+    for (int f = 0; f < FEAT; ++f) {
+      const float x = __ldg(q + (size_t)(q0 + warp) * FEAT + f);
+      const float c = __fmul_rn(__fsub_rn(x, __ldg(boxes.grid + f)), __ldg(boxes.grid + FEAT + f));
+      const int cell = (int)fminf(fmaxf(c, 0.0f), top);
+      for (int b = 0; b < boxes.bits; ++b) code |= ((cell >> b) & 1) << (b * FEAT + f);
+    }
+    int lo = 0, hi = nb;
+    while (hi - lo > 1) {
+      const int step = (hi - lo + 31) / 32;
+      const int p = lo + lane * step;
+      const unsigned under = __ballot_sync(kFull, p < hi && __ldg(boxes.first + p) <= code);
+      if (under == 0) break;
+      lo += (__popc(under) - 1) * step;
+      hi = min(lo + step, hi);
+    }
+    if (lane == 0) home[warp] = lo;
+  }
+  __syncthreads();
+  int walked = 0;
+  for (int t = 0; t < kTQ; ++t) {
+    bool seen = false;
+    for (int u = 0; u < t; ++u) seen |= home[u] == home[t];
+    if (seen) continue;
+    walk_box<FEAT, BPT>(qc, qn, k1, k2, tT, tsq, t_count, home[t], tid, chunk_mask);
+    ++walked;
+  }
+
+  // 2. tau of each query: the top bits of its k-th smallest kept key
+  {
+    int key[KPL];
+    gather_keys<BPT>(keys, k1, k2, tid, key);
+    const int v = radix_top<KPL>(key, k);
+    if (lane == 0) taus[warp] = __int_as_float(v | ((1 << kSplit) - 1));
+  }
+  if (tid == 0) *listed = 0;
+  __syncthreads();  // the keys are read: the box list takes their place
+  float tau[kTQ], qlo[FEAT], qhi[FEAT];
+  float tau_max = 0.0f, qn_max = 0.0f;
+#pragma unroll
+  for (int t = 0; t < kTQ; ++t) {
+    tau[t] = taus[t];
+    tau_max = fmaxf(tau_max, tau[t]);
+    qn_max = fmaxf(qn_max, qn[t]);
+  }
+#pragma unroll
+  for (int f = 0; f < FEAT; ++f) {
+    qlo[f] = qhi[f] = qc[0][f];
+#pragma unroll
+    for (int t = 1; t < kTQ; ++t) {
+      qlo[f] = fminf(qlo[f], qc[t][f]);
+      qhi[f] = fmaxf(qhi[f], qc[t][f]);
+    }
+  }
+
+  // 3. the skip: survivors listed by ballot, the list walked when it could
+  // overflow in the next round, and at the end
+  int* list = keys;
+  for (int base = 0; base < nb; base += kThreads) {
+    const int j = base + tid;
+    bool keep = j < nb;
+    for (int t = 0; keep && t < kTQ; ++t) keep = home[t] != j;
+    if (keep) {
+      float lo[FEAT], hi[FEAT];
+#pragma unroll
+      for (int f = 0; f < FEAT; ++f) {
+        lo[f] = __ldg(boxes.box + (size_t)f * nb + j);
+        hi[f] = __ldg(boxes.box + (size_t)(FEAT + f) * nb + j);
+      }
+      const float tn = __ldg(boxes.norm + j);
+      keep = !beyond<FEAT>(qlo, qhi, lo, hi, tau_max, qn_max, tn);
+      if (keep) {
+        bool reached = false;
+#pragma unroll
+        for (int t = 0; t < kTQ; ++t)
+          reached |= !beyond<FEAT>(qc[t], qc[t], lo, hi, tau[t], qn[t], tn);
+        keep = reached;
+      }
+    }
+    const unsigned mask = __ballot_sync(kFull, keep);
+    int at = 0;
+    if (lane == 0 && mask != 0u) at = atomicAdd(listed, __popc(mask));
+    at = __shfl_sync(kFull, at, 0);
+    if (keep) list[at + __popc(mask & below)] = j;
+    __syncthreads();  // the round's survivors are listed
+    const int n = *listed;
+    __syncthreads();  // every thread has read the length
+    if (n > kCap - kThreads || base + kThreads >= nb) {
+      if (tid == 0) *listed = 0;
+      for (int i = 0; i < n; ++i)
+        walk_box<FEAT, BPT>(qc, qn, k1, k2, tT, tsq, t_count, list[i], tid, chunk_mask);
+      walked += n;
+      __syncthreads();  // the list is read before it is filled again
+    }
+  }
+  if (tid == 0) {
+    atomicAdd(boxes.counts, (unsigned long long)nb);
+    atomicAdd(boxes.counts + 1, (unsigned long long)walked);
+  }
+
+  // 4. the fused design's selection and decode
+  select_and_write<BPT>(keys, k1, k2, tid, q0, out_idx, out_d2, chunk_mask, k, train_count);
+}
+
 constexpr size_t kMaxSmem = 232448;  // 227 KB a block can opt into on sm_90
+
+// Opt kernel into `bytes` of dynamic shared memory where it needs more than
+// the default 48 KB.
+template <typename Kernel>
+int allow_smem(Kernel kernel, size_t bytes) {
+  if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (bytes <= 48 * 1024) return (int)cudaSuccess;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)bytes);
+}
 
 template <int FEAT, int BPT>
 int launch_select(const float* q, const float* qsq, const float* tT, const float* tsq,
-                  const float* lb, const float* ub, long long* out_idx, float* out_d2,
-                  int q_count, int t_count, int train_tile, int query_tile, int chunk_mask,
+                  long long* out_idx, float* out_d2, int q_count, int t_count, int chunk_mask,
                   int k, int train_count, void* stream) {
   const size_t bytes = select_smem_bytes(BPT * kThreads);
-  if (bytes > kMaxSmem) return (int)cudaErrorInvalidValue;
-  if (bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        knn_select_kernel<FEAT, BPT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-  }
+  const int err = allow_smem(knn_select_kernel<FEAT, BPT>, bytes);
+  if (err != (int)cudaSuccess) return err;
   knn_select_kernel<FEAT, BPT><<<q_count / kTQ, kThreads, bytes, (cudaStream_t)stream>>>(
-      q, qsq, tT, tsq, lb, ub, out_idx, out_d2, t_count, train_tile, query_tile, chunk_mask, k,
-      train_count);
+      q, qsq, tT, tsq, out_idx, out_d2, t_count, chunk_mask, k, train_count);
   return (int)cudaGetLastError();
 }
 
 template <int FEAT>
 int launch_select_bins(int bins, const float* q, const float* qsq, const float* tT,
-                       const float* tsq, const float* lb, const float* ub, long long* out_idx,
-                       float* out_d2, int q_count, int t_count, int train_tile, int query_tile,
-                       int chunk_mask, int k, int train_count, void* stream) {
+                       const float* tsq, long long* out_idx, float* out_d2, int q_count,
+                       int t_count, int chunk_mask, int k, int train_count, void* stream) {
   auto go = bins == 256 ? launch_select<FEAT, 1>
                         : bins == 512 ? launch_select<FEAT, 2> : launch_select<FEAT, 4>;
-  return go(q, qsq, tT, tsq, lb, ub, out_idx, out_d2, q_count, t_count, train_tile, query_tile,
-            chunk_mask, k, train_count, stream);
+  return go(q, qsq, tT, tsq, out_idx, out_d2, q_count, t_count, chunk_mask, k, train_count,
+            stream);
+}
+
+template <int FEAT, int BPT, int CAP>
+int launch_bounded(const float* q, const float* qsq, const float* tT, const float* tsq,
+                   Boxes boxes, long long* out_idx, float* out_d2, int q_count, int t_count,
+                   int chunk_mask, int k, int train_count, void* stream) {
+  const size_t bytes = bounded_smem_bytes(BPT * kThreads);
+  const int err = allow_smem(knn_bounded_kernel<FEAT, BPT, CAP>, bytes);
+  if (err != (int)cudaSuccess) return err;
+  knn_bounded_kernel<FEAT, BPT, CAP><<<q_count / kTQ, kThreads, bytes, (cudaStream_t)stream>>>(
+      q, qsq, tT, tsq, boxes, out_idx, out_d2, t_count, chunk_mask, k, train_count);
+  return (int)cudaGetLastError();
+}
+
+template <int FEAT, int CAP>
+int launch_bounded_bins(int bins, const float* q, const float* qsq, const float* tT,
+                        const float* tsq, Boxes boxes, long long* out_idx, float* out_d2,
+                        int q_count, int t_count, int chunk_mask, int k, int train_count,
+                        void* stream) {
+  auto go = bins == 256   ? launch_bounded<FEAT, 1, CAP>
+            : bins == 512 ? launch_bounded<FEAT, 2, CAP>
+                          : launch_bounded<FEAT, 4, CAP>;
+  return go(q, qsq, tT, tsq, boxes, out_idx, out_d2, q_count, t_count, chunk_mask, k,
+            train_count, stream);
+}
+
+// knn_bounded's checks and dispatch, with the box list's CAP (knn_bounded_kernel)
+template <int CAP>
+int bounded(const float* q, const float* qsq, const float* tT, const float* tsq,
+            const float* box, const float* norm, const int* first, const float* grid,
+            long long* out_idx, float* out_d2, long long* counts, int q_count, int feat,
+            int t_count, int bins, int nb, int bits, int chunk_mask, int k,
+            int train_count, void* stream) {
+  if (q_count == 0) return 0;
+  if (feat < 1 || feat > 4 || (bins != 256 && bins != 512 && bins != 1024) || k < 1 ||
+      k > kMaxK || q_count % kTQ != 0 || t_count % bins != 0 || nb != t_count / kThreads ||
+      bits < 1 || bits * feat > 30 || train_count < 1)
+    return (int)cudaErrorInvalidValue;
+  const Boxes boxes{box, norm, first, grid, (unsigned long long*)counts, nb, bits};
+  auto go = feat == 1   ? launch_bounded_bins<1, CAP>
+            : feat == 2 ? launch_bounded_bins<2, CAP>
+            : feat == 3 ? launch_bounded_bins<3, CAP>
+                        : launch_bounded_bins<4, CAP>;
+  return go(bins, q, qsq, tT, tsq, boxes, out_idx, out_d2, q_count, t_count, chunk_mask, k,
+            train_count, stream);
 }
 
 }  // namespace
@@ -351,25 +700,37 @@ int knn_candidates(const float* q, const float* qsq, const float* tT, const floa
   return (int)cudaGetLastError();
 }
 
-// The fused design: the k nearest candidates per query, (Q_pad, k) idx int64
-// and d2 f32 in ascending key order.  feat in 1..4, bins in {256, 512,
-// 1024}, 1 <= k <= 64; q_count a multiple of query_tile, query_tile of 8,
-// t_count of train_tile, train_tile of bins.
+// The fused design, unpruned: the k nearest candidates per query, (Q_pad, k)
+// idx int64 and d2 f32 in ascending key order.  feat in 1..4, bins in {256,
+// 512, 1024}, 1 <= k <= 64; q_count a multiple of 8, t_count of bins.
 int knn_select(const float* q, const float* qsq, const float* tT, const float* tsq,
-               const float* lb, const float* ub, long long* out_idx, float* out_d2,
-               int q_count, int feat, int t_count, int bins, int train_tile, int query_tile,
-               int chunk_mask, int k, int train_count, void* stream) {
+               long long* out_idx, float* out_d2, int q_count, int feat, int t_count,
+               int bins, int chunk_mask, int k, int train_count, void* stream) {
   if (q_count == 0) return 0;
   if (feat < 1 || feat > 4 || (bins != 256 && bins != 512 && bins != 1024) || k < 1 ||
-      k > kMaxK || q_count % query_tile != 0 || query_tile % kTQ != 0 ||
-      train_tile % bins != 0 || t_count % train_tile != 0 || train_count < 1)
+      k > kMaxK || q_count % kTQ != 0 || t_count % bins != 0 || train_count < 1)
     return (int)cudaErrorInvalidValue;
   auto go = feat == 1   ? launch_select_bins<1>
             : feat == 2 ? launch_select_bins<2>
             : feat == 3 ? launch_select_bins<3>
                         : launch_select_bins<4>;
-  return go(bins, q, qsq, tT, tsq, lb, ub, out_idx, out_d2, q_count, t_count, train_tile,
-            query_tile, chunk_mask, k, train_count, stream);
+  return go(bins, q, qsq, tT, tsq, out_idx, out_d2, q_count, t_count, chunk_mask, k,
+            train_count, stream);
+}
+
+// The bounded route: the fused design's (Q_pad, k) candidates, bit-equal to
+// knn_select's without a table, each block pruning the index's boxes of
+// kThreads columns against its own bound; adds the boxes of the index and
+// those walked, per block, to counts (int64).  feat in 1..4, bins in {256,
+// 512, 1024}, 1 <= k <= 64; q_count a multiple of 8, t_count of bins,
+// nb = t_count / 256, 1 <= bits, bits * feat <= 30.
+int knn_bounded(const float* q, const float* qsq, const float* tT, const float* tsq,
+                const float* box, const float* norm, const int* first, const float* grid,
+                long long* out_idx, float* out_d2, long long* counts, int q_count, int feat,
+                int t_count, int bins, int nb, int bits, int chunk_mask, int k,
+                int train_count, void* stream) {
+  return bounded<0>(q, qsq, tT, tsq, box, norm, first, grid, out_idx, out_d2, counts, q_count,
+                    feat, t_count, bins, nb, bits, chunk_mask, k, train_count, stream);
 }
 
 const char* muygpys_cuda_error_string(int code) {

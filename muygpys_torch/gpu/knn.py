@@ -11,7 +11,10 @@ Two designs of the kernel (``csrc/knn.cu``), picked by :func:`knn_design`:
 
 - ``"fused"`` (``feat <= 4``, ``k <= 64``, ``bins`` in {256, 512, 1024}):
   the kernel also merges each query's ``2 * bins`` keys exactly and decodes
-  them, and writes only ``(idx, d2)`` of shape ``(Q_pad, k)``;
+  them, and writes only ``(idx, d2)`` of shape ``(Q_pad, k)``; its pruned
+  search on a card is the bounded route (:func:`prepare_bounded`): each
+  block of 8 queries prunes the index's boxes of :data:`BOX` columns against
+  its own bound, and its candidates are the unpruned search's bit for bit;
 - ``"keys"`` (every other shape): the kernel writes the key state ``s1``,
   ``s2`` ``(Q_pad, bins)`` (:func:`knn_candidates`; its plain mirror
   :func:`knn_candidates_plain` gives the same bits) and the glue merges it
@@ -22,7 +25,8 @@ Two designs of the kernel (``csrc/knn.cu``), picked by :func:`knn_design`:
 :func:`knn_select` runs either; its plain version :func:`knn_select_plain`
 is the keys mirror followed by the merge.  The rest of the glue is plain
 PyTorch, as it was plain XLA in the JAX package: padding, norms, Morton
-sorting and the bounding-box pruning bounds.  The train side of it is built
+sorting and the bounding-box pruning bounds (the skip table of the keys
+design and of the CPU, as the JAX package's).  The train side of it is built
 once per index (:func:`build_index`), so a request computes only its query
 side.
 
@@ -49,7 +53,10 @@ _INIT_KEY_BITS = 0x7F000000
 
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _SELECT_ARGTYPES = (
-    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+)
+_BOUNDED_ARGTYPES = (
+    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 )
 
 #: the fused design's bounds (``csrc/knn.cu``): features, neighbours, bins
@@ -58,6 +65,8 @@ FUSED_MAX_K = 64
 FUSED_BINS = (256, 512, 1024)
 #: queries a block of either design owns (one query tile holds them)
 _BLOCK_QUERIES = 8
+#: columns a box of the bounded route: one block-wide step of the fused walk
+BOX = 256
 
 
 def knn_design(feat: int, k: int, bins: int) -> str:
@@ -181,6 +190,19 @@ def knn_candidates(
     return s1, s2
 
 
+class Boxes(NamedTuple):
+    """The bounded route's side of a pruned index (:func:`build_index`):
+    the Morton-sorted columns in boxes of :data:`BOX`."""
+
+    box: torch.Tensor  # (2 f, nb) f32: each box's lower corner, then upper
+    norm: torch.Tensor  # (nb,) f32: its real columns' largest norm (0: none)
+    first: torch.Tensor  # (nb,) int32: its first row's Morton code
+    grid: torch.Tensor  # (2 f,) f32: the curve's origin, then its scale
+    bits: int  # Morton bits a feature
+    counts: torch.Tensor  # (2,) int64: boxes of the index, boxes walked;
+    # every launch adds both for each of its blocks of 8 queries
+
+
 class TrainIndex(NamedTuple):
     """The train side of a candidate search, built once per index
     (:func:`build_index`): every request against the same train set and
@@ -190,6 +212,7 @@ class TrainIndex(NamedTuple):
     tsq: torch.Tensor  # (T_pad,) norms; padded columns 1e30
     tlo: Optional[torch.Tensor]  # (nt, f) train tile bounding boxes (pruned)
     thi: Optional[torch.Tensor]
+    boxes: Optional[Boxes]  # the bounded route's (pruned, fused shapes)
     sub: Optional["TrainIndex"]  # the 1/subsample row subset's own (pruned)
     bins: int
     train_tile: int
@@ -214,6 +237,7 @@ class Prepared(NamedTuple):
     train_count: int
     query_count: int
     qperm: Optional[torch.Tensor]
+    boxes: Optional[Boxes] = None  # the bounded route's (no table)
 
     def candidates(self):
         """The keys design's ``s1, s2`` (:func:`knn_candidates`)."""
@@ -226,7 +250,9 @@ class Prepared(NamedTuple):
 
 def knn_select_plain(prep: Prepared, k: int):
     """Plain PyTorch version of :func:`knn_select`: the keys mirror, then
-    the exact merge and decode."""
+    the exact merge and decode.  A bounded route's ``prep`` carries no
+    table: the unpruned search, whose candidates the kernel gives bit for
+    bit."""
     return _merge_decode(
         *knn_candidates_plain(
             prep.q, prep.qsq, prep.tT, prep.tsq, prep.bins, prep.train_tile,
@@ -241,21 +267,29 @@ def knn_select(prep: Prepared, k: int, design: Optional[str] = None):
     ``d2`` f32, both ``(Q_pad, k)``, in ascending key order.
 
     CPU tensors take :func:`knn_select_plain`.  On a card: the design of
-    :func:`knn_design`, or ``design`` where a caller compares the two (the
-    kernel refuses a fused launch outside its bounds); ``"keys"`` launches
-    :func:`knn_candidates` and merges with ``torch.topk``.  Keys equal to
-    each other may come out in another order than ``torch.topk``'s; the
-    distances are the same bits.
+    :func:`knn_design` (the keys design where ``prep`` carries the skip
+    table), or ``design`` where a caller compares the two (the kernel
+    refuses a fused launch outside its bounds); ``"keys"`` launches
+    :func:`knn_candidates` and merges with ``torch.topk``; the fused design
+    on a bounded route's ``prep`` (:func:`prepare_bounded`) launches the
+    bounded kernel.  Keys equal to each other may come out in another order
+    than ``torch.topk``'s; the distances are the same bits.
     """
     if prep.q.device.type == "cpu":
         return knn_select_plain(prep, k)
     feat = prep.q.shape[1]
-    design = design or knn_design(feat, k, prep.bins)
+    design = design or (
+        "keys" if prep.lb is not None else knn_design(feat, k, prep.bins))
     if design == "keys":
         return _merge_decode(*prep.candidates(), k, prep)
-    q, qsq, tT, tsq, lb, ub = prep[:6]
+    if prep.lb is not None:
+        raise ValueError("the skip table is the keys design's; the fused "
+                         "design prunes by the bounded route")
+    if prep.boxes is not None:
+        return _select_bounded(prep, k)
+    q, qsq, tT, tsq = prep[:4]
     _check_launch(q, qsq, tT, tsq, prep.bins, prep.train_tile,
-                  prep.query_tile, lb, ub)
+                  prep.query_tile, None, None)
     q_count = q.shape[0]
     idx = torch.empty((q_count, k), dtype=torch.int64, device=q.device)
     d2 = torch.empty((q_count, k), dtype=torch.float32, device=q.device)
@@ -263,16 +297,46 @@ def knn_select(prep: Prepared, k: int, design: Optional[str] = None):
     with _build.on_device(q.device):
         rc = fn(
             _build.ptr(q), _build.ptr(qsq), _build.ptr(tT), _build.ptr(tsq),
-            _build.ptr(lb), _build.ptr(ub), _build.ptr(idx), _build.ptr(d2),
-            q_count, feat, tT.shape[1], prep.bins, prep.train_tile,
-            prep.query_tile, prep.chunk_mask, k, prep.train_count,
+            _build.ptr(idx), _build.ptr(d2), q_count, feat, tT.shape[1],
+            prep.bins, prep.chunk_mask, k, prep.train_count,
             _build.stream(q.device),
         )
     _build.check(rc, "knn", "knn_select")
-    _build.count(
-        "knn_candidates_pruned" if lb is not None else "knn_candidates",
-        "knn_candidates/fused",
-    )
+    _build.count("knn_candidates", "knn_candidates/fused")
+    return idx, d2
+
+
+def _select_bounded(prep: Prepared, k: int):
+    """The bounded route's launch (``csrc/knn.cu:knn_bounded``): the fused
+    design's candidates, counted as K3p."""
+    q, qsq, tT, tsq = prep[:4]
+    _check_launch(q, qsq, tT, tsq, prep.bins, prep.train_tile,
+                  _BLOCK_QUERIES, None, None)
+    boxes = prep.boxes
+    for name in ("box", "norm", "grid"):
+        t = getattr(boxes, name)
+        if t.device != q.device or t.dtype != torch.float32:
+            raise ValueError(f"boxes.{name} must be float32 on {q.device}")
+    nb = boxes.norm.shape[0]
+    if boxes.box.shape != (2 * q.shape[1], nb) or nb * BOX != tT.shape[1]:
+        raise ValueError(
+            f"boxes {tuple(boxes.box.shape)} do not cover tT "
+            f"{tuple(tT.shape)} in boxes of {BOX}")
+    q_count, feat = q.shape
+    idx = torch.empty((q_count, k), dtype=torch.int64, device=q.device)
+    d2 = torch.empty((q_count, k), dtype=torch.float32, device=q.device)
+    fn = _build.function("knn", "knn_bounded", _BOUNDED_ARGTYPES)
+    with _build.on_device(q.device):
+        rc = fn(
+            _build.ptr(q), _build.ptr(qsq), _build.ptr(tT), _build.ptr(tsq),
+            _build.ptr(boxes.box), _build.ptr(boxes.norm),
+            _build.ptr(boxes.first), _build.ptr(boxes.grid), _build.ptr(idx),
+            _build.ptr(d2), _build.ptr(boxes.counts), q_count, feat,
+            tT.shape[1], prep.bins, nb, boxes.bits, prep.chunk_mask, k,
+            prep.train_count, _build.stream(q.device),
+        )
+    _build.check(rc, "knn", "knn_bounded")
+    _build.count("knn_candidates_pruned", "knn_candidates/fused")
     return idx, d2
 
 
@@ -316,15 +380,19 @@ def _edge_pad(x: torch.Tensor, rows: int) -> torch.Tensor:
 
 
 def build_index(
-    train, train_tile=2048, bins=512, pruned=False, subsample=16
+    train, train_tile=2048, bins=512, pruned=False, subsample=16, grid=None
 ) -> TrainIndex:
     """The train side of the unpruned (:func:`knn_cuda`) or, with
     ``pruned``, the pruned search (:func:`knn_cuda_pruned`; ``train``
     Morton-sorted): the padded train set transposed, its norms and, when
     pruned, the train tiles' bounding boxes and the ``1/subsample`` row
-    subset's own unpruned index (for the queries' upper bounds)."""
+    subset's own unpruned index (the skip table's: the tiles' lower bounds,
+    the queries' upper bounds) and the boxes of the bounded route
+    (:class:`Boxes`, at ``feat <= 4`` and fused ``bins``).  ``grid``
+    (:func:`_morton_grid`) is the grid ``train`` was sorted on, where that
+    is not the rows' own: a slice of a larger sorted set."""
     train = torch.as_tensor(train).to(torch.float32)
-    train_count = train.shape[0]
+    train_count, feat = train.shape
     t_padded, mask = _chunk_mask(train_count, train_tile, bins)
     if not pruned:
         train_pad = torch.nn.functional.pad(
@@ -332,16 +400,39 @@ def build_index(
         )
         return TrainIndex(
             train_pad.T.contiguous(), _norms(train_pad, train_count),
-            None, None, None, bins, train_tile, mask, train_count,
+            None, None, None, None, bins, train_tile, mask, train_count,
         )
     # edge-pad (not zero-pad): padded rows must not widen the last tile's
     # bounding box; the 1e30 sentinel norm still excludes them as columns
     train_pad = _edge_pad(train, t_padded)
+    tsq = _norms(train_pad, train_count)
     tlo, thi = _tile_bboxes(train_pad, train_tile)
+    bounded = 1 <= feat <= FUSED_MAX_FEAT and bins in FUSED_BINS
     return TrainIndex(
-        train_pad.T.contiguous(), _norms(train_pad, train_count), tlo, thi,
+        train_pad.T.contiguous(), tsq, tlo, thi,
+        _boxes(train_pad, tsq, train_count, grid) if bounded else None,
         build_index(train[::subsample], train_tile, bins),
         bins, train_tile, mask, train_count,
+    )
+
+
+def _boxes(train_pad, tsq, train_count, grid=None) -> Boxes:
+    """The bounded route's boxes of the edge-padded, Morton-sorted rows:
+    boxes of :data:`BOX` rows (padded rows repeat the last, so no box
+    widens), their real columns' largest norms, first Morton codes on the
+    grid the rows were sorted on (``grid``, else the rows' own), and a
+    zeroed counter."""
+    lo, hi = _tile_bboxes(train_pad, BOX)
+    real = torch.arange(train_pad.shape[0], device=tsq.device) < train_count
+    norm = torch.amax(torch.where(real, tsq, torch.zeros_like(tsq))
+                      .reshape(-1, BOX), dim=1)
+    if grid is None:
+        grid = _morton_grid(train_pad[:train_count])
+    return Boxes(
+        torch.cat([lo.T, hi.T]).contiguous(), norm.contiguous(),
+        _morton_codes(train_pad[::BOX], grid=grid),
+        torch.cat([grid[0], grid[1]]).contiguous(), grid[2],
+        torch.zeros(2, dtype=torch.int64, device=tsq.device),
     )
 
 
@@ -364,11 +455,11 @@ def _index_for(train, train_index, train_tile, bins, pruned, subsample=16):
 
 
 def _prepared(index: TrainIndex, q_pad, query_tile, query_count, lb=None,
-              ub=None, qperm=None) -> Prepared:
+              ub=None, qperm=None, boxes=None) -> Prepared:
     return Prepared(
         q_pad.contiguous(), torch.sum(q_pad * q_pad, dim=-1), index.tT,
         index.tsq, lb, ub, index.bins, index.train_tile, query_tile,
-        index.chunk_mask, index.train_count, query_count, qperm,
+        index.chunk_mask, index.train_count, query_count, qperm, boxes,
     )
 
 
@@ -387,23 +478,30 @@ def prepare(
     return _prepared(index, q_pad, query_tile, query_count)
 
 
+def _sorted_queries(queries, multiple):
+    """``(q_pad, qperm)``: the f32 queries along their own Morton curve
+    (so that a tile or block of them is compact), edge-padded to a
+    multiple of ``multiple`` rows."""
+    queries = queries.to(torch.float32)
+    qperm = spatial_sort(queries)
+    rows = math.ceil(queries.shape[0] / multiple) * multiple
+    return _edge_pad(queries[qperm], rows), qperm
+
+
 def prepare_pruned(
     train, queries, nn_count, query_tile=128, train_tile=2048, bins=512,
     subsample=16, train_index: Optional[TrainIndex] = None,
 ) -> Prepared:
-    """Inputs of the pruned search (:func:`knn_cuda_pruned`), including the
-    skip table; runs the unpruned kernel on the ``1/subsample`` row subset
-    for the upper bound, as ``muygpys_tpu.pallas.knn.knn_pallas_pruned``
-    does.  The train side comes from ``train_index`` where given."""
+    """Inputs of the skip table's pruned search (:func:`knn_cuda_pruned`
+    on the CPU and in the keys design), including the table; runs the
+    unpruned kernel on the ``1/subsample`` row subset for the upper bound,
+    as ``muygpys_tpu.pallas.knn.knn_pallas_pruned`` does.  The train side
+    comes from ``train_index`` where given."""
     _check_count(nn_count, bins)
     index = _index_for(train, train_index, train_tile, bins, True, subsample)
-    queries = queries.to(torch.float32)
     query_count = queries.shape[0]
-
-    # sort queries along the same curve so query tiles are compact too
-    qperm = spatial_sort(queries)
-    nq = math.ceil(query_count / query_tile)
-    q_pad = _edge_pad(queries[qperm], nq * query_tile)
+    q_pad, qperm = _sorted_queries(queries, query_tile)
+    nq = q_pad.shape[0] // query_tile
 
     # per-query upper bound on the k-th neighbor distance: max candidate
     # distance on a row subsample (k-th NN of a subset >= k-th NN of the
@@ -422,6 +520,27 @@ def prepare_pruned(
         index, q_pad, query_tile, query_count, lb.contiguous(),
         ub.contiguous(), qperm,
     )
+
+
+def prepare_bounded(
+    train, queries, nn_count, train_tile=2048, bins=512,
+    train_index: Optional[TrainIndex] = None,
+) -> Prepared:
+    """Inputs of the bounded route (:func:`knn_cuda_pruned` on a card in
+    the fused design; ``train`` Morton-sorted): the queries along their
+    own Morton curve in blocks of 8 and the index's boxes, no table.  Its
+    plain version is the unpruned search's (:func:`knn_select_plain`), whose
+    candidates the kernel gives bit for bit."""
+    _check_count(nn_count, bins)
+    index = _index_for(train, train_index, train_tile, bins, True)
+    if index.boxes is None:
+        raise ValueError(
+            f"the bounded route takes 1 to {FUSED_MAX_FEAT} features and "
+            f"bins in {FUSED_BINS}; this index has {index.tT.shape[0]} "
+            f"features and {index.bins} bins")
+    q_pad, qperm = _sorted_queries(queries, _BLOCK_QUERIES)
+    return _prepared(index, q_pad, _BLOCK_QUERIES, queries.shape[0],
+                     qperm=qperm, boxes=index.boxes)
 
 
 def _merge_decode(s1, s2, nn_count, prep: Prepared):
@@ -471,20 +590,40 @@ def knn_cuda_pruned(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Spatially pruned candidate KNN; counterpart of ``knn_pallas_pruned``.
 
-    ``train`` must be Morton-sorted (:func:`spatial_sort`) for tight tile
+    ``train`` must be Morton-sorted (:func:`spatial_sort`) for tight
     bounding boxes; queries are sorted internally and results mapped back.
-    A (query tile, train tile) block is skipped only when its bounding-box
-    lower bound exceeds the query tile's k-th-neighbor upper bound, so the
-    candidates equal the unpruned kernel's.  A ``train_index`` from
-    :func:`build_index` (``pruned=True``) saves the train side's work.
+    A ``train_index`` from :func:`build_index` (``pruned=True``) saves the
+    train side's work.  Two routes, by the input's shape:
+
+    - on a card in the fused design (:func:`knn_design`; ``feat <= 4``,
+      ``k <= 64``, ``bins`` in {256, 512, 1024}), the bounded route
+      (:func:`prepare_bounded`, ``csrc/knn.cu:knn_bounded_kernel``): each
+      block of 8 queries walks the boxes of :data:`BOX` columns holding its
+      queries, bounds each query's k-th key from above by the top bits of
+      its k-th smallest kept key (tau), and walks only the boxes whose
+      lower bound, less an allowance for the kernel's own rounding, does
+      not exceed tau.  A skipped column can neither enter the k selected
+      nor displace one that does, so the candidates are the unpruned
+      kernel's bit for bit (the argument and the allowance:
+      ``csrc/knn.cu``'s header);
+    - elsewhere (the CPU, the keys design) the skip table, as the JAX
+      package: a (query tile, train tile) block is skipped only when its
+      bounding-box lower bound exceeds the query tile's k-th-neighbor upper
+      bound from the ``1/subsample`` rows, so the candidates equal the
+      unpruned search's but for rare bin collisions.
     """
     dev = config.device(device)
-    prep = prepare_pruned(
-        None if train_index is not None else torch.as_tensor(train, device=dev),
-        torch.as_tensor(queries, device=dev), nn_count, query_tile,
-        train_tile, bins, subsample, train_index,
-    )
-    idx, d2 = knn_select(prep, min(nn_count, 2 * bins))
+    if train_index is None:
+        train = torch.as_tensor(train, device=dev)
+    queries = torch.as_tensor(queries, device=dev)
+    k = min(nn_count, 2 * bins)
+    if dev.type == "cuda" and knn_design(queries.shape[1], k, bins) == "fused":
+        prep = prepare_bounded(train, queries, nn_count, train_tile, bins,
+                               train_index)
+    else:
+        prep = prepare_pruned(train, queries, nn_count, query_tile,
+                              train_tile, bins, subsample, train_index)
+    idx, d2 = knn_select(prep, k)
     qinv = torch.argsort(prep.qperm)
     return idx[: prep.query_count][qinv], d2[: prep.query_count][qinv]
 

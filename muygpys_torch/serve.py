@@ -105,6 +105,7 @@ from muygpys_torch.gp.noise import HeteroscedasticNoise, HomoscedasticNoise
 from muygpys_torch.gpu.fused_predict import fused_predict_coords_bl
 from muygpys_torch.gpu.graphs import CapturedProgram
 from muygpys_torch.gpu.knn import (
+    _morton_grid,
     build_index,
     knn_cuda,
     knn_cuda_pruned,
@@ -290,6 +291,8 @@ class FastServer:
         #: neighbourhoods whose coefficients are not finite (``failed``) and
         #: wall ``seconds`` to finished coefficients; None for the others
         self.precompute = None
+        # the fused and fast_mean buckets' candidate index (search_stats)
+        self._search_index = None
         # the program of one bucket, and whether a card runs it captured
         self._captured = None
         self._capture = (
@@ -356,6 +359,21 @@ class FastServer:
         self._core = self._build()
         if not (engine == "fused" and shard == "train"):
             self._core = self._sharded_queries(self._core)
+
+    def search_stats(self) -> dict:
+        """The fused and fast_mean buckets' pruning, summed over every
+        bucket their K3p searched by the bounded route: ``boxes_total``
+        (the index's boxes of 256 columns times the blocks of 8 queries)
+        and ``boxes_scored`` (the boxes the blocks walked), read from the
+        card's counter when asked, so the buckets never wait for it; 0
+        where no bounded route ran (the CPU, the skip table, the other
+        engines, fewer than 1024 training rows).  Their ratio is the share
+        of the unpruned walk that the search paid for."""
+        index = self._search_index
+        if index is None or index.boxes is None:
+            return {"boxes_total": 0, "boxes_scored": 0}
+        total, scored = index.boxes.counts.tolist()
+        return {"boxes_total": total, "boxes_scored": scored}
 
     @property
     def mode(self) -> str:
@@ -534,9 +552,9 @@ class FastServer:
         nearest positions among them, nearest first (None without re-rank:
         the candidates are the neighbours)."""
         use_kernel, spatial, cand_count, knn_fn, knn_kwargs = geometry
-        # the search's train side (padded transpose, norms, tile boxes, the
-        # subsample's own), built once: a request computes its query side
-        knn_index = (
+        # the search's train side (padded transpose, norms, boxes), built
+        # once: a request computes its query side
+        knn_index = self._search_index = (
             build_index(train, bins=knn_kwargs.get("bins", 512), pruned=spatial)
             if use_kernel else None
         )
@@ -644,6 +662,9 @@ class FastServer:
         n_dev, group = mesh_size(self.mesh), self._group
         nn_count = self.nbrs.nn_count
         _, spatial, cand_count, knn_fn, knn_kwargs = geometry
+        # the grid the whole table was sorted on: a shard's boxes find a
+        # query's home box on it
+        grid = _morton_grid(train) if spatial else None
         rows = local_chunk_slice(train.shape[0], self.mesh)
         train, table = train[rows].contiguous(), table[rows].contiguous()
         shard_rows = train.shape[0]
@@ -656,9 +677,9 @@ class FastServer:
                 f"{n_dev} shards x {cand_count} candidates cannot cover "
                 f"nn_count={nn_count}"
             )
-        knn_index = (
+        knn_index = self._search_index = (
             build_index(train, bins=knn_kwargs.get("bins", 512),
-                        pruned=spatial)
+                        pruned=spatial, grid=grid)
             if use_kernel else None
         )
         tiles = None if use_kernel else _train_tiles(train)

@@ -152,6 +152,7 @@ inline int __ffs(int x) { return __builtin_ffs(x); }
 inline unsigned long long atomicAdd(unsigned long long* p, unsigned long long v) {
   return __atomic_fetch_add(p, v, __ATOMIC_RELAXED);
 }
+inline int atomicAdd(int* p, int v) { return __atomic_fetch_add(p, v, __ATOMIC_RELAXED); }
 inline void __pipeline_memcpy_async(void* d, const void* s, size_t n) { std::memcpy(d, s, n); }
 inline void __pipeline_commit() {}
 inline void __pipeline_wait_prior(int) {}
@@ -216,9 +217,28 @@ def tsan_runtime() -> str:
     return path if os.path.isabs(path) and os.path.exists(path) else ""
 
 
+#: a C entry of K3p's bounded route whose box list holds one round's
+#: survivors (``knn_bounded_kernel``'s ``CAP`` = ``kThreads``), so that
+#: every round that lists a box walks the list inside the loop; appended to
+#: the emulation of ``knn.cu``
+KNN_ONE_ROUND = r"""
+extern "C" int knn_bounded_one_round(
+    const float* q, const float* qsq, const float* tT, const float* tsq,
+    const float* box, const float* norm, const int* first, const float* grid,
+    long long* out_idx, float* out_d2, long long* counts, int q_count,
+    int feat, int t_count, int bins, int nb, int bits, int chunk_mask, int k,
+    int train_count, void* stream) {
+  return bounded<kThreads>(q, qsq, tT, tsq, box, norm, first, grid, out_idx,
+                           out_d2, counts, q_count, feat, t_count, bins, nb,
+                           bits, chunk_mask, k, train_count, stream);
+}
+"""
+
+
 def build(name: str, out_dir: str, tsan: bool = False) -> str:
     """Compile ``csrc/<name>.cu`` against the emulation into a shared
-    library under ``out_dir``; returns its path."""
+    library under ``out_dir`` (``knn.cu`` with :data:`KNN_ONE_ROUND`);
+    returns its path."""
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "cuda_emu.h"), "w") as f:
         f.write(HEADER)
@@ -227,6 +247,8 @@ def build(name: str, out_dir: str, tsan: bool = False) -> str:
     cpp = os.path.join(out_dir, f"{name}.cpp")
     with open(os.path.join(CSRC, f"{name}.cu")) as f:
         text = translate(f.read())
+    if name == "knn":
+        text += KNN_ONE_ROUND
     with open(cpp, "w") as f:
         f.write(text)
     lib = os.path.join(out_dir, f"lib{name}{'_tsan' if tsan else ''}.so")
@@ -358,7 +380,9 @@ def k5_run(lib, design, ins, m, o, B, batch_last):
 #: one small launch of each design, run under ThreadSanitizer
 RACE_LAUNCHES = ("k2-registers", "k2-shared", "k2-registers-free-nu",
                  "k5-shared-24", "k5-registers-60", "k5-registers-90",
-                 "k3-fused", "k3-fused-pruned", "k1-registers",
+                 "k3-fused", "k3-keys-pruned", "k3-fused-bounded",
+                 "k3-fused-bounded-rounds",
+                 "k1-registers",
                  "k1-registers-gen", "k1b-registers", "k1b-registers-gen",
                  "k4-coeffs")
 
@@ -366,7 +390,9 @@ RACE_LAUNCHES = ("k2-registers", "k2-shared", "k2-registers-free-nu",
 def race_launch(out_dir: str, launch: str) -> None:
     """Run one launch of :data:`RACE_LAUNCHES` (or ``"knn-exact"``) through
     the ThreadSanitizer builds in ``out_dir`` (in the child process
-    :func:`race_report` starts)."""
+    :func:`race_report` starts).  PyTorch sets the problem up on one
+    thread: its OpenMP workers are not the emulated threads."""
+    torch.set_num_threads(1)
     if launch == "knn-exact":
         lib = ctypes.CDLL(os.path.join(out_dir, "libknn_exact_tsan.so"))
         index, queries = knn_exact_problem(2100, 5, 2, tile=64)
@@ -374,9 +400,15 @@ def race_launch(out_dir: str, launch: str) -> None:
         return
     if launch.startswith("k3"):
         lib = ctypes.CDLL(os.path.join(out_dir, "libknn_tsan.so"))
-        prep = k3_problem(n_train=2048, n_query=16,
-                          pruned=launch.endswith("pruned"))
-        k3_select(lib, prep, 38)
+        if launch.endswith("bounded"):
+            k3_bounded(lib, k3_bounded_problem(2300, 8, 8, 2), 38)
+        elif launch.endswith("rounds"):
+            k3_bounded(lib, k3_segment_problem(70_000, 0, 8), 38,
+                       entry="knn_bounded_one_round")
+        elif launch.endswith("pruned"):
+            k3_keys(lib, k3_problem(n_train=2048, n_query=16, route="table"))
+        else:
+            k3_select(lib, k3_problem(n_train=2048, n_query=16), 38)
         return
     if launch.startswith("k4"):
         lib = ctypes.CDLL(os.path.join(out_dir, "libmatern_nu_coeffs_tsan.so"))
@@ -435,11 +467,12 @@ def race_report(out_dir: str, launch: str):
             res.stderr)
 
 
-def k3_problem(n_train=2048, n_query=24, d=2, pruned=False, bins=256, k=38,
-               seed=0, query_tile=8, train_tile=256):
+def k3_problem(n_train=2048, n_query=24, d=2, route="unpruned", bins=256,
+               k=38, seed=0, query_tile=8, train_tile=256):
     """A K3 search prepared by the glue on the CPU: a uniform Morton-sorted
-    train set and queries clustered in one corner (so the pruned variant
-    skips tiles)."""
+    train set and queries clustered in one corner (so the pruned routes
+    skip), for the ``route`` ``"unpruned"``, ``"table"`` (the keys design's
+    skip table) or ``"bounded"`` (the fused design's)."""
     from muygpys_torch.gpu import knn as K
 
     rng = np.random.default_rng(seed)
@@ -447,24 +480,90 @@ def k3_problem(n_train=2048, n_query=24, d=2, pruned=False, bins=256, k=38,
     train = train[K.spatial_sort(train)]
     queries = torch.as_tensor(
         (0.1 * rng.uniform(size=(n_query, d))).astype(np.float32))
-    prep = (K.prepare_pruned if pruned else K.prepare)(
+    if route == "bounded":
+        return K.prepare_bounded(train, queries, k, train_tile=train_tile,
+                                 bins=bins)
+    return (K.prepare_pruned if route == "table" else K.prepare)(
         train, queries, k, query_tile=query_tile, train_tile=train_tile,
         bins=bins)
-    return prep
 
 
 def k3_select(lib, prep, k):
-    """One launch of the fused K3 design: ``(idx, d2)`` of ``(Q_pad, k)``."""
+    """One launch of the fused K3 design, unpruned: ``(idx, d2)`` of
+    ``(Q_pad, k)``."""
+    from muygpys_torch.gpu import knn as K
+
     q_count, feat = prep.q.shape
     idx = torch.full((q_count, k), -1, dtype=torch.int64)
     d2 = torch.full((q_count, k), math.nan, dtype=torch.float32)
     fn = lib.knn_select
-    fn.argtypes = [P] * 8 + [ctypes.c_int] * 9 + [P]
-    rc = fn(*(ptr(t) for t in (prep.q, prep.qsq, prep.tT, prep.tsq, prep.lb,
-                               prep.ub, idx, d2)),
-            q_count, feat, prep.tT.shape[1], prep.bins, prep.train_tile,
-            prep.query_tile, prep.chunk_mask, k, prep.train_count, None)
+    fn.argtypes = K._SELECT_ARGTYPES
+    rc = fn(*(ptr(t) for t in (prep.q, prep.qsq, prep.tT, prep.tsq, idx, d2)),
+            q_count, feat, prep.tT.shape[1], prep.bins, prep.chunk_mask, k,
+            prep.train_count, None)
     assert rc == 0, f"K3 launcher refused: {rc}"
+    return idx, d2
+
+
+def k3_bounded_problem(n_train, n_cluster, n_uniform, d, bins=256, seed=0,
+                       far=False):
+    """The bounded route's search prepared by the glue on the CPU: a uniform
+    Morton-sorted train set, ``n_cluster`` queries in a square of side 0.05
+    and ``n_uniform`` uniform ones (with ``far``, the last of them far
+    outside the train's box), f32."""
+    from muygpys_torch.gpu import knn as K
+
+    rng = np.random.default_rng(seed)
+    train = torch.as_tensor(rng.uniform(size=(n_train, d)).astype(np.float32))
+    train = train[K.spatial_sort(train)]
+    corner = rng.uniform(0.0, 0.95, size=d)
+    queries = np.concatenate([
+        corner + 0.05 * rng.uniform(size=(n_cluster, d)),
+        rng.uniform(size=(n_uniform, d))]).astype(np.float32)
+    if far:
+        queries[-1] = 5.0
+    return K.prepare_bounded(train, torch.as_tensor(queries), 64, bins=bins)
+
+
+def k3_segment_problem(n_train, n_on, n_off, seed=0):
+    """The bounded route's search over rows on a segment, ``(x, 0)`` with
+    ``x`` uniform in [0, 1], Morton-sorted: ``n_on`` queries on the segment
+    and ``n_off`` off it, at ``(x, 0.5)`` with ``x`` in [0, 0.5].  On the
+    rows' grid an off query's height lies past the top cell, so its home
+    box is the last (x near 1) and its tau, at least (1 - x)^2 + 0.25,
+    reaches every box: a block of off queries lists them all."""
+    from muygpys_torch.gpu import knn as K
+
+    rng = np.random.default_rng(seed)
+    train = np.zeros((n_train, 2), np.float32)
+    train[:, 0] = rng.uniform(size=n_train)
+    train = torch.as_tensor(train)
+    train = train[K.spatial_sort(train)]
+    queries = np.zeros((n_on + n_off, 2), np.float32)
+    queries[:n_on, 0] = rng.uniform(size=n_on)
+    queries[n_on:] = [0.0, 0.5]
+    queries[n_on:, 0] = rng.uniform(0.0, 0.5, size=n_off)
+    return K.prepare_bounded(train, torch.as_tensor(queries), 64)
+
+
+def k3_bounded(lib, prep, k, entry="knn_bounded"):
+    """One launch of the bounded route through the C entry ``entry``:
+    ``(idx, d2)`` of ``(Q_pad, k)``; the boxes of the index and those walked
+    are added to ``prep.boxes.counts``."""
+    from muygpys_torch.gpu import knn as K
+
+    q_count, feat = prep.q.shape
+    boxes = prep.boxes
+    idx = torch.full((q_count, k), -1, dtype=torch.int64)
+    d2 = torch.full((q_count, k), math.nan, dtype=torch.float32)
+    fn = getattr(lib, entry)
+    fn.argtypes = K._BOUNDED_ARGTYPES
+    rc = fn(*(ptr(t) for t in (prep.q, prep.qsq, prep.tT, prep.tsq, boxes.box,
+                               boxes.norm, boxes.first, boxes.grid, idx, d2,
+                               boxes.counts)),
+            q_count, feat, prep.tT.shape[1], prep.bins, boxes.norm.shape[0],
+            boxes.bits, prep.chunk_mask, k, prep.train_count, None)
+    assert rc == 0, f"K3 bounded launcher refused: {rc}"
     return idx, d2
 
 

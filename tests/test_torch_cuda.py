@@ -168,10 +168,11 @@ def test_k3_kernel_matches_plain_bitwise(pruned):
 @pytest.mark.parametrize("pruned", [False, True])
 @pytest.mark.parametrize("bins,k", [(256, 30), (512, 38), (1024, 62)])
 def test_k3_fused_design_matches_plain(pruned, bins, k):
-    """The fused K3 design (the merge inside the kernel) against
-    knn_select_plain: distances bit-equal (both in ascending key order),
-    index sets equal on at least 0.999 of slots (ties between equal keys
-    may order differently); the launcher picks it and counts it."""
+    """The fused K3 design (the merge inside the kernel; pruned, its
+    bounded route) against knn_select_plain: distances bit-equal (both in
+    ascending key order), index sets equal on at least 0.999 of slots (ties
+    between equal keys may order differently); the launcher picks it and
+    counts it."""
     _need_card()
     rng = np.random.default_rng(1)
     train = torch.as_tensor(rng.uniform(size=(20000, 2)), dtype=torch.float32,
@@ -179,8 +180,8 @@ def test_k3_fused_design_matches_plain(pruned, bins, k):
     queries = torch.as_tensor(rng.uniform(size=(1000, 2)),
                               dtype=torch.float32, device="cuda")
     train = train[K.spatial_sort(train)].contiguous()
-    prep = (K.prepare_pruned if pruned else K.prepare)(
-        train, queries, k, bins=bins)
+    prep = (K.prepare_bounded(train, queries, k, bins=bins) if pruned
+            else K.prepare(train, queries, k, bins=bins))
     assert K.knn_design(2, k, bins) == "fused"
     before = _build.launches["knn_candidates/fused"]
     idx, d2 = K.knn_select(prep, k)
@@ -192,6 +193,40 @@ def test_k3_fused_design_matches_plain(pruned, bins, k):
     assert float(same.float().mean()) >= 0.999
     ik, dk = K.knn_select(prep, k, design="keys")
     assert torch.equal(dk, dp)
+
+
+@pytest.mark.parametrize("k", [38, 9])
+def test_k3_bounded_route_is_the_unpruned_kernel_at_the_cells_shape(k):
+    """K3p's bounded route at the serving cells' shape (8192 uniform queries
+    x 10^6 uniform Morton-sorted rows, 512 bins; k = 38 the bulk bucket's
+    candidates, 9 the fast-mean bucket's): idx and d2 bit-equal to the
+    unpruned fused kernel's on the same sorted queries, one launch counted
+    as K3p and no subsample search, a strict minority of boxes walked; and
+    knn_cuda_pruned through it equals knn_cuda bit for bit."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(18)
+    train = torch.rand((1_000_000, 2), device="cuda", generator=g)
+    train = train[K.spatial_sort(train)].contiguous()
+    queries = torch.rand((8192, 2), device="cuda", generator=g)
+    index = K.build_index(train, pruned=True)
+    assert index.boxes.norm.shape[0] == 3912
+    prep = K.prepare_bounded(None, queries, k, train_index=index)
+    _build.reset_launches()
+    idx, d2 = K.knn_select(prep, k)
+    torch.cuda.synchronize()
+    assert _build.launches["knn_candidates_pruned"] == 1
+    assert _build.launches["knn_candidates"] == 0
+    total, scored = index.boxes.counts.tolist()
+    assert total == 1024 * 3912 and 1024 <= scored and 2 * scored < total
+    ik, dk = K.knn_select(K.prepare(train, prep.q, k, query_tile=8), k)
+    assert torch.equal(idx, ik) and torch.equal(d2, dk)
+    _build.reset_launches()
+    i1, d1 = K.knn_cuda_pruned(None, queries, k, train_index=index)
+    torch.cuda.synchronize()
+    assert _build.launches["knn_candidates_pruned"] == 1
+    assert _build.launches["knn_candidates"] == 0
+    i0, d0 = K.knn_cuda(train, queries, k)
+    assert torch.equal(i1, i0) and torch.equal(d1, d0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
@@ -948,6 +983,10 @@ def test_captured_serving_is_bit_equal_to_the_eager_core(engine):
         assert captured == eager and eager["fused_predict_coords"] == 1
         if engine == "fused":
             assert eager["knn_candidates_pruned"] == 1
+            assert eager["knn_candidates"] == 0  # no subsample search
+    if engine == "fused":
+        stats = server.search_stats()
+        assert 0 < 2 * stats["boxes_scored"] < stats["boxes_total"]
 
 
 def test_captured_fast_mean_is_bit_equal_to_the_eager_core():
@@ -979,6 +1018,9 @@ def test_captured_fast_mean_is_bit_equal_to_the_eager_core():
         eager = dict(_build.launches)
         assert np.array_equal(m, me.cpu().numpy()[:len(m)])
         assert captured == eager and eager["knn_candidates_pruned"] == 1
+        assert eager["knn_candidates"] == 0  # no subsample search
+    stats = server.search_stats()
+    assert 0 < 2 * stats["boxes_scored"] < stats["boxes_total"]
     cpu = FastServer(model, NN_Wrapper(train, 30, device="cpu"), train,
                      targets, bucket=256, engine="fast_mean", device="cpu")
     # f32 on both sides: the coefficients' rounding times the conditioning

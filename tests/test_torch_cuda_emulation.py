@@ -121,20 +121,24 @@ def test_k5_source_matches_plain(k5_lib, m, B, dtype):
 @pytest.mark.parametrize("d", [2, 3])
 @pytest.mark.parametrize("n_query", [16, 32])
 def test_k3_fused_source_matches_plain(k3_lib, pruned, d, n_query):
-    """The fused K3 design (the merge inside the kernel) against
-    knn_select_plain on 2048 train points at 256 bins, k = 38: distances
-    bit-equal (both are in ascending key order), index sets equal; the kept
-    design's key state bit-equal to its mirror on the same launch inputs."""
+    """The fused K3 design (the merge inside the kernel; pruned, its
+    bounded route) against knn_select_plain on 2048 train points at 256
+    bins, k = 38: distances bit-equal (both are in ascending key order),
+    index sets equal; the kept design's key state (pruned, under its skip
+    table) bit-equal to its mirror on the same launch inputs."""
     from muygpys_torch.gpu import knn as K
 
-    prep = emu.k3_problem(n_train=2048, n_query=n_query, d=d, pruned=pruned)
+    fused = emu.k3_problem(n_train=2048, n_query=n_query, d=d,
+                           route="bounded" if pruned else "unpruned")
+    idx, d2 = (emu.k3_bounded if pruned else emu.k3_select)(k3_lib, fused, 38)
+    ip, dp = K.knn_select_plain(fused, 38)
+    assert torch.equal(d2, dp)
+    assert torch.equal(torch.sort(idx, 1).values, torch.sort(ip, 1).values)
+    prep = emu.k3_problem(n_train=2048, n_query=n_query, d=d,
+                          route="table" if pruned else "unpruned")
     if pruned and d == 2:
         run = prep.lb <= prep.ub[:, None]
         assert 0 < int(run.sum()) < run.numel(), "no tile was skipped"
-    idx, d2 = emu.k3_select(k3_lib, prep, 38)
-    ip, dp = K.knn_select_plain(prep, 38)
-    assert torch.equal(d2, dp)
-    assert torch.equal(torch.sort(idx, 1).values, torch.sort(ip, 1).values)
     s1, s2 = emu.k3_keys(k3_lib, prep)
     p1, p2 = K.knn_candidates_plain(
         prep.q, prep.qsq, prep.tT, prep.tsq, prep.bins, prep.train_tile,

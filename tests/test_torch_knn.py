@@ -191,11 +191,33 @@ def test_train_index_gives_the_per_request_candidates(problem, pruned):
     index = tknn.build_index(
         torch.as_tensor(ts), GEOM["train_tile"], GEOM["bins"], pruned=pruned
     )
-    assert (index.sub is not None) == pruned
+    assert (index.sub is not None) == (index.boxes is not None) == pruned
     for part in (queries[:100], queries[100:]):
         i0, d0 = fn(ts, part, 40, device="cpu", **GEOM)
         i1, d1 = fn(None, part, 40, device="cpu", train_index=index, **GEOM)
         assert torch.equal(i0, i1) and torch.equal(d0, d1)
+
+
+def test_shard_boxes_take_the_sort_grid():
+    """A row shard of a Morton-sorted set (``FastServer(shard="train")``)
+    indexed on the grid the whole set was sorted on: its boxes' first codes
+    rise with the rows, as the bounded route's home search needs, and equal
+    the whole set's codes of those rows; the shard's own grid is the
+    default."""
+    rng = np.random.default_rng(5)
+    pts = torch.as_tensor(rng.uniform(size=(20_000, 2)).astype(np.float32))
+    pts = pts[tknn.spatial_sort(pts)]
+    grid = tknn._morton_grid(pts)
+    codes = tknn._morton_codes(pts, grid=grid)
+    for start in (0, 10_000):
+        shard = pts[start:start + 10_000]
+        index = tknn.build_index(shard, pruned=True, grid=grid)
+        first = index.boxes.first
+        assert bool((torch.diff(first) >= 0).all())
+        real = first[: -(-10_000 // tknn.BOX)]
+        assert torch.equal(real, codes[start:start + 10_000:tknn.BOX])
+        own = tknn.build_index(shard, pruned=True).boxes
+        assert torch.equal(own.grid, torch.cat(tknn._morton_grid(shard)[:2]))
 
 
 def test_train_index_refuses_another_geometry(problem):
