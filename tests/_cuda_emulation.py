@@ -5,17 +5,19 @@ exact search) run on the CPU, one thread per CUDA thread, for
 A machine without a card or ``nvcc`` cannot run ``muygpys_torch/gpu/csrc``.
 :func:`build` compiles any of its ``.cu`` sources with the host's C++20
 compiler against a small emulation of the CUDA subset they use: a
-``std::thread`` per CUDA thread, ``std::barrier`` for ``__syncthreads`` and
+``std::thread`` per CUDA thread (a launch's threads all on one core),
+``std::barrier`` for ``__syncthreads`` and
 ``__syncwarp``, an exchange slot for the warp shuffles, ballots and
 reductions, a relaxed atomic for ``atomicAdd``, ``memcpy`` for the asynchronous copies, plain loads for the
 read-only ones, IEEE single operations
 for the round-to-nearest intrinsics (compiled without contraction, so no
 fused multiply-add), and shared memory filled with garbage before each
 block.  The C entry points are then called through ``ctypes`` on CPU
-tensors.  Built with ThreadSanitizer (``tsan=True``) and run in a child
-process that preloads the sanitizer's runtime (:func:`race_report`), one
-launch reports any data race between the emulated threads: a missing
-barrier on the card.
+tensors.  Each library is built once a run, into ``build/cuda_emulation/``
+(git-ignored), and shared by every test file and worker process.  Built
+with ThreadSanitizer (``tsan=True``) and run in a child process that
+preloads the sanitizer's runtime (:func:`race_report`), one launch reports
+any data race between the emulated threads: a missing barrier on the card.
 
 What this checks is the arithmetic and the synchronisation of the sources,
 not their speed, their registers or the card's memory model.
@@ -24,6 +26,9 @@ not their speed, their registers or the card's memory model.
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import functools
+import hashlib
 import math
 import os
 import re
@@ -38,6 +43,7 @@ import torch
 TESTS = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(TESTS)
 CSRC = os.path.join(REPO, "muygpys_torch", "gpu", "csrc")
+BUILD_DIR = os.path.join(REPO, "build", "cuda_emulation")
 
 HEADER = r"""
 #pragma once
@@ -47,6 +53,8 @@ HEADER = r"""
 #include <cmath>
 #include <cstring>
 #include <memory>
+#include <pthread.h>
+#include <sched.h>
 #include <thread>
 #include <vector>
 
@@ -164,6 +172,12 @@ template <typename K, typename G, typename... A>
 void emu_launch(K kernel, G grid_size, int block, size_t bytes, A... args) {
   std::vector<unsigned char> smem(bytes + 64);
   const dim3 grid = as_grid(grid_size);
+  // every thread of the launch on the core it started on: spread over the
+  // machine, a block's threads take every core from the test workers beside
+  // it, and each barrier waits on whichever of them was preempted
+  cpu_set_t here;
+  CPU_ZERO(&here);
+  CPU_SET(sched_getcpu(), &here);
   for (int by = 0; by < grid.y; ++by)
   for (int bx = 0; bx < grid.x; ++bx) {
     std::fill(smem.begin(), smem.end(), 0xAB);  // garbage, as on the card
@@ -172,12 +186,14 @@ void emu_launch(K kernel, G grid_size, int block, size_t bytes, A... args) {
     std::vector<std::unique_ptr<WarpCtx>> warps;
     for (int w = 0; w < (block + 31) / 32; ++w) warps.emplace_back(new WarpCtx());
     std::vector<std::thread> ts;
-    for (int t = 0; t < block; ++t)
+    for (int t = 0; t < block; ++t) {
       ts.emplace_back([&, t] {
         threadIdx.x = t; blockIdx.x = bx; blockIdx.y = by; blockDim.x = block;
         my_warp = warps[t / 32].get(); my_block = &bbar;
         kernel(args...);
       });
+      pthread_setaffinity_np(ts.back().native_handle(), sizeof here, &here);
+    }
     for (auto& th : ts) th.join();
   }
 }
@@ -196,17 +212,17 @@ def translate(source: str) -> str:
                    f"{m.group(3)}, {m.group(4)}, "), s)
 
 
-def compiler_ready(out_dir: str) -> str:
+@functools.cache
+def compiler_ready() -> str:
     """Why the emulation cannot be built here, or "" when ``g++`` compiles
     C++20 ``<barrier>`` and ``<thread>``."""
     if shutil.which("g++") is None:
         return "no g++"
-    probe = os.path.join(out_dir, "probe.cpp")
-    with open(probe, "w") as f:
-        f.write("#include <barrier>\n#include <thread>\n"
-                "int main() { std::barrier<> b(1); b.arrive_and_wait(); }\n")
-    res = subprocess.run(["g++", "-std=c++20", "-pthread", "-o",
-                          probe[:-4], probe], capture_output=True, text=True)
+    res = subprocess.run(
+        ["g++", "-std=c++20", "-pthread", "-x", "c++", "-", "-o", os.devnull],
+        input="#include <barrier>\n#include <thread>\n"
+              "int main() { std::barrier<> b(1); b.arrive_and_wait(); }\n",
+        capture_output=True, text=True)
     return "" if res.returncode == 0 else "g++ lacks C++20 <barrier>"
 
 
@@ -235,27 +251,52 @@ extern "C" int knn_bounded_one_round(
 """
 
 
-def build(name: str, out_dir: str, tsan: bool = False) -> str:
-    """Compile ``csrc/<name>.cu`` against the emulation into a shared
-    library under ``out_dir`` (``knn.cu`` with :data:`KNN_ONE_ROUND`);
-    returns its path."""
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "cuda_emu.h"), "w") as f:
-        f.write(HEADER)
+def build(name: str, tsan: bool = False, source: str | None = None) -> str:
+    """Compile ``csrc/<name>.cu`` (or ``source``, a ``.cu`` text in its
+    place) against the emulation into a shared library under
+    :data:`BUILD_DIR` (``knn.cu`` with :data:`KNN_ONE_ROUND`); returns its
+    path.  The library's directory carries a digest of the translated
+    source, the headers and the flags, so each is compiled once however many
+    processes ask: one compiles under a file lock, the others wait and load
+    its library, which is renamed into place whole.  Skips the calling test
+    where ``g++`` cannot build the emulation or, with ``tsan``, has no
+    ThreadSanitizer runtime."""
+    import pytest
+
+    why = compiler_ready()
+    if why:
+        pytest.skip(f"the CUDA emulation needs g++ with C++20: {why}")
+    if tsan and not tsan_runtime():
+        pytest.skip("g++ has no ThreadSanitizer runtime")
+    if source is None:
+        with open(os.path.join(CSRC, f"{name}.cu")) as f:
+            source = f.read()
+    text = translate(source) + (KNN_ONE_ROUND if name == "knn" else "")
+    headers = {"cuda_emu.h": HEADER}
     for header in ("matern_nu.cuh",):
-        shutil.copyfile(os.path.join(CSRC, header), os.path.join(out_dir, header))
-    cpp = os.path.join(out_dir, f"{name}.cpp")
-    with open(os.path.join(CSRC, f"{name}.cu")) as f:
-        text = translate(f.read())
-    if name == "knn":
-        text += KNN_ONE_ROUND
-    with open(cpp, "w") as f:
-        f.write(text)
-    lib = os.path.join(out_dir, f"lib{name}{'_tsan' if tsan else ''}.so")
-    flags = ["-fsanitize=thread", "-g"] if tsan else []
-    subprocess.run(["g++", "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC",
-                    "-shared", "-pthread", "-I", out_dir, *flags, "-o", lib,
-                    cpp], check=True, capture_output=True)
+        with open(os.path.join(CSRC, header)) as f:
+            headers[header] = f.read()
+    flags = ["-std=c++20", "-O1", "-ffp-contract=off", "-fPIC", "-shared",
+             "-pthread", *(["-fsanitize=thread", "-g"] if tsan else [])]
+    digest = hashlib.sha256(
+        "\0".join([text, *headers.values(), *flags]).encode()).hexdigest()
+    out_dir = os.path.join(BUILD_DIR, f"{name}_{digest[:16]}")
+    lib = os.path.join(out_dir, f"lib{name}.so")
+    if os.path.exists(lib):
+        return lib
+    os.makedirs(out_dir, exist_ok=True)
+    with open(out_dir + ".lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if os.path.exists(lib):  # built by another process while this waited
+            return lib
+        for file, body in [*headers.items(), (f"{name}.cpp", text)]:
+            with open(os.path.join(out_dir, file), "w") as f:
+                f.write(body)
+        tmp = f"{lib}.{os.getpid()}.tmp"
+        subprocess.run(["g++", *flags, "-I", out_dir, "-o", tmp,
+                        os.path.join(out_dir, f"{name}.cpp")],
+                       check=True, capture_output=True)
+        os.replace(tmp, lib)
     return lib
 
 
@@ -387,19 +428,26 @@ RACE_LAUNCHES = ("k2-registers", "k2-shared", "k2-registers-free-nu",
                  "k4-coeffs")
 
 
-def race_launch(out_dir: str, launch: str) -> None:
+def race_source(launch: str) -> str:
+    """The source of ``launch``, one of :data:`RACE_LAUNCHES`."""
+    return next(name for prefix, name in (
+        ("k1", "fused_predict"), ("k2", "fused_train"), ("k3", "knn"),
+        ("k4", "matern_nu_coeffs"), ("k5", "multiout_solve"))
+        if launch.startswith(prefix))
+
+
+def race_launch(lib: str, launch: str) -> None:
     """Run one launch of :data:`RACE_LAUNCHES` (or ``"knn-exact"``) through
-    the ThreadSanitizer builds in ``out_dir`` (in the child process
-    :func:`race_report` starts).  PyTorch sets the problem up on one
+    ``lib``, a ThreadSanitizer build of :func:`race_source` (in the child
+    process :func:`race_report` starts).  PyTorch sets the problem up on one
     thread: its OpenMP workers are not the emulated threads."""
     torch.set_num_threads(1)
+    lib = ctypes.CDLL(lib)
     if launch == "knn-exact":
-        lib = ctypes.CDLL(os.path.join(out_dir, "libknn_exact_tsan.so"))
         index, queries = knn_exact_problem(2100, 5, 2, tile=64)
         knn_exact_run(lib, index, queries, 31)
         return
     if launch.startswith("k3"):
-        lib = ctypes.CDLL(os.path.join(out_dir, "libknn_tsan.so"))
         if launch.endswith("bounded"):
             k3_bounded(lib, k3_bounded_problem(2300, 8, 8, 2), 38)
         elif launch.endswith("rounds"):
@@ -411,17 +459,14 @@ def race_launch(out_dir: str, launch: str) -> None:
             k3_select(lib, k3_problem(n_train=2048, n_query=16), 38)
         return
     if launch.startswith("k4"):
-        lib = ctypes.CDLL(os.path.join(out_dir, "libmatern_nu_coeffs_tsan.so"))
         coeffs_run(lib, torch.tensor([1.2], dtype=torch.float64), True,
                    tangent=True)
         return
     if launch.startswith("k1b"):
-        lib = ctypes.CDLL(os.path.join(out_dir, "libfused_predict_tsan.so"))
         nu = "gen" if launch.endswith("gen") else 1.5
         k1b_run(lib, 1, *k1b_inputs(30, 2, 9, torch.float32, nu=nu), nu, 1)
         return
     if launch.startswith("k1"):
-        lib = ctypes.CDLL(os.path.join(out_dir, "libfused_predict_tsan.so"))
         nu = "gen" if launch.endswith("gen") else 1.5
         ins = k1_inputs(30, 2, 1, 9, torch.float32, hetero=True, nu=nu)
         k1_run(lib, 1, *ins, nu, 1)
@@ -429,7 +474,6 @@ def race_launch(out_dir: str, launch: str) -> None:
     if launch.startswith("k2"):
         from muygpys_torch.gpu.matern_nu import matern_nu_coeffs
 
-        lib = ctypes.CDLL(os.path.join(out_dir, "libfused_train_tsan.so"))
         free = launch.endswith("free-nu")
         n, B, r = (20 if free else 30), 9, 1
         g = torch.Generator().manual_seed(0)
@@ -445,13 +489,12 @@ def race_launch(out_dir: str, launch: str) -> None:
         k2_run(lib, design, pw, cw, y, params, None, gen, 5 if free else 1, 1,
                True, free, 0)
     else:
-        lib = ctypes.CDLL(os.path.join(out_dir, "libmultiout_solve_tsan.so"))
         _, design, m = launch.split("-")
         front, _ = k5_inputs(int(m), 2, torch.float32)
         k5_run(lib, int(design == "registers"), front, int(m), 3, 2, False)
 
 
-def race_report(out_dir: str, launch: str):
+def race_report(lib: str, launch: str):
     """Run :func:`race_launch` in a child process with ThreadSanitizer's
     runtime preloaded; returns (its exit code, the number of races it
     reported, its standard error)."""
@@ -460,7 +503,7 @@ def race_report(out_dir: str, launch: str):
     res = subprocess.run(
         [sys.executable, "-c",
          "import sys, _cuda_emulation as e; e.race_launch(*sys.argv[1:])",
-         out_dir, launch],
+         lib, launch],
         env=env, capture_output=True, text=True, cwd=REPO,
     )
     return (res.returncode, res.stderr.count("WARNING: ThreadSanitizer"),

@@ -1,10 +1,10 @@
 """The hand-written CUDA sources (K1, K1b, K2, K3 and K5), run on the CPU one
 thread per CUDA thread (``_cuda_emulation``), against their plain PyTorch
-versions (K4's constructor in test_torch_cuda_emulation_k4.py); and one
-launch of each new design, K4's constructor included, under
-ThreadSanitizer, which fails on a missing barrier.  Skipped where ``g++``
-lacks C++20 ``<barrier>``."""
+versions (K4's constructor in test_torch_cuda_emulation_k4.py; each design's
+ThreadSanitizer launch in test_torch_cuda_emulation_races.py).  Skipped
+where ``g++`` lacks C++20 ``<barrier>``."""
 
+import ctypes
 import math
 
 import numpy as np
@@ -24,50 +24,23 @@ K1_LIMIT = {torch.float64: (1e-10, 1e-10), torch.float32: (5e-3, 2e-5)}
 
 
 @pytest.fixture(scope="module")
-def out_dir(tmp_path_factory):
-    path = str(tmp_path_factory.mktemp("cuda_emulation"))
-    why = emu.compiler_ready(path)
-    if why:
-        pytest.skip(f"the CUDA emulation needs g++ with C++20: {why}")
-    return path
+def k2_lib():
+    return ctypes.CDLL(emu.build("fused_train"))
 
 
 @pytest.fixture(scope="module")
-def k2_lib(out_dir):
-    import ctypes
-
-    return ctypes.CDLL(emu.build("fused_train", out_dir))
+def k5_lib():
+    return ctypes.CDLL(emu.build("multiout_solve"))
 
 
 @pytest.fixture(scope="module")
-def k5_lib(out_dir):
-    import ctypes
-
-    return ctypes.CDLL(emu.build("multiout_solve", out_dir))
+def k3_lib():
+    return ctypes.CDLL(emu.build("knn"))
 
 
 @pytest.fixture(scope="module")
-def k3_lib(out_dir):
-    import ctypes
-
-    return ctypes.CDLL(emu.build("knn", out_dir))
-
-
-@pytest.fixture(scope="module")
-def k1_lib(out_dir):
-    import ctypes
-
-    return ctypes.CDLL(emu.build("fused_predict", out_dir))
-
-
-@pytest.fixture(scope="module")
-def tsan_dir(out_dir):
-    if not emu.tsan_runtime():
-        pytest.skip("g++ has no ThreadSanitizer runtime")
-    for name in ("fused_train", "multiout_solve", "knn", "fused_predict",
-                 "matern_nu_coeffs"):
-        emu.build(name, out_dir, tsan=True)
-    return out_dir
+def k1_lib():
+    return ctypes.CDLL(emu.build("fused_predict"))
 
 
 def _case_id(case):
@@ -268,12 +241,3 @@ def test_k1b_source_reads_both_triangles(k1_lib, nu, dtype):
         m, v = emu.k1b_run(k1_lib, design, *ins, nu, 1)
         assert float((m - mp).abs().max()) <= tol_m, design
         assert float((v - vp).abs().max()) <= tol_v, design
-
-
-@pytest.mark.parametrize("launch", emu.RACE_LAUNCHES)
-def test_source_has_no_race(tsan_dir, launch):
-    """One launch under ThreadSanitizer reports no data race between the
-    emulated threads."""
-    rc, races, stderr = emu.race_report(tsan_dir, launch)
-    assert races == 0, stderr[-4000:]
-    assert rc == 0, stderr[-4000:]

@@ -2,7 +2,9 @@
 one thread per CUDA thread (``_cuda_emulation``), against its plain PyTorch
 version and the JAX package's builder; its device digamma against
 torch.special.digamma.  Skipped where ``g++`` lacks C++20 ``<barrier>``
-(its ThreadSanitizer launch is in test_torch_cuda_emulation.py)."""
+(its ThreadSanitizer launch is in test_torch_cuda_emulation_races.py)."""
+
+import ctypes
 
 import numpy as np
 import pytest
@@ -13,14 +15,8 @@ from muygpys_torch.gpu import matern_nu as tm
 
 
 @pytest.fixture(scope="module")
-def k4_lib(tmp_path_factory):
-    import ctypes
-
-    path = str(tmp_path_factory.mktemp("cuda_emulation_k4"))
-    why = emu.compiler_ready(path)
-    if why:
-        pytest.skip(f"the CUDA emulation needs g++ with C++20: {why}")
-    return ctypes.CDLL(emu.build("matern_nu_coeffs", path))
+def k4_lib():
+    return ctypes.CDLL(emu.build("matern_nu_coeffs"))
 
 
 def _assert_within(got, want, limits, what):

@@ -18,12 +18,8 @@ from muygpys_torch.gpu import knn as K
 
 
 @pytest.fixture(scope="module")
-def lib(tmp_path_factory):
-    path = str(tmp_path_factory.mktemp("cuda_emulation_knn_bounded"))
-    why = emu.compiler_ready(path)
-    if why:
-        pytest.skip(f"the CUDA emulation needs g++ with C++20: {why}")
-    return ctypes.CDLL(emu.build("knn", path))
+def lib():
+    return ctypes.CDLL(emu.build("knn"))
 
 
 def _unpruned(prep):

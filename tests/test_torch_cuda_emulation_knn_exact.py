@@ -1,7 +1,8 @@
 """The exact search's CUDA source (``csrc/knn_exact.cu``), run on the CPU one
 thread per CUDA thread (``_cuda_emulation``), against its plain version
-``knn_exact_select_plain``; and one launch under ThreadSanitizer.  Skipped
-where ``g++`` lacks C++20 ``<barrier>``."""
+``knn_exact_select_plain`` (its ThreadSanitizer launch is in
+test_torch_cuda_emulation_races.py).  Skipped where ``g++`` lacks C++20
+``<barrier>``."""
 
 import ctypes
 from unittest import mock
@@ -15,17 +16,8 @@ from muygpys_torch.gpu import knn_exact as X
 
 
 @pytest.fixture(scope="module")
-def out_dir(tmp_path_factory):
-    path = str(tmp_path_factory.mktemp("cuda_emulation_knn_exact"))
-    why = emu.compiler_ready(path)
-    if why:
-        pytest.skip(f"the CUDA emulation needs g++ with C++20: {why}")
-    return path
-
-
-@pytest.fixture(scope="module")
-def lib(out_dir):
-    return ctypes.CDLL(emu.build("knn_exact", out_dir))
+def lib():
+    return ctypes.CDLL(emu.build("knn_exact"))
 
 
 @pytest.mark.parametrize("k", [1, 30, 31, 64])
@@ -79,14 +71,3 @@ def test_knn_exact_source_on_ties(lib, case):
             t = train[row]
             dist = (q[0] - t[0]) ** 2 + (q[1] - t[1]) ** 2
             assert float(dist) == float(d2[qi, -1]), (qi, row)
-
-
-def test_knn_exact_source_has_no_race(out_dir):
-    """One launch under ThreadSanitizer reports no data race between the
-    emulated threads."""
-    if not emu.tsan_runtime():
-        pytest.skip("g++ has no ThreadSanitizer runtime")
-    emu.build("knn_exact", out_dir, tsan=True)
-    rc, races, stderr = emu.race_report(out_dir, "knn-exact")
-    assert races == 0, stderr[-4000:]
-    assert rc == 0, stderr[-4000:]
