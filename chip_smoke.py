@@ -24,6 +24,14 @@ Phases (any failure raises and the script exits non-zero):
    distances bit-equal, index sets on >= 0.999 of slots) and the kept
    design plus its torch.topk merge (key state bit-equal), each timed, with
    the cdist + topk yardstick;
+4b. the bounded route's query order (knn_query_order_kernel) against its
+   plain route (the Morton sort and the inverse argsort) bit for bit at
+   8192 x 2, 256 x 2, 1 x 2, 8191 x 3, 4096 x 4 and 256 clustered queries,
+   one launch each; torch.sum's norms against the feature order at 1 to 4
+   features; both routes timed at 8192 x 2 and 256 x 2; the fused and
+   fast-mean buckets built with either route: outputs bit-equal, launches
+   and the profiler's device activities a request, predictions/s
+   alternated;
 5. serving end to end: FastServer(engine="fused") at the headline
    configuration (50k Morton-sorted training points, d=2, nn=30, bucket
    8192, Matern 3/2, ls 0.5, noise 1e-3, f32) answers three requests, one
@@ -226,6 +234,9 @@ Phases (any failure raises and the script exits non-zero):
    registers; K4's constructor with its launches on the free-nu path;
    each kernel's paths that ran it inside a captured graph (in_graph);
 23. the last line: {"ok": true, "device": {...}}.
+
+With ``--query-order`` the script runs phase 4b alone on the headline set
+and prints its readings as one JSON line.
 
 With ``--exact-bench ROOT`` the script instead times the exact search of
 the muygpys_torch package found at ROOT (this checkout's, or another's, to
@@ -824,6 +835,172 @@ def phase_k3_1m(torch, k, seed=18):
         f"ms once, bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
     assert times["device_ms"] < times["unpruned_device_ms"], name
     return name, row
+
+
+# the bounded route's query order against its plain PyTorch route: (name,
+# queries, features, kind), seeded on the card
+ORDER_CASES = (("8192x2", 8192, 2, "uniform"), ("256x2", 256, 2, "uniform"),
+               ("1x2", 1, 2, "uniform"), ("8191x3", 8191, 3, "uniform"),
+               ("4096x4", 4096, 4, "uniform"),
+               ("256x2[cluster]", 256, 2, "cluster"))
+
+
+def order_queries(torch, count, d, kind, seed):
+    """``count`` f32 queries on the card: uniform in the unit cube, or
+    (``"cluster"``) in a cube of side 0.01 around a uniform centre, as the
+    small cell's traffic."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.rand((count, d), device="cuda", generator=g)
+    if kind == "cluster":
+        q = 0.99 * torch.rand(d, device="cuda", generator=g) + 0.01 * q
+    return q
+
+
+def torch_order(torch, q):
+    """The plain route of the queries' order: ``_sorted_queries`` and the
+    inverse argsort."""
+    from muygpys_torch.gpu import knn as K
+
+    q_pad, qperm = K._sorted_queries(q, 8)
+    return q_pad, qperm, torch.argsort(qperm)
+
+
+def order_bucket(torch, server, requests):
+    """A bucket built with one query order: the outputs of each request,
+    and on one request the launches counted and the profiler's device
+    activities and busy microseconds."""
+    from muygpys_torch.gpu import _build
+
+    server.predict(requests[-1])  # warm-up: the capture
+    torch.cuda.synchronize()
+    outs = [server.predict(r) for r in requests]
+    _build.reset_launches()
+    server.predict(requests[0])
+    launches = {k: v for k, v in _build.launches.items() if v}
+    trace = device_trace(torch, lambda: server.predict(requests[0]))
+    return dict(outs=outs, launches=launches,
+                device_activities=trace["device_activities"],
+                device_busy_us=trace["device_busy_us"])
+
+
+def phase_query_order(torch, train, targets, nbrs):
+    """The bounded route's query order (``knn.knn_query_order``): the
+    kernel against the plain route (``_sorted_queries`` and the inverse
+    argsort) bit for bit at ORDER_CASES, one launch counted each; the
+    glue's norms (``torch.sum``) against sequential sums at 1 to 4
+    features; both routes timed at the bulk bucket's 8192 x 2 and the
+    small bucket's 256 x 2; then the fused and fast-mean buckets at QUERIES
+    built with either route (the plain one forced): outputs bit-equal,
+    launches and the profiler's device activities a request, and
+    predictions/s alternated (kernel, plain, plain, kernel).  Returns the
+    kernels-line row and the readings."""
+    from unittest import mock
+
+    import numpy as np
+
+    from muygpys_torch.convert import muygps_from_arrays
+    from muygpys_torch.gpu import _build
+    from muygpys_torch.gpu import knn as K
+    from muygpys_torch.serve import FastServer
+
+    equal = {}
+    for i, (name, count, d, kind) in enumerate(ORDER_CASES):
+        q = order_queries(torch, count, d, kind, 20 + i)
+        assert K.query_order_route(count, d, q.device) == "kernel", name
+        before = dict(_build.launches)
+        got = K.knn_query_order(q)
+        torch.cuda.synchronize()
+        assert _build.launches["knn_query_order"] == (
+            before["knn_query_order"] + 1), name
+        assert (_build.launches["knn_query_order/torch"]
+                == before["knn_query_order/torch"]), name
+        want = torch_order(torch, q)
+        equal[name] = [bool(torch.equal(a, b)) for a, b in zip(got, want)]
+    log(f"knn_query_order against the plain route (q_pad, qperm, qinv "
+        f"bit-equal): {json.dumps(equal)}")
+    assert all(all(v) for v in equal.values()), "the query order disagrees"
+
+    # the norms the kernel leaves to the glue: torch.sum's additions
+    # against the feature order's
+    sums = {}
+    for d in (1, 2, 3, 4):
+        q = order_queries(torch, 8192, d, "uniform", 30 + d) * 3.0 - 1.0
+        sq = q * q
+        seq = sq[:, 0]
+        for f in range(1, d):
+            seq = seq + sq[:, f]
+        sums[d] = bool(torch.equal(torch.sum(sq, dim=-1), seq))
+    log(f"torch.sum(q * q, -1) equals the sum in feature order at d = "
+        f"{json.dumps(sums)}")
+
+    times = {}
+    for count in (8192, 256):
+        q = order_queries(torch, count, 2, "uniform", 40)
+
+        def kernel():
+            return K.knn_query_order(q)
+
+        def plain():
+            return torch_order(torch, q)
+
+        times[count] = dict(
+            ms=time_ms(kernel), device_ms=device_ms(torch, kernel),
+            plain_ms=time_ms(plain), plain_device_ms=device_ms(torch, plain))
+    log(f"knn_query_order time (2 features): {json.dumps(times)}")
+
+    model = muygps_from_arrays(length_scale=LS, noise=NOISE, scale=1.0,
+                               smoothness=NU)
+    rng = np.random.default_rng(41)
+    requests = [rng.uniform(size=(QUERIES, D)).astype(np.float32)
+                for _ in range(3)]
+    buckets = {}
+    for engine in ("fused", "fast_mean"):
+        servers, runs = {}, {}
+        for route in ("kernel", "torch"):
+            with mock.patch.object(
+                    K, "query_order_route",
+                    K.query_order_route if route == "kernel"
+                    else (lambda *_: "torch")):
+                servers[route] = FastServer(model, nbrs, train, targets,
+                                            bucket=QUERIES, engine=engine)
+                runs[route] = order_bucket(torch, servers[route], requests)
+        kern, plain = runs["kernel"], runs["torch"]
+        same = all(
+            (a is None and b is None) or np.array_equal(a, b)
+            for ok, op in zip(kern["outs"], plain["outs"])
+            for a, b in zip(ok, op))
+        rates = {"kernel": [], "torch": []}
+        for route in ("kernel", "torch", "torch", "kernel"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for r in requests:
+                servers[route].predict(r)
+            rates[route].append(3 * QUERIES / (time.perf_counter() - t0))
+        log(f"{engine} bucket: outputs of the two query orders bit-equal "
+            f"{same}; launches a request, kernel route "
+            f"{json.dumps(kern['launches'])}, plain route "
+            f"{json.dumps(plain['launches'])}; device activities a request "
+            f"{kern['device_activities']} against "
+            f"{plain['device_activities']}, busy us "
+            f"{kern['device_busy_us']:.1f} against "
+            f"{plain['device_busy_us']:.1f}; predictions/s (alternated) "
+            f"{json.dumps(rates)}")
+        assert same, f"the {engine} bucket differs between the query orders"
+        assert kern["launches"].get("knn_query_order") == 1
+        assert "knn_query_order/torch" not in kern["launches"]
+        assert plain["launches"].get("knn_query_order/torch") == 1
+        assert "knn_query_order" not in plain["launches"]
+        assert kern["device_activities"] < plain["device_activities"]
+        buckets[engine] = dict(
+            rates=rates,
+            device_activities={r: runs[r]["device_activities"]
+                               for r in runs})
+    # bytes: the queries read twice (grid, codes) and once gathered, the
+    # padded rows, the permutation and its inverse written once
+    nbytes = 8192 * 2 * 4 * 3 + 8192 * 2 * 4 + 2 * 8192 * 8
+    row = bound_row(nbytes, 8192 * 2 * 4, design="one block",
+                    **times[8192])
+    return row, dict(equal=equal, sums=sums, times=times, buckets=buckets)
 
 
 def k3_case(torch, name, prep, k, queries, train_used):
@@ -4428,6 +4605,9 @@ def main() -> int:
     ))
     # ... and at the serving cells' shape, the bulk and fast-mean buckets'
     rows.update(phase_k3_1m(torch, k) for k in (cand_count, 9))
+    # 4b. the bounded route's query order
+    rows["knn_query_order"], _ = phase_query_order(torch, train, targets,
+                                                   nbrs)
 
     # 5. serving end to end
     model = muygps_from_arrays(
@@ -4864,6 +5044,11 @@ def main() -> int:
         "knn_candidates_pruned[1m,k9]": (
             "muygpys_torch/gpu/csrc/knn.cu", "muygpys_tpu/pallas/knn.py:451",
             "fused",
+        ),
+        # the bounded route's query order, counted on the fused path
+        "knn_query_order": (
+            "muygpys_torch/gpu/csrc/knn.cu",
+            "none: the glue's Morton sort (XLA's in the JAX package)", "fused",
         ),
         # K3 pruned on the fast posterior mean's path: get_batch_nns over
         # every training point (the row's shape) and the requests' get_nns
@@ -5391,6 +5576,38 @@ def phase_sharded(torch, payload, judge, ref, exact_sets, bench, dev="cuda",
     return numbers, launches
 
 
+def query_order_only() -> int:
+    """``--query-order``: phase 4b alone on the headline set, then one
+    JSON line of its readings."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import numpy as np
+
+    from muygpys_torch.gpu import _build
+    from muygpys_torch.neighbors import NN_Wrapper
+
+    log(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        check=True, capture_output=True, text=True).stdout.strip())
+    seconds = _build.build(("knn", "fused_predict", "knn_exact"))
+    log(f"build: {json.dumps(seconds)}")
+    report = _build.library_path("knn").with_suffix(".log").read_text()
+    for kernel, numbers in ptxas_report(report).items():
+        log(f"  {kernel}: {numbers}")
+    rng = np.random.default_rng(1)
+    train = rng.uniform(size=(TRAIN, D)).astype(np.float32)
+    targets = rng.standard_normal((TRAIN, 1)).astype(np.float32)
+    row, readings = phase_query_order(torch, train, targets,
+                                      NN_Wrapper(train, NN))
+    print(json.dumps({"knn_query_order": row, **readings}), flush=True)
+    return 0
+
+
 def exact_bench(root) -> int:
     """``--exact-bench ROOT``: five timings each of the exact search
     (NN_Wrapper("exact").get_nns, one request of 8192 against the 50,000
@@ -5433,6 +5650,8 @@ def exact_bench(root) -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--exact-bench"]:
         sys.exit(exact_bench(sys.argv[2]))
+    if sys.argv[1:2] == ["--query-order"]:
+        sys.exit(query_order_only())
     if sys.argv[1:2] == ["--sharded-rank"]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         a = sys.argv[2:]

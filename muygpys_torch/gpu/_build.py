@@ -57,7 +57,9 @@ EXTRA_FLAGS = {"matern_nu_coeffs": ("-fmad=false",)}
 # K1, K1b, K2, K3 and K5 have two designs each: "<kernel>/<design>" counts
 # the launches of one design, "<kernel>" those of both (K3:
 # "knn_candidates" and "knn_candidates_pruned" count its two variants,
-# "knn_candidates/<design>" the designs of both variants)
+# "knn_candidates/<design>" the designs of both variants; the bounded
+# route's query order: "knn_query_order" the kernel's launches,
+# "knn_query_order/torch" the orders a card left to plain PyTorch)
 launches: Dict[str, int] = {
     "fused_predict_coords": 0,
     "fused_predict_coords/registers": 0,
@@ -77,6 +79,8 @@ launches: Dict[str, int] = {
     "multiout_solve/shared": 0,
     "matern_nu_coeffs": 0,
     "knn_exact_select": 0,
+    "knn_query_order": 0,
+    "knn_query_order/torch": 0,
 }
 
 _libs: Dict[str, ctypes.CDLL] = {}

@@ -126,6 +126,37 @@
 // (tests/test_torch_cuda_emulation_knn_bounded.py holds a column at this
 // edge: its d lies under tau while its box's exact bound lies over it.)
 //
+// The queries' order (knn_query_order_kernel): the bounded route's query
+// side, the queries along their own Morton curve, in one launch of one
+// block, in place of the glue's plain PyTorch (knn.py:_sorted_queries: the
+// grid, the codes' bit interleave one bit a kernel, a stable radix sort,
+// the gather and edge pad; and knn_cuda_pruned's inverse argsort), about
+// 100 nodes of a captured bucket.  It replaces no TPU kernel: the JAX
+// package sorts the queries with XLA.  At 8192 x 2 the work is 16 K
+// quantised coordinates and 3 passes over 8192 slots: a few hundred KB
+// and no arithmetic to speak of, so one SM's issue rate and shared memory
+// bound it (0.041 ms on an H100, against the glue's ~0.19 ms of device
+// time and its launches).  A
+// block of 32 to 1024 threads holds the queries in shared memory, warp w
+// slots w 256 + 32 r + lane for rounds r < 8, so (warp, round, lane) is
+// slot order:
+//   1. The grid of _morton_grid: each feature's min and max by warp
+//      shuffles, then across the warps; scale = (2^bits - 1) / max(hi -
+//      lo, 1e-30) in IEEE division, as PyTorch's tensor / tensor.
+//   2. The codes of _morton_codes: (x - lo) * scale, each operation rounded
+//      on its own, clamped to [0, 2^bits - 1], truncated, bits interleaved;
+//      an empty slot's key lies above every code.
+//   3. A stable LSD radix sort of (code, slot) over the code's bits, 8 a
+//      pass: each warp ranks its slots among its earlier slots of the same
+//      digit (a ballot a digit bit, a round), the block scans the (digit,
+//      warp) counts digit-major, and a slot moves to its digit's offset plus its
+//      warp's plus its rank.  Equal codes keep slot order, so the
+//      permutation is torch.argsort(stable=True)'s bit for bit.
+//   4. The sorted rows edge-padded to `rows`, the permutation and its
+//      inverse (qinv[qperm[i]] = i).
+// The queries' norms stay with the glue (torch.sum), whose order of
+// addition at 3 or 4 features on a card is its own (knn_exact.py).
+//
 // The keys design (knn_candidates_kernel, kept for the shapes the fused
 // design does not take): the TPU held each query tile's state in a VMEM
 // output block revisited across a sequential train-tile grid axis.  On
@@ -677,6 +708,221 @@ int bounded(const float* q, const float* qsq, const float* tT, const float* tsq,
             train_count, stream);
 }
 
+// ---- the queries' order --------------------------------------------------
+
+constexpr int kOrderThreads = 1024;                     // the most threads of its block
+constexpr int kOrderItems = 8;                          // slots a lane
+constexpr int kOrderCap = kOrderThreads * kOrderItems;  // the most queries a launch orders
+constexpr int kDigitBits = 8;                           // code bits a pass
+constexpr int kDigits = 1 << kDigitBits;
+constexpr int kEmpty = 0x7fffffff;  // an empty slot's key: above every 30-bit code
+
+// shared memory of the order's block of `threads`: keys and slots twice
+// (each pass reads one copy and writes the other), each warp's digit
+// counts, the digits' offsets, each warp's per-feature min and max
+__host__ __device__ inline size_t order_smem_bytes(int threads) {
+  const size_t n = (size_t)threads * kOrderItems, warps = threads / 32;
+  return sizeof(int) * (4 * n + warps * kDigits + kDigits) + sizeof(float) * warps * 8;
+}
+
+// The lanes of the warp whose digit equals this lane's, by one ballot a
+// digit bit (MATCH.ANY, __match_any_sync, measured slower on an H100)
+__device__ __forceinline__ unsigned digit_peers(int digit) {
+  unsigned peers = kFull;
+#pragma unroll
+  for (int b = 0; b < kDigitBits; ++b) {
+    const unsigned ones = __ballot_sync(kFull, (digit >> b) & 1);
+    peers &= (digit >> b) & 1 ? ones : ~ones;
+  }
+  return peers;
+}
+
+template <int FEAT>
+__global__ void __launch_bounds__(kOrderThreads) knn_query_order_kernel(
+    const float* __restrict__ q,  // (q_count, FEAT)
+    float* __restrict__ q_pad,    // (rows, FEAT)
+    long long* __restrict__ qperm, long long* __restrict__ qinv,  // (q_count,)
+    int q_count, int rows) {
+  // knn.py:_morton_grid's bits: 10 a feature, capped so that a code fits 30
+  constexpr int kBits = 30 / FEAT < 10 ? 30 / FEAT : 10;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int warps = blockDim.x / 32, n = blockDim.x * kOrderItems;
+  const unsigned below = (1u << lane) - 1u;
+  int* keys = reinterpret_cast<int*>(smem_raw);               // [2][n]
+  int* slots = keys + 2 * n;                                  // [2][n]
+  int* counts = slots + 2 * n;                                // [warps][kDigits]
+  int* offset = counts + warps * kDigits;                     // [kDigits]
+  float* ext = reinterpret_cast<float*>(offset + kDigits);    // [warps][min 4, max 4]
+  const int first = warp * 32 * kOrderItems + lane;           // the lane's slot in round 0
+
+  // 1. the grid
+  float lo[FEAT], hi[FEAT], scale[FEAT];
+#pragma unroll
+  for (int f = 0; f < FEAT; ++f) {
+    lo[f] = __int_as_float(0x7f800000);   // +inf
+    hi[f] = __int_as_float(0xff800000);   // -inf
+  }
+#pragma unroll
+  for (int r = 0; r < kOrderItems; ++r) {
+    const int s = first + 32 * r;
+    if (s < q_count)
+#pragma unroll
+      for (int f = 0; f < FEAT; ++f) {
+        const float x = __ldg(q + (size_t)s * FEAT + f);
+        lo[f] = fminf(lo[f], x);
+        hi[f] = fmaxf(hi[f], x);
+      }
+  }
+#pragma unroll
+  for (int f = 0; f < FEAT; ++f) {
+    for (int o = 16; o > 0; o /= 2) {
+      lo[f] = fminf(lo[f], __shfl_xor_sync(kFull, lo[f], o));
+      hi[f] = fmaxf(hi[f], __shfl_xor_sync(kFull, hi[f], o));
+    }
+    if (lane == 0) {
+      ext[warp * 8 + f] = lo[f];
+      ext[warp * 8 + 4 + f] = hi[f];
+    }
+  }
+  __syncthreads();
+  const float top = (float)((1 << kBits) - 1);
+#pragma unroll
+  for (int f = 0; f < FEAT; ++f) {
+    for (int w = 0; w < warps; ++w) {
+      lo[f] = fminf(lo[f], ext[w * 8 + f]);
+      hi[f] = fmaxf(hi[f], ext[w * 8 + 4 + f]);
+    }
+    scale[f] = __fdiv_rn(top, fmaxf(__fsub_rn(hi[f], lo[f]), 1e-30f));
+  }
+
+  // 2. the codes
+#pragma unroll
+  for (int r = 0; r < kOrderItems; ++r) {
+    const int s = first + 32 * r;
+    int key = kEmpty;
+    if (s < q_count) {
+      key = 0;
+#pragma unroll
+      for (int f = 0; f < FEAT; ++f) {
+        const float c = __fmul_rn(__fsub_rn(__ldg(q + (size_t)s * FEAT + f), lo[f]), scale[f]);
+        const int cell = __float2int_rz(fminf(fmaxf(c, 0.0f), top));
+#pragma unroll
+        for (int b = 0; b < kBits; ++b) key |= ((cell >> b) & 1) << (b * FEAT + f);
+      }
+    }
+    keys[s] = key;
+    slots[s] = s;
+  }
+
+  // 3. the sort, kDigitBits of the code a pass
+  int src = 0;
+  int* mine = counts + warp * kDigits;
+#pragma unroll
+  for (int shift = 0; shift < kBits * FEAT; shift += kDigitBits) {
+    const int* key_in = keys + src * n;
+    const int* slot_in = slots + src * n;
+    int* key_out = keys + (1 - src) * n;
+    int* slot_out = slots + (1 - src) * n;
+    for (int e = tid; e < warps * kDigits; e += blockDim.x) counts[e] = 0;
+    __syncthreads();
+    int key[kOrderItems], slot[kOrderItems], rank[kOrderItems];
+#pragma unroll
+    for (int r = 0; r < kOrderItems; ++r) {
+      key[r] = key_in[first + 32 * r];
+      slot[r] = slot_in[first + 32 * r];
+      const int digit = (key[r] >> shift) & (kDigits - 1);
+      const unsigned peers = digit_peers(digit);
+      const int before = mine[digit];
+      rank[r] = before + __popc(peers & below);
+      __syncwarp();  // every peer has read the count
+      if ((peers & below) == 0u) mine[digit] = before + __popc(peers);
+      __syncwarp();
+    }
+    __syncthreads();
+    // a digit's slots follow every smaller digit's; within a digit, warp
+    // w's follow the warps' before it
+    for (int dg = tid; dg < kDigits; dg += blockDim.x) {
+      int run = 0;
+      for (int w = 0; w < warps; ++w) {
+        const int c = counts[w * kDigits + dg];
+        counts[w * kDigits + dg] = run;
+        run += c;
+      }
+      offset[dg] = run;
+    }
+    __syncthreads();
+    if (warp == 0) {  // the digits' totals to their exclusive prefix sums
+      constexpr int kPer = kDigits / 32;
+      int total[kPer], sum = 0;
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        total[i] = offset[lane * kPer + i];
+        sum += total[i];
+      }
+      int incl = sum;
+      for (int o = 1; o < 32; o *= 2) {
+        const int up = __shfl_up_sync(kFull, incl, o);
+        if (lane >= o) incl += up;
+      }
+      int run = incl - sum;
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        offset[lane * kPer + i] = run;
+        run += total[i];
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int r = 0; r < kOrderItems; ++r) {
+      const int digit = (key[r] >> shift) & (kDigits - 1);
+      const int at = offset[digit] + mine[digit] + rank[r];
+      key_out[at] = key[r];
+      slot_out[at] = slot[r];
+    }
+    __syncthreads();  // the pass is written before the counts are reused
+    src ^= 1;
+  }
+
+  // 4. the outputs (rows <= n: a thread's 8 rows, their loads issued
+  // together)
+  const int* order = slots + src * n;
+  int row[kOrderItems];
+  float x[kOrderItems][FEAT];
+#pragma unroll
+  for (int r = 0; r < kOrderItems; ++r) {
+    const int i = tid + r * blockDim.x;
+    row[r] = order[i < q_count ? i : q_count - 1];
+    if (i < rows)
+#pragma unroll
+      for (int f = 0; f < FEAT; ++f) x[r][f] = __ldg(q + (size_t)row[r] * FEAT + f);
+  }
+#pragma unroll
+  for (int r = 0; r < kOrderItems; ++r) {
+    const int i = tid + r * blockDim.x;
+    if (i < rows)
+#pragma unroll
+      for (int f = 0; f < FEAT; ++f) q_pad[(size_t)i * FEAT + f] = x[r][f];
+    if (i < q_count) {
+      qperm[i] = row[r];
+      qinv[row[r]] = i;
+    }
+  }
+}
+
+template <int FEAT>
+int launch_order(const float* q, float* q_pad, long long* qperm, long long* qinv, int q_count,
+                 int rows, void* stream) {
+  // a warp a 256 queries
+  const int threads = (q_count + 32 * kOrderItems - 1) / (32 * kOrderItems) * 32;
+  const size_t bytes = order_smem_bytes(threads);
+  const int err = allow_smem(knn_query_order_kernel<FEAT>, bytes);
+  if (err != (int)cudaSuccess) return err;
+  knn_query_order_kernel<FEAT><<<1, threads, bytes, (cudaStream_t)stream>>>(
+      q, q_pad, qperm, qinv, q_count, rows);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -731,6 +977,22 @@ int knn_bounded(const float* q, const float* qsq, const float* tT, const float* 
                 int train_count, void* stream) {
   return bounded<0>(q, qsq, tT, tsq, box, norm, first, grid, out_idx, out_d2, counts, q_count,
                     feat, t_count, bins, nb, bits, chunk_mask, k, train_count, stream);
+}
+
+// The bounded route's query order: the rows of q (q_count, feat) f32 along
+// their own Morton curve (10 bits a feature, capped so that a code fits 30
+// bits, as knn.py:_morton_grid), q_pad (rows, feat) edge-padded, qperm and
+// its inverse qinv (q_count,) int64.  feat in 1..4, 1 <= q_count <= 8192,
+// q_count <= rows.
+int knn_query_order(const float* q, float* q_pad, long long* qperm, long long* qinv,
+                    int q_count, int feat, int rows, void* stream) {
+  if (feat < 1 || feat > 4 || q_count < 1 || q_count > kOrderCap || rows < q_count)
+    return (int)cudaErrorInvalidValue;
+  auto go = feat == 1   ? launch_order<1>
+            : feat == 2 ? launch_order<2>
+            : feat == 3 ? launch_order<3>
+                        : launch_order<4>;
+  return go(q, q_pad, qperm, qinv, q_count, rows, stream);
 }
 
 const char* muygpys_cuda_error_string(int code) {

@@ -26,9 +26,11 @@ Two designs of the kernel (``csrc/knn.cu``), picked by :func:`knn_design`:
 is the keys mirror followed by the merge.  The rest of the glue is plain
 PyTorch, as it was plain XLA in the JAX package: padding, norms, Morton
 sorting and the bounding-box pruning bounds (the skip table of the keys
-design and of the CPU, as the JAX package's).  The train side of it is built
-once per index (:func:`build_index`), so a request computes only its query
-side.
+design and of the CPU, as the JAX package's); on a card the bounded route
+orders up to :data:`ORDER_CAP` queries in one launch of a kernel of its own
+(:func:`knn_query_order`), bit for bit as the plain sort.  The train side
+is built once per index (:func:`build_index`), so a request computes only
+its query side.
 
 Public counterparts: :func:`knn_cuda` ↔ ``knn_pallas``,
 :func:`knn_cuda_pruned` ↔ ``knn_pallas_pruned``; ``spatial_sort``,
@@ -58,6 +60,9 @@ _SELECT_ARGTYPES = (
 _BOUNDED_ARGTYPES = (
     [ctypes.c_void_p] * 11 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 )
+_ORDER_ARGTYPES = (
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+)
 
 #: the fused design's bounds (``csrc/knn.cu``): features, neighbours, bins
 FUSED_MAX_FEAT = 4
@@ -67,6 +72,9 @@ FUSED_BINS = (256, 512, 1024)
 _BLOCK_QUERIES = 8
 #: columns a box of the bounded route: one block-wide step of the fused walk
 BOX = 256
+#: the most queries one launch of the order kernel sorts: one block of 1024
+#: threads, 8 queries a thread, in shared memory (``csrc/knn.cu``)
+ORDER_CAP = 8192
 
 
 def knn_design(feat: int, k: int, bins: int) -> str:
@@ -238,6 +246,7 @@ class Prepared(NamedTuple):
     query_count: int
     qperm: Optional[torch.Tensor]
     boxes: Optional[Boxes] = None  # the bounded route's (no table)
+    qinv: Optional[torch.Tensor] = None  # qperm's inverse (pruned searches)
 
     def candidates(self):
         """The keys design's ``s1, s2`` (:func:`knn_candidates`)."""
@@ -455,11 +464,11 @@ def _index_for(train, train_index, train_tile, bins, pruned, subsample=16):
 
 
 def _prepared(index: TrainIndex, q_pad, query_tile, query_count, lb=None,
-              ub=None, qperm=None, boxes=None) -> Prepared:
+              ub=None, qperm=None, boxes=None, qinv=None) -> Prepared:
     return Prepared(
         q_pad.contiguous(), torch.sum(q_pad * q_pad, dim=-1), index.tT,
         index.tsq, lb, ub, index.bins, index.train_tile, query_tile,
-        index.chunk_mask, index.train_count, query_count, qperm, boxes,
+        index.chunk_mask, index.train_count, query_count, qperm, boxes, qinv,
     )
 
 
@@ -486,6 +495,53 @@ def _sorted_queries(queries, multiple):
     qperm = spatial_sort(queries)
     rows = math.ceil(queries.shape[0] / multiple) * multiple
     return _edge_pad(queries[qperm], rows), qperm
+
+
+def query_order_route(count: int, feat: int, device) -> str:
+    """How the bounded route orders ``count`` queries of ``feat``
+    features on ``device``: ``"kernel"`` (one launch of
+    ``csrc/knn.cu:knn_query_order_kernel``) on a card for 1 to 4 features
+    and 1 to :data:`ORDER_CAP` queries, else ``"torch"`` (the plain
+    :func:`_sorted_queries` and an argsort for the inverse)."""
+    if (
+        torch.device(device).type == "cuda"
+        and 1 <= feat <= FUSED_MAX_FEAT and 1 <= count <= ORDER_CAP
+    ):
+        return "kernel"
+    return "torch"
+
+
+def knn_query_order(queries):
+    """``(q_pad, qperm, qinv)`` of the bounded route: the f32 queries
+    along their own Morton curve, edge-padded to a multiple of 8 rows (a
+    block of the bounded kernel), the permutation and its inverse.  By
+    :func:`query_order_route`: one launch of the order kernel (counted
+    ``"knn_query_order"``), or :func:`_sorted_queries` and
+    ``torch.argsort`` (on a card counted ``"knn_query_order/torch"``),
+    whose bits the kernel gives."""
+    queries = queries.to(torch.float32)
+    count, feat = queries.shape
+    if query_order_route(count, feat, queries.device) == "torch":
+        if queries.is_cuda:
+            _build.count("knn_query_order/torch")
+        q_pad, qperm = _sorted_queries(queries, _BLOCK_QUERIES)
+        return q_pad, qperm, torch.argsort(qperm)
+    queries = queries.contiguous()
+    rows = math.ceil(count / _BLOCK_QUERIES) * _BLOCK_QUERIES
+    q_pad = torch.empty((rows, feat), dtype=torch.float32,
+                        device=queries.device)
+    qperm = torch.empty(count, dtype=torch.int64, device=queries.device)
+    qinv = torch.empty_like(qperm)
+    fn = _build.function("knn", "knn_query_order", _ORDER_ARGTYPES)
+    with _build.on_device(queries.device):
+        rc = fn(
+            _build.ptr(queries), _build.ptr(q_pad), _build.ptr(qperm),
+            _build.ptr(qinv), count, feat, rows,
+            _build.stream(queries.device),
+        )
+    _build.check(rc, "knn", "knn_query_order")
+    _build.count("knn_query_order")
+    return q_pad, qperm, qinv
 
 
 def prepare_pruned(
@@ -518,7 +574,7 @@ def prepare_pruned(
     lb = _bbox_lb2(qlo, qhi, index.tlo, index.thi)  # (nq, nt)
     return _prepared(
         index, q_pad, query_tile, query_count, lb.contiguous(),
-        ub.contiguous(), qperm,
+        ub.contiguous(), qperm, qinv=torch.argsort(qperm),
     )
 
 
@@ -528,9 +584,10 @@ def prepare_bounded(
 ) -> Prepared:
     """Inputs of the bounded route (:func:`knn_cuda_pruned` on a card in
     the fused design; ``train`` Morton-sorted): the queries along their
-    own Morton curve in blocks of 8 and the index's boxes, no table.  Its
-    plain version is the unpruned search's (:func:`knn_select_plain`), whose
-    candidates the kernel gives bit for bit."""
+    own Morton curve in blocks of 8 (:func:`knn_query_order`) and the
+    index's boxes, no table.  Its plain version is the unpruned search's
+    (:func:`knn_select_plain`), whose candidates the kernel gives bit for
+    bit."""
     _check_count(nn_count, bins)
     index = _index_for(train, train_index, train_tile, bins, True)
     if index.boxes is None:
@@ -538,9 +595,9 @@ def prepare_bounded(
             f"the bounded route takes 1 to {FUSED_MAX_FEAT} features and "
             f"bins in {FUSED_BINS}; this index has {index.tT.shape[0]} "
             f"features and {index.bins} bins")
-    q_pad, qperm = _sorted_queries(queries, _BLOCK_QUERIES)
+    q_pad, qperm, qinv = knn_query_order(queries)
     return _prepared(index, q_pad, _BLOCK_QUERIES, queries.shape[0],
-                     qperm=qperm, boxes=index.boxes)
+                     qperm=qperm, boxes=index.boxes, qinv=qinv)
 
 
 def _merge_decode(s1, s2, nn_count, prep: Prepared):
@@ -624,8 +681,8 @@ def knn_cuda_pruned(
         prep = prepare_pruned(train, queries, nn_count, query_tile,
                               train_tile, bins, subsample, train_index)
     idx, d2 = knn_select(prep, k)
-    qinv = torch.argsort(prep.qperm)
-    return idx[: prep.query_count][qinv], d2[: prep.query_count][qinv]
+    return (idx[: prep.query_count][prep.qinv],
+            d2[: prep.query_count][prep.qinv])
 
 
 def _morton_grid(pts: torch.Tensor, bits: int = 10):

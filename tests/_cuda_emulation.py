@@ -7,8 +7,8 @@ A machine without a card or ``nvcc`` cannot run ``muygpys_torch/gpu/csrc``.
 compiler against a small emulation of the CUDA subset they use: a
 ``std::thread`` per CUDA thread (a launch's threads all on one core),
 ``std::barrier`` for ``__syncthreads`` and
-``__syncwarp``, an exchange slot for the warp shuffles, ballots and
-reductions, a relaxed atomic for ``atomicAdd``, ``memcpy`` for the asynchronous copies, plain loads for the
+``__syncwarp``, an exchange slot for the warp shuffles, ballots, matches
+and reductions, a relaxed atomic for ``atomicAdd``, ``memcpy`` for the asynchronous copies, plain loads for the
 read-only ones, IEEE single operations
 for the round-to-nearest intrinsics (compiled without contraction, so no
 fused multiply-add), and shared memory filled with garbage before each
@@ -85,6 +85,8 @@ inline double rsqrt(double x) { return 1.0 / std::sqrt(x); }
 inline float __fmul_rn(float a, float b) { return a * b; }
 inline float __fadd_rn(float a, float b) { return a + b; }
 inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline int __float2int_rz(float x) { return (int)x; }
 inline int __float_as_int(float x) { int i; std::memcpy(&i, &x, 4); return i; }
 inline float __int_as_float(int i) { float x; std::memcpy(&x, &i, 4); return x; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
@@ -140,6 +142,13 @@ inline unsigned __ballot_sync(unsigned, int pred) {
   warp_gather(pred ? 1.0 : 0.0, all);
   unsigned m = 0;
   for (int l = 0; l < 32; ++l) m |= (all[l] != 0.0 ? 1u : 0u) << l;
+  return m;
+}
+inline unsigned __match_any_sync(unsigned, int v) {
+  double all[32];
+  warp_gather((double)v, all);
+  unsigned m = 0;
+  for (int l = 0; l < 32; ++l) m |= (all[l] == (double)v ? 1u : 0u) << l;
   return m;
 }
 inline int __reduce_add_sync(unsigned, int v) {
@@ -422,7 +431,7 @@ def k5_run(lib, design, ins, m, o, B, batch_last):
 RACE_LAUNCHES = ("k2-registers", "k2-shared", "k2-registers-free-nu",
                  "k5-shared-24", "k5-registers-60", "k5-registers-90",
                  "k3-fused", "k3-keys-pruned", "k3-fused-bounded",
-                 "k3-fused-bounded-rounds",
+                 "k3-fused-bounded-rounds", "k3-query-order",
                  "k1-registers",
                  "k1-registers-gen", "k1b-registers", "k1b-registers-gen",
                  "k4-coeffs")
@@ -453,6 +462,10 @@ def race_launch(lib: str, launch: str) -> None:
         elif launch.endswith("rounds"):
             k3_bounded(lib, k3_segment_problem(70_000, 0, 8), 38,
                        entry="knn_bounded_one_round")
+        elif launch.endswith("order"):
+            rng = np.random.default_rng(0)
+            knn_order_run(lib, torch.as_tensor(
+                rng.uniform(size=(600, 2)).astype(np.float32)))
         elif launch.endswith("pruned"):
             k3_keys(lib, k3_problem(n_train=2048, n_query=16, route="table"))
         else:
@@ -608,6 +621,25 @@ def k3_bounded(lib, prep, k, entry="knn_bounded"):
             boxes.bits, prep.chunk_mask, k, prep.train_count, None)
     assert rc == 0, f"K3 bounded launcher refused: {rc}"
     return idx, d2
+
+
+def knn_order_run(lib, queries):
+    """One launch of the bounded route's query order on the f32 ``(Q, f)``
+    ``queries``: ``(q_pad, qperm, qinv)``, ``q_pad`` edge-padded to a
+    multiple of 8 rows; every output starts as garbage."""
+    from muygpys_torch.gpu import knn as K
+
+    count, feat = queries.shape
+    rows = -(-count // 8) * 8
+    q_pad = torch.full((rows, feat), math.nan, dtype=torch.float32)
+    qperm = torch.full((count,), -1, dtype=torch.int64)
+    qinv = torch.full((count,), -1, dtype=torch.int64)
+    fn = lib.knn_query_order
+    fn.argtypes = K._ORDER_ARGTYPES
+    rc = fn(ptr(queries), ptr(q_pad), ptr(qperm), ptr(qinv), count, feat,
+            rows, None)
+    assert rc == 0, f"knn_query_order launcher refused: {rc}"
+    return q_pad, qperm, qinv
 
 
 def k3_keys(lib, prep):

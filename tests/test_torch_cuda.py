@@ -229,6 +229,46 @@ def test_k3_bounded_route_is_the_unpruned_kernel_at_the_cells_shape(k):
     assert torch.equal(i1, i0) and torch.equal(d1, d0)
 
 
+@pytest.mark.parametrize(
+    "count,d,cluster",
+    [(8192, 2, False), (256, 2, False), (1, 2, False), (8191, 3, False),
+     (4096, 4, False), (256, 2, True)],
+)
+def test_query_order_kernel_is_the_plain_route(count, d, cluster):
+    """The bounded route's query order on the card (one launch of
+    knn_query_order_kernel) gives the plain route's sorted, edge-padded
+    queries, permutation and inverse bit for bit: uniform queries, and
+    (cluster) queries in a cube of side 0.01 as the small cell's."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(count + d)
+    q = torch.rand((count, d), device="cuda", generator=g)
+    if cluster:
+        q = 0.99 * torch.rand(d, device="cuda", generator=g) + 0.01 * q
+    _build.reset_launches()
+    q_pad, qperm, qinv = K.knn_query_order(q)
+    torch.cuda.synchronize()
+    assert _build.launches["knn_query_order"] == 1
+    assert _build.launches["knn_query_order/torch"] == 0
+    want_pad, want_perm = K._sorted_queries(q, 8)
+    assert torch.equal(q_pad, want_pad) and torch.equal(qperm, want_perm)
+    assert torch.equal(qinv, torch.argsort(want_perm))
+
+
+def test_query_order_past_the_cap_is_plain_pytorch():
+    """Past ORDER_CAP queries the order is the plain route's, counted as
+    left to PyTorch."""
+    _need_card()
+    q = torch.rand((K.ORDER_CAP + 1, 2), device="cuda")
+    _build.reset_launches()
+    q_pad, qperm, qinv = K.knn_query_order(q)
+    torch.cuda.synchronize()
+    assert _build.launches["knn_query_order"] == 0
+    assert _build.launches["knn_query_order/torch"] == 1
+    want_pad, want_perm = K._sorted_queries(q, 8)
+    assert torch.equal(q_pad, want_pad) and torch.equal(qperm, want_perm)
+    assert torch.equal(qinv, torch.argsort(want_perm))
+
+
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 @pytest.mark.parametrize("smoothness", [1.5, "gen"])
 def test_k1_both_designs_agree_and_registers_refuse_n33(smoothness, dtype):

@@ -220,6 +220,74 @@ def test_shard_boxes_take_the_sort_grid():
         assert torch.equal(own.grid, torch.cat(tknn._morton_grid(shard)[:2]))
 
 
+@pytest.mark.parametrize(
+    "device,count,feat,route",
+    [("cuda", 8192, 2, "kernel"),   # the bulk and fast-mean buckets
+     ("cuda", 256, 2, "kernel"),    # the small bucket
+     ("cuda", 1, 1, "kernel"),
+     ("cuda", 8191, 3, "kernel"),
+     ("cuda", 4096, 4, "kernel"),
+     ("cuda", 8193, 2, "torch"),    # past one block's shared memory
+     ("cuda", 50_000, 2, "torch"),  # NN_Wrapper's batch searches
+     ("cuda", 0, 2, "torch"),
+     ("cuda", 256, 5, "torch"),
+     ("cpu", 256, 2, "torch"),
+     ("cpu", 8192, 2, "torch")],
+)
+def test_query_order_route_rule(device, count, feat, route):
+    """The bounded route orders its queries by the kernel on a card at 1 to
+    4 features and 1 to ORDER_CAP queries, else by plain PyTorch."""
+    assert tknn.ORDER_CAP == 8192
+    assert tknn.query_order_route(count, feat, device) == route
+    assert tknn.query_order_route(count, feat, torch.device(device)) == route
+
+
+@pytest.mark.parametrize("route", ["bounded", "table"])
+def test_query_inverse_composes_to_the_identity(problem, route):
+    """Both pruned searches carry the queries' permutation and its inverse:
+    each composed with the other is the identity."""
+    train, queries = problem
+    ts = torch.as_tensor(train)[tknn.spatial_sort(torch.as_tensor(train))]
+    q = torch.as_tensor(queries)
+    prep = (tknn.prepare_bounded(ts, q, 40, GEOM["train_tile"], GEOM["bins"])
+            if route == "bounded" else tknn.prepare_pruned(ts, q, 40, **GEOM))
+    ident = torch.arange(len(queries))
+    assert prep.qinv.dtype == prep.qperm.dtype == torch.int64
+    assert torch.equal(prep.qperm[prep.qinv], ident)
+    assert torch.equal(prep.qinv[prep.qperm], ident)
+
+
+def test_query_order_on_the_cpu_is_the_plain_sort(problem):
+    """knn_query_order on CPU tensors: the plain sort, padded to blocks of
+    8, and argsort's inverse; no launch, and no order counted as left to
+    PyTorch on a card."""
+    _, queries = problem
+    q = torch.as_tensor(queries)
+    _build.reset_launches()
+    q_pad, qperm, qinv = tknn.knn_query_order(q.double())
+    assert sum(_build.launches.values()) == 0
+    want_pad, want_perm = tknn._sorted_queries(q, 8)
+    assert q_pad.dtype == torch.float32 and q_pad.shape == (264, 3)
+    assert torch.equal(q_pad, want_pad) and torch.equal(qperm, want_perm)
+    assert torch.equal(qinv, torch.argsort(want_perm))
+
+
+def test_pruned_search_on_the_cpu_is_unchanged(problem):
+    """knn_cuda_pruned on the CPU: the skip table's candidates of the sorted
+    queries, mapped back by the argsort of the permutation, as before the
+    queries' inverse rode in the prepared search; no launch counted."""
+    train, queries = problem
+    ts = torch.as_tensor(train)[tknn.spatial_sort(torch.as_tensor(train))]
+    _build.reset_launches()
+    idx, d2 = tknn.knn_cuda_pruned(ts, queries, 40, device="cpu", **GEOM)
+    assert sum(_build.launches.values()) == 0
+    prep = tknn.prepare_pruned(ts, torch.as_tensor(queries), 40, **GEOM)
+    i0, d0 = tknn.knn_select(prep, 40)
+    back = torch.argsort(prep.qperm)
+    assert torch.equal(idx, i0[: len(queries)][back])
+    assert torch.equal(d2, d0[: len(queries)][back])
+
+
 def test_train_index_refuses_another_geometry(problem):
     train, queries = problem
     index = tknn.build_index(torch.as_tensor(train), 1024, 512)

@@ -154,7 +154,8 @@ def test_launch_counters_reset():
         "fused_train_stats",
         "fused_train_stats/registers", "fused_train_stats/shared",
         "multiout_solve", "multiout_solve/registers", "multiout_solve/shared",
-        "matern_nu_coeffs", "knn_exact_select",
+        "matern_nu_coeffs", "knn_exact_select", "knn_query_order",
+        "knn_query_order/torch",
     }
     assert all(v == 0 for v in _build.launches.values())
 
