@@ -59,11 +59,14 @@ EXTRA_FLAGS = {"matern_nu_coeffs": ("-fmad=false",)}
 # "knn_candidates" and "knn_candidates_pruned" count its two variants,
 # "knn_candidates/<design>" the designs of both variants; the bounded
 # route's query order: "knn_query_order" the kernel's launches,
-# "knn_query_order/torch" the orders a card left to plain PyTorch)
+# "knn_query_order/torch" the orders a card left to plain PyTorch;
+# "fused_predict_coords/gen" the K1 launches, of either design, that
+# evaluate a general Matern order through K4's coefficients)
 launches: Dict[str, int] = {
     "fused_predict_coords": 0,
     "fused_predict_coords/registers": 0,
     "fused_predict_coords/shared": 0,
+    "fused_predict_coords/gen": 0,
     "fused_predict": 0,
     "fused_predict/registers": 0,
     "fused_predict/shared": 0,

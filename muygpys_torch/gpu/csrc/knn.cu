@@ -70,7 +70,12 @@
 // A block owns 8 Morton-consecutive queries:
 //   1. Home: warp w finds the box holding query w's Morton code on the
 //      index's grid (32 probes a step, as csrc/knn_exact.cu does), and the
-//      block walks these boxes, each once.
+//      block walks these boxes and the boxes on either side of each, each
+//      once.  A box that straddles a jump of the curve spans two distant
+//      runs of rows; a query on its short run would draw its tau from the
+//      far one, and its block would walk every box within that tau (up to
+//      a third of 3,912).  The rows that continue its run lie in the box
+//      next to it.
 //   2. tau: warp w runs the selection's top radix passes (bits 30 down to
 //      kSplit) over query w's kept keys: v, the top bits of its k-th
 //      smallest kept key; tau_w = __int_as_float(v | (2^kSplit - 1)), the
@@ -544,12 +549,25 @@ __global__ void __launch_bounds__(kThreads) knn_bounded_kernel(
     if (lane == 0) home[warp] = lo;
   }
   __syncthreads();
+  // the home walk: box home[i / 3] - 1 + i % 3 for i < 3 kTQ, where it is in
+  // range and not walked for an earlier query; each warp finds the same
+  // boxes by one ballot (lane i tests candidate i), and one loop, not
+  // unrolled, walks them (nested loops over t and the three boxes, unrolled,
+  // took 210 registers in place of 128 on an H100 and slowed every walk)
+  static_assert(3 * kTQ <= 32, "a lane a candidate box");
+  unsigned todo;
+  {
+    const int t = min(lane / 3, kTQ - 1), j = home[t] - 1 + lane % 3;
+    bool take = lane < 3 * kTQ && j >= 0 && j < nb;
+    for (int u = 0; u < t; ++u) take &= abs(home[u] - j) > 1;
+    todo = __ballot_sync(kFull, take);
+  }
   int walked = 0;
-  for (int t = 0; t < kTQ; ++t) {
-    bool seen = false;
-    for (int u = 0; u < t; ++u) seen |= home[u] == home[t];
-    if (seen) continue;
-    walk_box<FEAT, BPT>(qc, qn, k1, k2, tT, tsq, t_count, home[t], tid, chunk_mask);
+#pragma unroll 1
+  for (; todo != 0u; todo &= todo - 1u) {
+    const int i = __ffs(todo) - 1;
+    walk_box<FEAT, BPT>(qc, qn, k1, k2, tT, tsq, t_count, home[i / 3] - 1 + i % 3, tid,
+                        chunk_mask);
     ++walked;
   }
 
@@ -586,7 +604,7 @@ __global__ void __launch_bounds__(kThreads) knn_bounded_kernel(
   for (int base = 0; base < nb; base += kThreads) {
     const int j = base + tid;
     bool keep = j < nb;
-    for (int t = 0; keep && t < kTQ; ++t) keep = home[t] != j;
+    for (int t = 0; keep && t < kTQ; ++t) keep = abs(home[t] - j) > 1;
     if (keep) {
       float lo[FEAT], hi[FEAT];
 #pragma unroll

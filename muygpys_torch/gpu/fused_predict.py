@@ -189,6 +189,8 @@ def _launch(nf, q, y, params, noise_nn, gen, code, metric_power,
         )
     _build.check(rc, "fused_predict", "fused_predict_coords")
     _build.count("fused_predict_coords", f"fused_predict_coords/{design}")
+    if smoothness == "gen":
+        _build.count("fused_predict_coords/gen")
     return mean, var
 
 

@@ -656,10 +656,10 @@ def knn_cuda_pruned(
       ``k <= 64``, ``bins`` in {256, 512, 1024}), the bounded route
       (:func:`prepare_bounded`, ``csrc/knn.cu:knn_bounded_kernel``): each
       block of 8 queries walks the boxes of :data:`BOX` columns holding its
-      queries, bounds each query's k-th key from above by the top bits of
-      its k-th smallest kept key (tau), and walks only the boxes whose
-      lower bound, less an allowance for the kernel's own rounding, does
-      not exceed tau.  A skipped column can neither enter the k selected
+      queries and the boxes on either side of each, bounds each query's
+      k-th key from above by the top bits of its k-th smallest kept key
+      (tau), and walks only the boxes whose lower bound, less an
+      allowance for the kernel's own rounding, does not exceed tau.  A skipped column can neither enter the k selected
       nor displace one that does, so the candidates are the unpruned
       kernel's bit for bit (the argument and the allowance:
       ``csrc/knn.cu``'s header);

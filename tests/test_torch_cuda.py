@@ -54,11 +54,14 @@ def test_k1_kernel_matches_plain(smoothness, power, hetero, dtype):
     y = torch.randn((n, r, B), **opts).to(dtype)
     params = torch.tensor([0.5, 0.7, 0.9, 1e-3], dtype=dtype, device="cuda")
     noise_nn = (torch.rand((n, B), **opts) * 1e-2).to(dtype) if hetero else None
-    before = _build.launches["fused_predict_coords"]
+    before = dict(_build.launches)
     mk, vk = fused_predict_coords_bl(
         nf, q, y, params, noise_nn, smoothness=smoothness, metric_power=power
     )
-    assert _build.launches["fused_predict_coords"] == before + 1
+    assert _build.launches["fused_predict_coords"] == (
+        before["fused_predict_coords"] + 1)
+    assert _build.launches["fused_predict_coords/gen"] == (
+        before["fused_predict_coords/gen"])
     mp, vp = fused_predict_coords_bl_plain(
         nf, q, y, params, noise_nn, smoothness=smoothness, metric_power=power
     )
@@ -97,12 +100,13 @@ def test_k1_gen_kernel_matches_plain(nu, dtype):
     params = torch.tensor([0.5, 0.7, 0.9, 1e-3], dtype=dtype, device="cuda")
     noise_nn = (torch.rand((n, B), **opts) * 1e-2).to(dtype)
     co = _gen_coeffs(nu, dtype)
-    before = _build.launches["fused_predict_coords"]
+    before = dict(_build.launches)
     mk, vk = fused_predict_coords_bl(
         nf, q, y, params, noise_nn, gen_coeffs=co, smoothness="gen"
     )
     torch.cuda.synchronize()
-    assert _build.launches["fused_predict_coords"] == before + 1
+    for name in ("fused_predict_coords", "fused_predict_coords/gen"):
+        assert _build.launches[name] == before[name] + 1, name
     mp, vp = fused_predict_coords_bl_plain(
         nf, q, y, params, noise_nn, gen_coeffs=co, smoothness="gen"
     )

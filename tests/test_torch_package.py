@@ -139,16 +139,17 @@ def test_sources_are_present():
 
 
 def test_launch_counters_reset():
-    """One count per kernel, and one per design of K1, K1b, K2, K3 and K5;
-    ``count`` adds one to each name it is given, and a reset zeroes them
-    all."""
+    """One count per kernel, one per design of K1, K1b, K2, K3 and K5, and
+    one of K1's general-order launches; ``count`` adds one to each name it
+    is given, and a reset zeroes them all."""
     before = _build.launches["knn_candidates"]
     _build.count("knn_candidates", "knn_candidates")
     assert _build.launches["knn_candidates"] == before + 2
     _build.reset_launches()
     assert set(_build.launches) == {
         "fused_predict_coords", "fused_predict_coords/registers",
-        "fused_predict_coords/shared", "fused_predict",
+        "fused_predict_coords/shared", "fused_predict_coords/gen",
+        "fused_predict",
         "fused_predict/registers", "fused_predict/shared", "knn_candidates",
         "knn_candidates_pruned", "knn_candidates/fused", "knn_candidates/keys",
         "fused_train_stats",
